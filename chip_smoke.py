@@ -1,0 +1,354 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`cholesky_tpu_torch`) on one NVIDIA
+GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device: the card (and `nvidia-smi` name + power limit on its own line);
+  2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
+             csrc` with nvcc, build seconds and the `-Xptxas -v` report;
+  3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
+             blocks (errors against an f64 reference) and timed at the main
+             path's shape; `factor_slab` with the kernel vs the plain
+             composite at the 50^3 leaf slab [128, 1440, 864];
+  4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
+  5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
+             levels of nested dissection (125,000 dofs): from_coo ->
+             factorize -> three solves, with per-level routing, walls,
+             refinement sweeps, peak memory and f64 SciPy residuals. Kernel
+             launch counts are reset just before and read just after;
+  6. profile: the warm slice's per-level factor times (CUDA events) and,
+             under torch.profiler, the factor's and one solve's device busy
+             time, idle share and top kernels.
+Then the kernels' summary line and, last, {"ok": true, "device": ...}.
+
+Exits nonzero, without the last line, when there is no CUDA device, when
+the package cannot be imported, or when any phase fails.
+"""
+
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+TOL = 1e-10                        # the solver's relative-residual contract
+L_REL_TOL = 1e-4                   # kernel vs plain, L (f32)
+INV_REL_TOL = 1e-3                 # kernel vs plain, inv(L) (f32)
+SLAB_REL_TOL = 1e-4                # factor_slab, kernel vs plain (f32)
+SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
+SEED = 0                           # random blocks, slabs and right-hand sides
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of fn() in ms, by CUDA events after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(x, ref) -> float:
+    return float((x.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+
+def phase_build():
+    from cholesky_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    for name in build.KERNELS:
+        build.load(name)
+    seconds = time.perf_counter() - t0
+    info = {name: {"nvcc_s": round(build.BUILD_INFO[name]["seconds"], 3),
+                   "cached": build.BUILD_INFO[name]["cached"],
+                   "ptxas": [ln.strip() for ln in
+                             build.BUILD_INFO[name]["ptxas"].splitlines()
+                             if "Used" in ln or "spill" in ln]}
+            for name in build.KERNELS}
+    emit({"phase": "build", "seconds": round(seconds, 3), "kernels": info})
+
+
+def phase_kernel():
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(300, 128, 128, generator=gen, device=dev)
+    eye = torch.eye(128, device=dev)
+    d = g @ g.transpose(1, 2) / 128 + 0.5 * eye
+    d[-1, 72:, :] = 0.0                 # one identity-padded block
+    d[-1, :, 72:] = 0.0
+    d[-1, 72:, 72:] = eye[72:, 72:]
+    l_k, m_k = hk.chol_inv(d)
+    l_p, m_p = hk.chol_inv_ref(d)
+    l_64, m_64 = hk.chol_inv_ref(d.double())
+    torch.cuda.synchronize()
+    errs = {"L_vs_f64": rel_err(l_k, l_64), "inv_vs_f64": rel_err(m_k, m_64),
+            "plain_L_vs_f64": rel_err(l_p, l_64),
+            "plain_inv_vs_f64": rel_err(m_p, m_64),
+            "L_vs_plain": rel_err(l_k, l_p), "inv_vs_plain": rel_err(m_k, m_p)}
+    max_abs = float(max((l_k - l_p).abs().max(), (m_k - m_p).abs().max()))
+    check(bool(torch.isfinite(l_k).all() and torch.isfinite(m_k).all()),
+          "chol_inv produced non-finite values")
+    check(errs["L_vs_plain"] <= L_REL_TOL,
+          f"chol_inv L differs from plain: {errs['L_vs_plain']}")
+    check(errs["inv_vs_plain"] <= INV_REL_TOL,
+          f"chol_inv inv(L) differs from plain: {errs['inv_vs_plain']}")
+    # time at the main path's shape: a 128-front level's diagonal blocks
+    d128 = d[:128].contiguous()
+    ms = cuda_ms(lambda: hk.chol_inv(d128), iters=20)
+    plain_ms = cuda_ms(lambda: hk.chol_inv_ref(d128), iters=20)
+    emit({"phase": "kernel", "name": "chol_inv", "shape": [300, 128, 128],
+          **errs, "max_abs_err": max_abs, "tol_L": L_REL_TOL,
+          "tol_inv": INV_REL_TOL, "timed_shape": [128, 128, 128],
+          "ms": ms, "plain_ms": plain_ms})
+
+    # factor_slab at the 50^3 leaf level: kernel vs the plain composite
+    B, F, W = 128, 1440, 864
+    a = 0.01 * torch.randn(B, F, W, generator=gen, device=dev)
+    a[:, :W, :] += 2.0 * torch.eye(W, device=dev)
+    f_k = hk.factor_slab(a, W)
+    f_p = hk.factor_slab(a, W, block_fn=hk.chol_inv_ref)
+    torch.cuda.synchronize()
+    slab_err = rel_err(f_k, f_p)
+    check(bool(torch.isfinite(f_k).all()), "factor_slab non-finite")
+    check(slab_err <= SLAB_REL_TOL, f"factor_slab differs: {slab_err}")
+    slab_ms = cuda_ms(lambda: hk.factor_slab(a, W), iters=5)
+    slab_plain_ms = cuda_ms(
+        lambda: hk.factor_slab(a, W, block_fn=hk.chol_inv_ref), iters=5)
+    emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
+          "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
+          "ms": slab_ms, "plain_ms": slab_plain_ms})
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def _scipy_matrix(n, rows, cols, vals):
+    import numpy as np
+    import scipy.sparse as sp
+
+    lower = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    return (lower + lower.T - sp.diags(lower.diagonal())).tocsr().astype(
+        np.float64)
+
+
+def phase_small():
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from cholesky_tpu.utils.laplacian import generate_problem
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    n, r, c, v, o, cl, b = generate_problem((15, 15, 15), 5)
+    # default routing (no level is kernel-eligible at this size), then every
+    # level with W >= 128 (levels 0 and 4) forced through the kernel
+    rule = (hk.MIN_B, hk.W_PER_B)
+    for routing, (min_b, w_per_b) in (("default", rule),
+                                      ("kernel", (1, 1 << 20))):
+        hk.MIN_B, hk.W_PER_B = min_b, w_per_b
+        try:
+            s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                        device="cuda")
+            s.factorize()
+            x = s.solve(b)
+        finally:
+            hk.MIN_B, hk.W_PER_B = rule
+        a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+        x_ref = spla.spsolve(a.tocsc(), b)
+        err = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+        res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+        check(err <= SMALL_REL_TOL, f"15^3 ({routing}) differs from SciPy: "
+              f"{err}")
+        check(res <= TOL, f"15^3 ({routing}) residual {res}")
+        emit({"phase": "small", "problem": "15^3 L5", "routing": routing,
+              "n": n, "rel_err_vs_scipy": err, "residual": res,
+              **s.last_solve})
+
+
+def phase_slice():
+    import numpy as np
+    import torch
+
+    from cholesky_tpu.utils.laplacian import generate_problem
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    t0 = time.perf_counter()
+    n, r, c, v, o, cl, b0 = generate_problem((50, 50, 50), 8, seed=SEED)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    fp = s.fplan
+    plan_s = time.perf_counter() - t0
+    routes = [{"lvl": lvl, "B": 1 << lvl, "F": fp.F[lvl], "W": fp.W[lvl],
+               "route": ("kernel" if hk.slab_kernel_eligible(
+                   1 << lvl, fp.W[lvl], torch.float32) else "plain")}
+              for lvl in range(fp.levels)]
+    emit({"phase": "plan", "problem": "50^3 L8", "n": n, "nnz_lower":
+          int(len(s.vals)), "host_plan_s": plan_s, "levels": routes})
+    check([x["lvl"] for x in routes if x["route"] == "kernel"] == [5, 6, 7],
+          "expected the kernel route on levels 5-7")
+
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):                  # cold (first use), then warm
+        t = time.perf_counter()
+        s.factorize()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+    solves = []
+    for i in range(3):
+        b = b0 if i == 0 else np.random.default_rng(SEED + i).integers(
+            1, 11, size=n).astype(np.float64)
+        t = time.perf_counter()
+        x = s.solve(b, tol=TOL)
+        wall = time.perf_counter() - t
+        res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+        check(bool(np.all(np.isfinite(x))) and x.shape == (n,),
+              "solution not finite or of the wrong shape")
+        check(res <= TOL, f"solve {i}: residual {res} > {TOL}")
+        solves.append({"wall_s": wall, "residual": res, **s.last_solve})
+    launches = dict(hk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["chol_inv"] > 0, "main path launched no chol_inv kernel")
+    emit({"phase": "slice", "problem": "50^3 L8", "n": n,
+          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1],
+          "solves": solves, "max_memory_allocated": peak,
+          "launches": launches})
+    return launches, s, b0
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def phase_profile(s, b):
+    """Where the time goes in the warm slice: per-level factor times by CUDA
+    events, then torch.profiler over one factorization and one solve
+    (device busy and idle share, top kernels by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_tpu_torch.numeric import frontal as tfrontal
+
+    fp = s.fplan
+    fronts = s.assemble()
+    torch.cuda.synchronize()
+    marks = {}
+    U = None
+    for lvl in range(fp.levels - 1, -1, -1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, U = tfrontal._factor_level(fp, lvl, fronts[lvl], U)
+        e1.record()
+        marks[lvl] = (e0, e1)
+    torch.cuda.synchronize()
+    emit({"phase": "profile", "what": "factor per level (CUDA events)",
+          "level_ms": [marks[lvl][0].elapsed_time(marks[lvl][1])
+                       for lvl in range(fp.levels)]})
+
+    for what, fn in (("factor", s.factorize), ("solve", lambda: s.solve(b))):
+        fn()                                    # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        rows = sorted(((e.key, _device_us(e) / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda x: -x[1])
+        busy_ms = sum(r[1] for r in rows)
+        emit({"phase": "profile", "what": what, "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "device_idle_share": 1.0 - busy_ms / wall_ms,
+              "kernel_launches": sum(r[2] for r in rows),
+              "top": [{"kernel": k[:80], "ms": ms, "count": c}
+                      for k, ms, c in rows[:12]]})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    try:
+        import cholesky_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: cannot import cholesky_tpu_torch: {e}",
+              file=sys.stderr)
+        return 2
+    try:
+        phase_device()
+        phase_build()
+        kern = phase_kernel()
+        phase_small()
+        launches, solver, b = phase_slice()
+        phase_profile(solver, b)
+    except Exception:  # noqa: BLE001 — report the failing phase, exit 1
+        traceback.print_exc()
+        return 1
+    emit({"kernels": [{
+        "name": "chol_inv", "route": "cuda",
+        "source": "cholesky_tpu_torch/kernels/csrc/chol_inv.cu",
+        "replaces": "cholesky_tpu/numeric/pallas_kernels.py:66",
+        "launches": launches["chol_inv"],
+        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"]}]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

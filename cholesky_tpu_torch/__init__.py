@@ -1,0 +1,21 @@
+"""cholesky_tpu_torch — the PyTorch/CUDA port of `cholesky_tpu`, for NVIDIA
+Hopper (H100).
+
+The single-device, in-core SPD solve: plan (the JAX-free host layer of
+`cholesky_tpu`: io, symbolic, utils), device assembly, batched multifrontal
+factorization with a hand-written CUDA Cholesky/inverse kernel on the
+high-batch levels, and iterative refinement with a double-float residual.
+
+  api.py                   SparseCholesky, solve_spd
+  convert.py               carry a factor across from the JAX package
+  numeric/frontal_plan.py  host frontal analysis (NumPy)
+  numeric/assemble.py      device assembly
+  numeric/frontal.py       per-level factorization, banded solve chain
+  numeric/hopper_kernels.py  chol_inv kernel wrapper, factor_slab
+  numeric/refine.py        double-float iterative refinement
+  kernels/                 CUDA sources and their nvcc build
+"""
+
+__version__ = "0.1.0"
+
+from cholesky_tpu_torch.api import SparseCholesky, solve_spd  # noqa: E402,F401

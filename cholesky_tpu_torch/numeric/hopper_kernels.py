@@ -1,0 +1,129 @@
+"""The factorization's hand-written Hopper kernel and the composite around it
+— the port's counterpart of `cholesky_tpu/numeric/pallas_kernels.py`.
+
+  * `chol_inv`   <- `chol_inv_lanes` (`pallas_kernels.py:92-116`, kernel
+                    body `:66-89`): batched Cholesky + inv(L) of [B, 128, 128]
+                    f32 blocks, by the CUDA kernel `kernels/csrc/chol_inv.cu`.
+  * `chol_inv_ref` the plain PyTorch version of the same function.
+  * `factor_slab` <- `factor_slab_lanes` (`:119-170`): the left-looking
+                    blocked partial factorization of a pivot slab.
+  * `slab_kernel_eligible` <- `lanes_eligible` (`:191-211`): which levels
+                    route through `factor_slab`.
+
+Dispatch is by the tensor's device: a CPU tensor takes `chol_inv_ref` (the
+CPU tests run the same control flow as the card), a CUDA tensor always
+launches the kernel, and a build or launch failure raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BS = 128                        # panel width = the kernel's block size
+
+# Routing constants, kept from the JAX package so that the same levels
+# route in both packages: a batch of at least MIN_B fronts, and
+# B * W_PER_B >= W (the TPU's measured crossover). They are to be refitted
+# from timings on the card.
+MIN_B = 32
+W_PER_B = 16
+
+# Launches of each kernel, counted where the kernel is launched.
+LAUNCHES = {"chol_inv": 0}
+
+_FN = None
+
+
+def _chol_inv_fn():
+    global _FN
+    if _FN is None:
+        from cholesky_tpu_torch.kernels import build
+
+        fn = build.load("chol_inv").chol_inv_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def chol_inv_ref(d: torch.Tensor):
+    """Plain PyTorch Cholesky + lower-triangular inverse of a batch of SPD
+    blocks (lower triangle read). Returns (L, inv(L)), both lower."""
+    L, _ = torch.linalg.cholesky_ex(d)
+    eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+    return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def chol_inv(d: torch.Tensor):
+    """Batched Cholesky + lower-triangular inverse of [B, 128, 128] SPD
+    blocks. Returns (L, inv(L)), both [B, 128, 128] lower with zeros above
+    the diagonal. CUDA tensors go to the hand-written kernel (f32,
+    contiguous); CPU tensors to `chol_inv_ref`."""
+    if d.device.type == "cpu":
+        return chol_inv_ref(d)
+    if d.device.type != "cuda":
+        raise ValueError(f"chol_inv: unsupported device {d.device}")
+    if d.dtype != torch.float32:
+        raise ValueError(f"chol_inv: kernel takes float32, got {d.dtype}")
+    if d.dim() != 3 or tuple(d.shape[1:]) != (BS, BS):
+        raise ValueError(f"chol_inv: expected [B, {BS}, {BS}], got "
+                         f"{tuple(d.shape)}")
+    if not d.is_contiguous():
+        raise ValueError("chol_inv: input must be contiguous")
+    fn = _chol_inv_fn()
+    l = torch.empty_like(d)
+    m = torch.empty_like(d)
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = fn(d.data_ptr(), l.data_ptr(), m.data_ptr(), d.shape[0],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"chol_inv: kernel launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES["chol_inv"] += 1
+    return l, m
+
+
+def factor_slab(a: torch.Tensor, W: int, block_fn=chol_inv) -> torch.Tensor:
+    """Blocked LEFT-looking partial factorization of the pivot-column slab
+    [B, F, W]: rows [:W] become the pivot Cholesky, rows [W:] the solved
+    boundary strip. Per 128-wide panel: one batched GEMM of all past column
+    blocks, the diagonal block through `block_fn` (Cholesky + inverse), then
+    `below @ inv(d)^T`. A tail panel narrower than 128 is identity-padded to
+    128 (the Cholesky of blockdiag(d, I) is blockdiag(chol(d), I), exactly).
+
+    The factored column blocks are written straight into the output, so
+    `out[:, c0:, :c0]` is the JAX version's concatenation of past blocks.
+    `block_fn=chol_inv_ref` gives the plain composite."""
+    B, F, Wc = a.shape
+    if Wc != W:
+        raise ValueError(f"factor_slab: slab width {Wc} != W {W}")
+    out = torch.zeros_like(a)
+    for c0 in range(0, W, BS):
+        w = min(BS, W - c0)
+        pan = a[:, c0:, c0:c0 + w]
+        if c0 > 0:
+            past = out[:, c0:, :c0]
+            pan = pan - past @ past[:, :w, :].transpose(1, 2)
+        if w == BS:
+            ld, dinv = block_fn(pan[:, :w, :w].contiguous())
+        else:
+            d_pad = torch.eye(BS, dtype=a.dtype, device=a.device).repeat(
+                B, 1, 1)
+            d_pad[:, :w, :w] = pan[:, :w, :w]
+            ld, dinv = block_fn(d_pad)
+            ld, dinv = ld[:, :w, :w], dinv[:, :w, :w]
+        out[:, c0:c0 + w, c0:c0 + w] = ld
+        out[:, c0 + w:, c0:c0 + w] = pan[:, w:, :] @ dinv.transpose(1, 2)
+    return out
+
+
+def slab_kernel_eligible(B: int, W: int, dtype) -> bool:
+    """Route a level through `factor_slab`: f32, at least one full
+    128-panel, and a batch of at least max(MIN_B, W / W_PER_B) fronts. The
+    rule does not depend on the device."""
+    return (dtype == torch.float32 and W >= BS and B >= MIN_B
+            and B * W_PER_B >= W)

@@ -1,0 +1,191 @@
+"""Mixed-precision iterative refinement with a double-float (f32-pair)
+compensated sparse residual — the single-RHS part of
+`cholesky_tpu/numeric/refine.py` (`:65-413`).
+
+An fp32 factor reaches the 1e-10 residual contract when the residual is
+computed to ~1e-14: every value is an (hi, lo) pair of f32, products use
+Dekker's TwoProd and sums Knuth's TwoSum. The matrix is held in ELL form
+([n, K] column indices + f32 hi/lo value planes, rows padded with a sentinel
+column whose x is 0).
+
+Each Dekker/Knuth step is its own eager tensor op. Do not run these under
+`torch.compile` or any fusing compiler: a fused multiply-add breaks TwoProd.
+
+The loop is a Python loop with one host read of the residual norm per
+sweep. It stops on the tolerance or on stagnation (a sweep that does not
+halve the residual norm: the double-float floor is reached).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from cholesky_tpu_torch.numeric import frontal
+from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
+
+_SPLIT = 4097.0                    # Dekker split constant for f32: 2^12 + 1
+
+# beyond this max row degree the ELL form is too padded to be worthwhile;
+# the caller then refines on the host
+ELL_MAX_K = 96
+
+
+def _two_sum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly (6 flops, branch-free)."""
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    return s, e
+
+
+def _split(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    """Dekker TwoProd: p + e == a * b exactly (no FMA)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, e
+
+
+def split_f64(x64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Split an f64 array into an (hi, lo) f32 pair with hi+lo == x64 to
+    f32(lo) rounding (~2^-49 relative)."""
+    hi = x64.astype(np.float32)
+    lo = (x64 - hi.astype(np.float64)).astype(np.float32)
+    return hi, lo
+
+
+def build_ell(n: int, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
+    """Pack a symmetrized COO matrix into ELL planes for the double-float
+    matvec: (idx [n, K] int32 with sentinel n, a_hi [n, K] f32, a_lo [n, K]
+    f32). Returns None when the max row degree exceeds ELL_MAX_K."""
+    counts = np.bincount(rows, minlength=n)
+    K = int(counts.max()) if len(counts) else 0
+    if K > ELL_MAX_K:
+        return None
+    order = np.argsort(rows, kind="stable")
+    slot = np.arange(len(rows)) - np.concatenate(
+        [[0], np.cumsum(counts)])[rows[order]]
+    idx = np.full((n, K), n, dtype=np.int32)
+    a64 = np.zeros((n, K), dtype=np.float64)
+    idx[rows[order], slot] = cols[order].astype(np.int32)
+    a64[rows[order], slot] = vals[order]
+    a_hi, a_lo = split_f64(a64)
+    return idx, a_hi, a_lo
+
+
+def pad_ell(fp: FrontalPlan, ell):
+    """Relabel ELL planes of the symmetrized PERMUTED matrix into the banded
+    padded basis (`frontal_plan._banded_maps`): rows reordered to padded
+    positions (pad rows all-sentinel/zero), column ids relabeled, one extra
+    all-sentinel row n_pad so the refinement loop's state vectors carry
+    their zero slot inline."""
+    idx, a_hi, a_lo = ell
+    n, K = idx.shape
+    n_pad, _, inv_map, pad_of, _ = _banded_maps(fp)
+    pad_ext = np.concatenate([pad_of, [n_pad]]).astype(np.int32)  # sent n
+    idx_p = np.full((n_pad + 1, K), n_pad, dtype=np.int32)
+    a_hi_p = np.zeros((n_pad + 1, K), dtype=np.float32)
+    a_lo_p = np.zeros((n_pad + 1, K), dtype=np.float32)
+    real = inv_map < n                                 # [n_pad]
+    src = inv_map[real]
+    rows = np.nonzero(real)[0]
+    idx_p[rows] = pad_ext[idx[src]]
+    a_hi_p[rows] = a_hi[src]
+    a_lo_p[rows] = a_lo[src]
+    return idx_p, a_hi_p, a_lo_p
+
+
+def df_matvec(idx, a_hi, a_lo, x_hi, x_lo):
+    """y = A @ x in double-float. One 2-D gather per call fetches all
+    [n, K] operands, then the products and the TwoSum accumulation fold are
+    elementwise. `idx` is int64; x planes are length n+1 with a trailing
+    zero (the sentinel slot)."""
+    K = idx.shape[1]
+    if K == 0:
+        z = x_hi.new_zeros(idx.shape[0])
+        return z, z
+    xg = torch.stack([x_hi, x_lo], dim=-1)[idx]         # [n, K, 2]
+    xh = xg[..., 0]
+    xl = xg[..., 1]
+    p, pe = _two_prod(a_hi, xh)
+    # cross terms are O(eps * |a x|); their own rounding is O(eps^2)
+    cross = a_hi * xl + a_lo * xh
+    e_all = pe + cross
+    s = p[:, 0]
+    c = e_all[:, 0]
+    for k in range(1, K):
+        s, se = _two_sum(s, p[:, k])
+        c = c + (se + e_all[:, k])
+    return s, c
+
+
+def _df_add(a_hi, a_lo, b_hi, b_lo):
+    """(a) + (b) in double-float with renormalization."""
+    s, e = _two_sum(a_hi, b_hi)
+    lo = e + (a_lo + b_lo)
+    hi, lo = _two_sum(s, lo)
+    return hi, lo
+
+
+def _rnorm(r_hi: torch.Tensor) -> float:
+    """Scaled 2-norm: residual entries underflow f32 squares near
+    convergence, so normalize by the max magnitude first. The one host read
+    of a sweep."""
+    m = torch.clamp(r_hi.abs().max(), min=1e-30)
+    return float(m * torch.linalg.vector_norm(r_hi / m))
+
+
+def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
+                     inv_pivots: Sequence[torch.Tensor], b64: np.ndarray,
+                     ell_pad, tol: float = 1e-12, max_iter: int = 40):
+    """IR with f32 banded solves (explicit pivot inverses) and double-float
+    residuals, all in the banded padded basis. `b64` is the PERMUTED f64
+    RHS [n]; `ell_pad` the `pad_ell` planes on the factors' device (idx as
+    int64). Returns (x_perm64, sweeps, rn_rel): the f64 solution in
+    permuted order, the sweep count, and the loop's own (double-float)
+    estimate of the final RELATIVE residual."""
+    device = factors[0].device
+    b64 = np.asarray(b64, np.float64)
+    n = b64.shape[0]
+    bnorm = float(np.linalg.norm(b64))
+    _, _, inv_map, _, _ = _banded_maps(fp)
+    b_pad = np.concatenate([b64, [0.0]])[np.concatenate([inv_map, [n]])]
+    bs = torch.from_numpy(np.stack(split_f64(b_pad))).to(device)  # one upload
+    b_hi, b_lo = bs[0], bs[1]
+    idx, a_hi, a_lo = ell_pad
+    tol_abs = float(np.float32(tol * bnorm))
+
+    def solve(rhs):
+        return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
+
+    def resid(x_hi, x_lo):
+        # state vectors carry their zero sentinel slot inline and the
+        # padded ELL has an all-sentinel last row, so r keeps it at 0
+        y_hi, y_lo = df_matvec(idx, a_hi, a_lo, x_hi, x_lo)
+        return _df_add(b_hi, b_lo, -y_hi, -y_lo)
+
+    x0 = solve(b_hi)
+    x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
+    r_hi, _ = resid(x_hi, x_lo)
+    rn, prev, sweeps = _rnorm(r_hi), math.inf, 0
+    while sweeps < max_iter and rn > tol_abs and rn < 0.5 * prev:
+        dx = solve(r_hi)
+        x_hi, x_lo = _df_add(x_hi, x_lo, dx, torch.zeros_like(dx))
+        r_hi, _ = resid(x_hi, x_lo)
+        prev, rn = rn, _rnorm(r_hi)
+        sweeps += 1
+    pad_of = frontal._device_index(fp, "pad_of", None, device)
+    x = torch.stack([x_hi[pad_of], x_lo[pad_of]]).cpu().numpy()
+    x = x[0].astype(np.float64) + x[1].astype(np.float64)
+    return x, sweeps, (rn / bnorm if bnorm else 0.0)

@@ -1,0 +1,126 @@
+"""The port's user API end to end (cholesky_tpu_torch.SparseCholesky) against
+the JAX package, on the CPU: load -> plan -> assemble -> factor -> refined
+solve, the factor carried across packages, and the port's independence
+from jax."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import cholesky_tpu
+import cholesky_tpu_torch
+from cholesky_tpu.io import mmio
+from cholesky_tpu.utils.laplacian import generate_problem
+from cholesky_tpu_torch import convert
+from cholesky_tpu_torch.numeric import refine as trefine
+from tests.conftest import FIXTURES, fixture_paths
+
+TOL = 1e-10         # the solver's relative-residual contract
+X_REL = 1e-8        # solutions of the two packages, both at <= 1e-10
+                    # residual on matrices with kappa <~ 1e2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _files(name):
+    p = fixture_paths(name)
+    b = mmio.read_array(p["b"]).reshape(-1).astype(np.float64)
+    return (p["mat"], p["separators"], p["clusters"]), b
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_solve_matches_jax(name, dtype):
+    files, b = _files(name)
+    ts = cholesky_tpu_torch.SparseCholesky.from_files(*files, dtype=dtype,
+                                                      device="cpu")
+    ts.factorize()
+    x = ts.solve(b)
+    assert x.shape == b.shape and x.dtype == np.float64
+    assert ts.residual(b, x) <= TOL
+    js = cholesky_tpu.SparseCholesky.from_files(*files, dtype=dtype)
+    js.factorize()
+    xj = js.solve(b)
+    assert np.linalg.norm(x - xj) <= X_REL * np.linalg.norm(xj)
+    if dtype == np.float32:
+        assert ts.last_solve["sweeps"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_state_from_jax_round_trip(dtype):
+    """A JAX factor solves in the port, and the port's factor in the JAX
+    package, both to the residual contract."""
+    files, b = _files("lapl_3375x3375")
+    js = cholesky_tpu.SparseCholesky.from_files(*files, dtype=dtype)
+    js.factorize()
+    ts = convert.state_from_jax(js, device="cpu")
+    assert ts.factored and ts.fplan.key() == js.fplan.key()
+    assert ts.residual(b, ts.solve(b)) <= TOL
+
+    own = cholesky_tpu_torch.SparseCholesky.from_files(*files, dtype=dtype,
+                                                       device="cpu")
+    own.factorize()
+    js.panels = tuple(jnp.asarray(p.numpy()) for p in own.panels)
+    assert js.residual(b, js.solve(b)) <= TOL
+
+
+def test_host_refinement_when_ell_is_too_dense(monkeypatch):
+    """Rows denser than ELL_MAX_K skip the device loop; the host loop with
+    an f64 residual still meets the contract."""
+    monkeypatch.setattr(trefine, "ELL_MAX_K", 0)
+    n, r, c, v, o, cl, b = generate_problem((12, 12, 12), 4)
+    s = cholesky_tpu_torch.SparseCholesky.from_coo(
+        n, r, c, v, o, cl, dtype=np.float32, device="cpu")
+    x = s.solve(b)
+    assert s.residual(b, x) <= TOL
+    assert s.last_solve["sweeps"] == 0 and s.last_solve["host_sweeps"] >= 1
+
+
+def test_solve_spd_and_input_checks():
+    files, b = _files("lapl_400x400")
+    x = cholesky_tpu_torch.solve_spd(files[0], files[1], b,
+                                     clusters_file=files[2], device="cpu")
+    s = cholesky_tpu_torch.SparseCholesky.from_files(*files, device="cpu")
+    assert s.residual(b, x) <= TOL
+    with pytest.raises(ValueError):
+        s.solve(np.stack([b, b], axis=1))
+    with pytest.raises(ValueError):
+        cholesky_tpu_torch.SparseCholesky.from_files(*files, dtype=np.int32,
+                                                     device="cpu")
+
+
+def test_cuda_device_is_never_a_silent_cpu():
+    files, _ = _files("lapl_9x9")
+    if torch.cuda.is_available():
+        s = cholesky_tpu_torch.SparseCholesky.from_files(*files,
+                                                         device="cuda")
+        assert s.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            cholesky_tpu_torch.SparseCholesky.from_files(*files)
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import cholesky_tpu_torch\n"
+        "from cholesky_tpu_torch import convert\n"
+        "from cholesky_tpu.utils.laplacian import generate_problem\n"
+        "n, r, c, v, o, cl, b = generate_problem((6, 6, 6), 3)\n"
+        "s = cholesky_tpu_torch.SparseCholesky.from_coo(\n"
+        "    n, r, c, v, o, cl, dtype=np.float32, device='cpu')\n"
+        "x = s.solve(b)\n"
+        "assert s.residual(b, x) <= 1e-10\n"
+        "print('jax' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
