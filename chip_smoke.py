@@ -9,8 +9,12 @@ Phases, each printing one JSON line:
   2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
              csrc` with nvcc, build seconds and the `-Xptxas -v` report;
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
-             blocks (errors against an f64 reference) and timed at the main
-             path's shape; `factor_slab` with the kernel vs the plain
+             blocks (errors against an f64 reference), then timed at the
+             three shapes the slice launches it with, [128|64|32, 128, 128],
+             beside its bound (bytes over 3.35 TB/s or fp32 flops over
+             67 TFLOP/s, whichever is larger), its share of that bound, its
+             plain version and the library pair `cholesky_ex` +
+             `solve_triangular`; `factor_slab` with the kernel vs the plain
              composite at the 50^3 leaf slab [128, 1440, 864];
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
@@ -36,9 +40,12 @@ import traceback
 TOL = 1e-10                        # the solver's relative-residual contract
 L_REL_TOL = 1e-4                   # kernel vs plain, L (f32)
 INV_REL_TOL = 1e-3                 # kernel vs plain, inv(L) (f32)
+F64_REL_TOL = 2e-6                 # kernel vs f64 reference, L and inv(L)
 SLAB_REL_TOL = 1e-4                # factor_slab, kernel vs plain (f32)
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
 SEED = 0                           # random blocks, slabs and right-hand sides
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
+FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
 
 
 def emit(obj) -> None:
@@ -60,6 +67,24 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(fn, batches: int = 7, iters: int = 20) -> float:
+    """Median over batches of the mean device time of fn() in ms: one batch
+    can land in a slower mode of the card's memory system."""
+    times = sorted(cuda_ms(fn, iters=iters) for _ in range(batches))
+    return times[len(times) // 2]
+
+
+def chol_inv_bound(B: int, n: int = 128):
+    """Least time in ms of chol_inv on B blocks, and what bounds it: the
+    lower triangle of each input read once (n(n+1)/2 floats, all the
+    function reads), L and inv(L) written once (2 n^2 floats); ~n^3/3 flops
+    for the Cholesky and ~n^3/3 for the triangular inverse per block."""
+    bytes_ms = B * (n * (n + 1) // 2 + 2 * n * n) * 4 / HBM_BYTES_PER_S * 1e3
+    flops_ms = B * 2 * n ** 3 / 3 / FP32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
 
 
 def rel_err(x, ref) -> float:
@@ -131,14 +156,32 @@ def phase_kernel():
           f"chol_inv L differs from plain: {errs['L_vs_plain']}")
     check(errs["inv_vs_plain"] <= INV_REL_TOL,
           f"chol_inv inv(L) differs from plain: {errs['inv_vs_plain']}")
-    # time at the main path's shape: a 128-front level's diagonal blocks
-    d128 = d[:128].contiguous()
-    ms = cuda_ms(lambda: hk.chol_inv(d128), iters=20)
-    plain_ms = cuda_ms(lambda: hk.chol_inv_ref(d128), iters=20)
+    check(errs["L_vs_f64"] <= F64_REL_TOL
+          and errs["inv_vs_f64"] <= F64_REL_TOL,
+          f"chol_inv differs from the f64 reference: {errs['L_vs_f64']}, "
+          f"{errs['inv_vs_f64']}")
     emit({"phase": "kernel", "name": "chol_inv", "shape": [300, 128, 128],
           **errs, "max_abs_err": max_abs, "tol_L": L_REL_TOL,
-          "tol_inv": INV_REL_TOL, "timed_shape": [128, 128, 128],
-          "ms": ms, "plain_ms": plain_ms})
+          "tol_inv": INV_REL_TOL, "tol_vs_f64": F64_REL_TOL})
+
+    # time at the slice's shapes: the diagonal blocks of levels 7, 6, 5
+    def library(x):
+        L, _ = torch.linalg.cholesky_ex(x)
+        return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+    timed = {}
+    for B in (128, 64, 32):
+        x = d[:B].contiguous()
+        bound_ms, bound_by = chol_inv_bound(B)
+        ms = cuda_ms_median(lambda: hk.chol_inv(x))
+        timed[B] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share": bound_ms / ms,
+                    "plain_ms": cuda_ms_median(lambda: hk.chol_inv_ref(x)),
+                    "library_ms": cuda_ms_median(lambda: library(x))}
+        emit({"phase": "kernel", "name": "chol_inv", "timed_shape":
+              [B, 128, 128], **timed[B]})
+    emit({"phase": "kernel", "name": "chol_inv",
+          "ms_B32_over_B128": timed[32]["ms"] / timed[128]["ms"]})
 
     # factor_slab at the 50^3 leaf level: kernel vs the plain composite
     B, F, W = 128, 1440, 864
@@ -156,7 +199,8 @@ def phase_kernel():
     emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
           "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
           "ms": slab_ms, "plain_ms": slab_plain_ms})
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, **timed[128],
+            "per_shape": {f"[{B},128,128]": t for B, t in timed.items()}}
 
 
 def _scipy_matrix(n, rows, cols, vals):
@@ -172,7 +216,7 @@ def phase_small():
     import numpy as np
     import scipy.sparse.linalg as spla
 
-    from cholesky_tpu.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
     from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
@@ -206,7 +250,7 @@ def phase_slice():
     import numpy as np
     import torch
 
-    from cholesky_tpu.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
     from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
@@ -251,10 +295,16 @@ def phase_slice():
     launches = dict(hk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(launches["chol_inv"] > 0, "main path launched no chol_inv kernel")
+    # levels 7, 6, 5: 7 + 2 + 2 panels of 128 (W = 864, 144, 144)
+    check(launches["chol_inv"] == 11 * len(walls),
+          f"expected 11 chol_inv launches per factorization, got "
+          f"{launches['chol_inv']} in {len(walls)}")
+    check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
+          "a solve took more than 2 refinement sweeps")
     emit({"phase": "slice", "problem": "50^3 L8", "n": n,
           "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1],
           "solves": solves, "max_memory_allocated": peak,
-          "launches": launches})
+          "launches": launches, "factorizations": len(walls)})
     return launches, s, b0
 
 
@@ -310,6 +360,9 @@ def phase_profile(s, b):
               "device_busy_ms": busy_ms,
               "device_idle_share": 1.0 - busy_ms / wall_ms,
               "kernel_launches": sum(r[2] for r in rows),
+              "chol_inv_ms": sum(r[1] for r in rows if "chol_inv" in r[0]),
+              "chol_inv_count": sum(r[2] for r in rows
+                                    if "chol_inv" in r[0]),
               "top": [{"kernel": k[:80], "ms": ms, "count": c}
                       for k, ms, c in rows[:12]]})
 
@@ -343,7 +396,9 @@ def main() -> int:
         "replaces": "cholesky_tpu/numeric/pallas_kernels.py:66",
         "launches": launches["chol_inv"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"]}]})
+        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
+        "timed_shape": [128, 128, 128], "per_shape": kern["per_shape"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,15 @@
 """cholesky_tpu_torch — the PyTorch/CUDA port of `cholesky_tpu`, for NVIDIA
 Hopper (H100).
 
-The single-device, in-core SPD solve: plan (the JAX-free host layer of
-`cholesky_tpu`: io, symbolic, utils), device assembly, batched multifrontal
+The single-device, in-core SPD solve: plan (the port's own copies of the
+JAX package's host modules: io, symbolic, utils), device assembly, batched multifrontal
 factorization with a hand-written CUDA Cholesky/inverse kernel on the
 high-batch levels, and iterative refinement with a double-float residual.
 
   api.py                   SparseCholesky, solve_spd
-  convert.py               carry a factor across from the JAX package
+  convert.py               carry a plan and a factor across from the JAX package
+  io/, symbolic/, utils/   MatrixMarket and ordering readers, SolvePlan,
+                           problem generator (copies of cholesky_tpu's)
   numeric/frontal_plan.py  host frontal analysis (NumPy)
   numeric/assemble.py      device assembly
   numeric/frontal.py       per-level factorization, banded solve chain

@@ -14,8 +14,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from cholesky_tpu.io import mmio, ordering as ordio
-from cholesky_tpu.symbolic.plan import SolvePlan, build_plan
+from cholesky_tpu_torch.io import mmio, ordering as ordio
+from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
 from cholesky_tpu_torch.numeric import frontal, refine
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,

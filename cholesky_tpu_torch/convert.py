@@ -1,7 +1,11 @@
-"""Carry a factorization across the two packages.
+"""Carry a plan and a factorization across the two packages.
+
+`plan_from_jax` copies a JAX-side `SolvePlan` field by field into the
+port's own `SolvePlan` (the arrays are copied, not shared).
 
 `state_from_jax` turns a factored JAX `cholesky_tpu.SparseCholesky` into a
-factored port solver: its `SolvePlan` (which holds `perm`), its frontal plan
+factored port solver: its `SolvePlan` (converted by `plan_from_jax`; it
+holds `perm`), its frontal plan
 arrays (`W`, `F`, `front_rows`, `inv_child`, `fwd_child`) and its per-level
 factors, read as NumPy with `np.asarray`. The port then solves against the
 JAX factor. The other way needs no code: the port's per-level [B, F, W]
@@ -16,12 +20,30 @@ import numpy as np
 import torch
 
 from cholesky_tpu_torch.api import SparseCholesky
+from cholesky_tpu_torch.io.ordering import ClusterHierarchy
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan
+from cholesky_tpu_torch.symbolic.plan import SolvePlan
+from cholesky_tpu_torch.symbolic.tree import SeparatorTree
 
 
 def _host(a):
     return None if a is None else np.asarray(a)
+
+
+def plan_from_jax(jplan) -> SolvePlan:
+    """The port's `SolvePlan` holding copies of a JAX-side plan's fields."""
+    cl = jplan.clusters
+    if cl is not None:
+        cl = ClusterHierarchy(cl.levels, cl.num_separators,
+                              {s: [np.array(b) for b in ivs]
+                               for s, ivs in cl.intervals.items()})
+    arrays = {f: np.array(getattr(jplan, f)) for f in (
+        "sep_sizes", "perm", "iperm", "sep_offset", "sep_of_dof",
+        "loc_of_dof", "S", "H", "row_off", "u_off")}
+    return SolvePlan(tree=SeparatorTree(jplan.tree.levels,
+                                        jplan.tree.num_separators),
+                     n=int(jplan.n), clusters=cl, **arrays)
 
 
 def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
@@ -29,7 +51,8 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
     if not jax_solver.factored:
         raise ValueError("factorize the JAX solver first")
     jfp = jax_solver.fplan
-    fp = FrontalPlan(jax_solver.plan, tuple(int(w) for w in jfp.W),
+    plan = plan_from_jax(jax_solver.plan)
+    fp = FrontalPlan(plan, tuple(int(w) for w in jfp.W),
                      tuple(int(f) for f in jfp.F),
                      [np.asarray(fr) for fr in jfp.front_rows],
                      [_host(a) for a in jfp.inv_child],
@@ -40,7 +63,7 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
     if dtype not in TORCH_DTYPES:
         raise ValueError(f"factor stored as {dtype}; the port takes float32 "
                          "or float64 factors")
-    solver = SparseCholesky(jax_solver.plan, jax_solver.rows, jax_solver.cols,
+    solver = SparseCholesky(plan, jax_solver.rows, jax_solver.cols,
                             jax_solver.vals, dtype=dtype, device=device)
     solver._fplan = fp
     solver.panels = tuple(torch.from_numpy(p).to(solver.device)

@@ -1,0 +1,142 @@
+"""MatrixMarket input.
+
+The port's copy of the readers and COO helpers of `cholesky_tpu/io/mmio.py`
+(`read_banner`, `read_coo`, `read_array`, `symmetrize_coo`,
+`dedup_lower`), line for line apart from one thing: `read_coo` always
+takes the NumPy parser (the JAX package's optional C++ fast path in
+`cholesky_tpu.native` is not used). The writers, `read_dense` and
+`MMBanner.typecode` are not copied. The solver itself does not call
+`read_array`: it is here for callers that read a right-hand side from a
+file before `solve`, as the tests do.
+
+Reference: the vendored NIST mmio library (mmio.c:96 `mm_read_banner`,
+mmio.c:189 `mm_read_mtx_crd_size`, typecode macros mmio.h:33-75).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class MMBanner:
+    """Parsed MatrixMarket banner + size line (reference: MMatBanner, mmat.rg:32-37)."""
+
+    rows: int
+    cols: int
+    nnz: int
+    # typecode fields, mirroring mmio.h's MM_typecode quadruple
+    object: str = "matrix"          # matrix
+    format: str = "coordinate"      # coordinate | array
+    field: str = "real"             # real | integer | pattern | complex
+    symmetry: str = "general"       # general | symmetric | hermitian | skew-symmetric
+
+
+class MMIOError(RuntimeError):
+    pass
+
+
+def read_banner(path: str) -> MMBanner:
+    """Parse banner + size line only (reference: read_matrix_banner, mmat.rg:76-100)."""
+    with open(path, "r") as f:
+        header = f.readline()
+        if not header.startswith("%%MatrixMarket"):
+            raise MMIOError(f"{path}: missing MatrixMarket banner")
+        parts = header.strip().split()
+        if len(parts) != 5:
+            raise MMIOError(f"{path}: malformed banner: {header!r}")
+        _, obj, fmt, field, sym = parts
+        line = f.readline()
+        while line.startswith("%") or line.strip() == "":
+            if line == "":        # EOF — readline() returns '' forever
+                raise MMIOError(f"{path}: missing size line")
+            line = f.readline()
+        toks = line.split()
+        if fmt == "coordinate":
+            rows, cols, nnz = int(toks[0]), int(toks[1]), int(toks[2])
+        else:  # array
+            rows, cols = int(toks[0]), int(toks[1])
+            nnz = rows * cols
+        return MMBanner(rows, cols, nnz, obj.lower(), fmt.lower(), field.lower(), sym.lower())
+
+
+def read_coo(path: str):
+    """Read a coordinate MatrixMarket file.
+
+    Returns (banner, row_idx[int64], col_idx[int64], vals[float64]); indices are
+    0-based. Symmetric/hermitian files are returned as stored (lower triangle),
+    NOT expanded — expansion is the caller's choice.
+    """
+    banner = read_banner(path)
+    if banner.format != "coordinate":
+        raise MMIOError(f"{path}: expected coordinate format, got {banner.format}")
+    if banner.field == "complex":
+        # 4-column bodies: the 3-column parser would silently mis-read them
+        raise MMIOError(f"{path}: complex matrices are not supported")
+    with open(path, "r") as f:
+        lines = f.read().split("\n")
+    # skip banner/comments/size line
+    i = 0
+    while lines[i].startswith("%") or lines[i].strip() == "":
+        i += 1
+    i += 1  # size line
+    body = [ln for ln in lines[i:] if ln.strip() and not ln.startswith("%")]
+    if len(body) < banner.nnz:
+        raise MMIOError(
+            f"{path}: expected {banner.nnz} entries, found {len(body)}")
+    data = np.loadtxt(body[:banner.nnz], dtype=np.float64, ndmin=2)
+    if data.shape[1] == 2:  # pattern
+        rows, cols = data[:, 0], data[:, 1]
+        vals = np.ones(len(rows))
+    else:
+        rows, cols, vals = data[:, 0], data[:, 1], data[:, 2]
+    return banner, rows.astype(np.int64) - 1, cols.astype(np.int64) - 1, vals
+
+
+def read_array(path: str) -> np.ndarray:
+    """Read a dense array MatrixMarket file (used for RHS B_*.mtx fixtures;
+    reference: read_vector, mnd.c:201-229 skips 3 header lines then reads N values)."""
+    banner = read_banner(path)
+    if banner.format != "array":
+        raise MMIOError(f"{path}: expected array format, got {banner.format}")
+    with open(path, "r") as f:
+        toks = []
+        for line in f:
+            if line.startswith("%"):
+                continue
+            toks.extend(line.split())
+    # first two tokens are the size line
+    vals = np.array(toks[2:2 + banner.rows * banner.cols], dtype=np.float64)
+    # MatrixMarket array format is column-major
+    return vals.reshape((banner.cols, banner.rows)).T
+
+
+def symmetrize_coo(rows, cols, vals):
+    """Expand a lower-triangle COO set to the full symmetric matrix:
+    off-diagonal entries mirrored once. Input must be deduplicated lower
+    triangle (see dedup_lower) — the single place the mirror idiom lives."""
+    off = rows != cols
+    return (np.concatenate([rows, cols[off]]),
+            np.concatenate([cols, rows[off]]),
+            np.concatenate([vals, vals[off]]))
+
+
+def dedup_lower(rows, cols, vals):
+    """Normalize COO entries to the lower triangle and drop duplicate
+    coordinates (keeping the first value). MatrixMarket files with
+    'general' symmetry store BOTH triangles of a symmetric matrix; after
+    lower-normalization each off-diagonal appears twice, and downstream
+    mirroring would double it (assembly uses assignment, so it is the
+    residual/refinement matvecs that would see 2x off-diagonals)."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float64)
+    swap = cols > rows
+    r = np.where(swap, cols, rows)
+    c = np.where(swap, rows, cols)
+    keys = r * (max(int(c.max(initial=0)), int(r.max(initial=0))) + 1) + c
+    _, first = np.unique(keys, return_index=True)
+    first.sort()
+    return r[first], c[first], vals[first]

@@ -24,8 +24,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from cholesky_tpu.symbolic.plan import SolvePlan
-from cholesky_tpu.utils import round_up
+from cholesky_tpu_torch.symbolic.plan import SolvePlan
+from cholesky_tpu_torch.utils import round_up
 
 
 def _round_up(x: int, m: int) -> int:

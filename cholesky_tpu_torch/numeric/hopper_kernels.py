@@ -5,6 +5,8 @@
                     body `:66-89`): batched Cholesky + inv(L) of [B, 128, 128]
                     f32 blocks, by the CUDA kernel `kernels/csrc/chol_inv.cu`.
   * `chol_inv_ref` the plain PyTorch version of the same function.
+  * `chol_inv_blocked_ref` the kernel's blocked schedule written out in
+                    PyTorch, for the tests (nothing on the main path calls it).
   * `factor_slab` <- `factor_slab_lanes` (`:119-170`): the left-looking
                     blocked partial factorization of a pivot slab.
   * `slab_kernel_eligible` <- `lanes_eligible` (`:191-211`): which levels
@@ -57,11 +59,73 @@ def chol_inv_ref(d: torch.Tensor):
     return L, torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
+def chol_inv_blocked_ref(d: torch.Tensor, panel: int = 32):
+    """The CUDA kernel's schedule in plain PyTorch, with the panel width as a
+    parameter (the kernel's is 32 at N = 128; N / panel must be a power of
+    two). Per panel p: the diagonal tile's column recurrence
+    (a_i[k] -= a_i[j] a_k[j] / d_j, then column j scaled by rsqrt(d_j)); the
+    tiles below by forward substitution, L[i,p] = A[i,p] inv(L_pp)^T; the
+    update of the trailing lower tiles. inv(L) from the diagonal tiles'
+    inverses (forward substitution) by the 2x2 block formula
+        inv([[P, 0], [C, Q]]) = [[inv P, 0], [-inv Q C inv P, inv Q]]
+    on halves of halves. Reads the lower triangle of d; returns (L, inv(L)),
+    both lower."""
+    N = d.shape[-1]
+    nt = N // panel
+    if N % panel or nt & (nt - 1):
+        raise ValueError(f"panel {panel} must divide N = {N} into a power "
+                         "of two of tiles")
+    a = torch.tril(d).clone()
+    m = torch.zeros_like(a)
+
+    def tiles(x, i0, i1, j0, j1):
+        return x[..., i0 * panel:i1 * panel, j0 * panel:j1 * panel]
+
+    def forward(ld, b):
+        """x with ld x = b for each column of b (ld lower, panel x panel)."""
+        x = torch.empty_like(b)
+        for i in range(panel):
+            x[..., i, :] = (b[..., i, :] - (ld[..., i, None, :i]
+                                            @ x[..., :i, :])[..., 0, :]
+                            ) / ld[..., i, i, None]
+        return x
+
+    eye = torch.eye(panel, dtype=d.dtype, device=d.device)
+    for p in range(nt):
+        t = tiles(a, p, p + 1, p, p + 1)
+        for j in range(panel):
+            r = torch.rsqrt(t[..., j, j].clone())
+            col = t[..., :, j].clone()
+            t[..., j + 1:, j + 1:] -= (
+                (col[..., j + 1:, None] * (r * r)[..., None, None])
+                * col[..., None, j + 1:])
+            t[..., :, j] = col * r[..., None]
+        t.copy_(torch.tril(t))
+        tiles(m, p, p + 1, p, p + 1).copy_(forward(t, eye.expand_as(t)))
+        below = tiles(a, p + 1, nt, p, p + 1)
+        below.copy_(forward(t, below.transpose(-1, -2)).transpose(-1, -2))
+        for i in range(p + 1, nt):
+            for j in range(p + 1, i + 1):
+                tiles(a, i, i + 1, j, j + 1).sub_(
+                    tiles(a, i, i + 1, p, p + 1)
+                    @ tiles(a, j, j + 1, p, p + 1).transpose(-1, -2))
+    a = torch.tril(a)
+    size = 1
+    while size < nt:
+        for lo in range(0, nt, 2 * size):
+            mid, hi = lo + size, lo + 2 * size
+            tiles(m, mid, hi, lo, mid).copy_(
+                -(tiles(m, mid, hi, mid, hi)
+                  @ (tiles(a, mid, hi, lo, mid) @ tiles(m, lo, mid, lo, mid))))
+        size *= 2
+    return a, m
+
+
 def chol_inv(d: torch.Tensor):
     """Batched Cholesky + lower-triangular inverse of [B, 128, 128] SPD
     blocks. Returns (L, inv(L)), both [B, 128, 128] lower with zeros above
     the diagonal. CUDA tensors go to the hand-written kernel (f32,
-    contiguous); CPU tensors to `chol_inv_ref`."""
+    contiguous, 16-byte aligned); CPU tensors to `chol_inv_ref`."""
     if d.device.type == "cpu":
         return chol_inv_ref(d)
     if d.device.type != "cuda":
@@ -73,6 +137,8 @@ def chol_inv(d: torch.Tensor):
                          f"{tuple(d.shape)}")
     if not d.is_contiguous():
         raise ValueError("chol_inv: input must be contiguous")
+    if d.data_ptr() % 16:
+        raise ValueError("chol_inv: input must be 16-byte aligned")
     fn = _chol_inv_fn()
     l = torch.empty_like(d)
     m = torch.empty_like(d)

@@ -4,6 +4,7 @@ solve, the factor carried across packages, and the port's independence
 from jax."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -107,20 +108,63 @@ def test_cuda_device_is_never_a_silent_cpu():
 
 
 def test_port_never_imports_jax():
+    """A solve through the port loads neither jax nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "import cholesky_tpu_torch\n"
         "from cholesky_tpu_torch import convert\n"
-        "from cholesky_tpu.utils.laplacian import generate_problem\n"
+        "from cholesky_tpu_torch.utils.laplacian import generate_problem\n"
         "n, r, c, v, o, cl, b = generate_problem((6, 6, 6), 3)\n"
         "s = cholesky_tpu_torch.SparseCholesky.from_coo(\n"
         "    n, r, c, v, o, cl, dtype=np.float32, device='cpu')\n"
         "x = s.solve(b)\n"
         "assert s.residual(b, x) <= 1e-10\n"
-        "print('jax' in sys.modules)\n")
+        "print('jax' in sys.modules)\n"
+        "print(sorted(m for m in sys.modules if m == 'cholesky_tpu'\n"
+        "             or m.startswith('cholesky_tpu.')))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    assert out.stdout.split("\n")[:2] == ["False", "[]"], out.stdout
+
+
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"\bfrom\s+cholesky_tpu\.|\bimport\s+cholesky_tpu\.|"
+    r"\bimport\s+cholesky_tpu(?!_torch)\b|\bfrom\s+cholesky_tpu\s+import\b")
+
+
+def _port_sources():
+    root = os.path.join(REPO, "cholesky_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(root):
+        paths += [os.path.join(d, f) for f in names
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    return sorted(paths)
+
+
+def test_port_sources_never_name_the_jax_package_in_an_import():
+    paths = _port_sources()
+    assert len(paths) > 10
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if _JAX_PACKAGE_IMPORT.search(line):
+                    bad.append(f"{os.path.relpath(path, REPO)}:{i}: "
+                               f"{line.strip()}")
+    assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("line,hit", [
+    ("from cholesky_tpu.io import mmio", True),
+    ("import cholesky_tpu.utils.laplacian", True),
+    ("import cholesky_tpu", True),
+    ("from cholesky_tpu import SparseCholesky", True),
+    ("import cholesky_tpu_torch", False),
+    ("from cholesky_tpu_torch.io import mmio", False),
+    ('"replaces": "cholesky_tpu/numeric/pallas_kernels.py:66"', False)])
+def test_jax_package_import_pattern(line, hit):
+    assert bool(_JAX_PACKAGE_IMPORT.search(line)) is hit

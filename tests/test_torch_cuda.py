@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from cholesky_tpu.utils.laplacian import generate_problem
 from cholesky_tpu_torch import SparseCholesky
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.utils.laplacian import generate_problem
 
 L_REL = 1e-4        # kernel vs plain, L, f32 (rsqrt vs cuSOLVER rounding)
 INV_REL = 1e-3      # kernel vs plain, inv(L), f32
+F64_REL = 2e-6      # kernel vs an f64 reference, f32 (a few ulps)
 TOL = 1e-10         # the solver's relative-residual contract
 
 
@@ -37,14 +38,21 @@ def _spd_blocks(rng, B, N):
     return (g @ g.transpose(0, 2, 1) / N + np.eye(N)).astype(np.float32)
 
 
-@pytest.mark.cuda
-def test_chol_inv_kernel_matches_plain():
-    _require_cuda()
-    d = _spd_blocks(np.random.default_rng(2), 300, 128)
-    d[-1, 72:, :] = 0.0                 # an identity-padded block
+def _blocks(B, seed=2):
+    """B random SPD blocks; the last is identity beyond row 72 (the
+    identity-padded tail panel that factor_slab builds)."""
+    d = _spd_blocks(np.random.default_rng(seed), B, 128)
+    d[-1, 72:, :] = 0.0
     d[-1, :, 72:] = 0.0
     d[-1, 72:, 72:] = np.eye(56)
-    dc = torch.from_numpy(d).cuda()
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32, 64, 128, 300])
+def test_chol_inv_kernel_matches_plain(B):
+    _require_cuda()
+    dc = torch.from_numpy(_blocks(B)).cuda()
     before = hk.LAUNCHES["chol_inv"]
     l_k, m_k = hk.chol_inv(dc)
     torch.cuda.synchronize()
@@ -52,8 +60,30 @@ def test_chol_inv_kernel_matches_plain():
     l_p, m_p = hk.chol_inv_ref(dc)
     assert _rel(l_k, l_p) <= L_REL
     assert _rel(m_k, m_p) <= INV_REL
+    l_64, m_64 = hk.chol_inv_ref(dc.double())
+    assert _rel(l_k, l_64) <= F64_REL
+    assert _rel(m_k, m_64) <= F64_REL
+
+
+@pytest.mark.cuda
+def test_chol_inv_kernel_exact_zeros_above_diagonal():
+    _require_cuda()
+    l_k, m_k = hk.chol_inv(torch.from_numpy(_blocks(64)).cuda())
     assert torch.all(torch.triu(l_k, 1) == 0)
     assert torch.all(torch.triu(m_k, 1) == 0)
+
+
+@pytest.mark.cuda
+def test_chol_inv_kernel_reads_only_the_lower_triangle():
+    """Garbage above the diagonal (huge values, NaN) leaves L and inv(L)
+    bit for bit unchanged."""
+    _require_cuda()
+    d = _blocks(33)
+    junk = d + np.triu(np.full_like(d, 1e30), 1)
+    junk[:, 0, 1:] = np.nan
+    l1, m1 = hk.chol_inv(torch.from_numpy(d).cuda())
+    l2, m2 = hk.chol_inv(torch.from_numpy(junk).cuda())
+    assert torch.equal(l1, l2) and torch.equal(m1, m2)
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ from cholesky_tpu.io import mmio
 from cholesky_tpu.numeric import frontal as jfrontal
 from cholesky_tpu.numeric import refine as jrefine
 from cholesky_tpu.utils.laplacian import generate_problem
+from cholesky_tpu_torch import convert
 from cholesky_tpu_torch.numeric import frontal as tfrontal
 from cholesky_tpu_torch.numeric import frontal_plan, hopper_kernels as hk
 from cholesky_tpu_torch.numeric import refine as trefine
@@ -30,7 +31,8 @@ def _jax_solver(name, dtype=np.float64):
 
 
 def _port_plan(js):
-    return frontal_plan.build_frontal_plan(js.plan, js.rows, js.cols)
+    return frontal_plan.build_frontal_plan(convert.plan_from_jax(js.plan),
+                                           js.rows, js.cols)
 
 
 def _rel(x, ref):

@@ -4,8 +4,10 @@
 On the CPU the wrapper runs its plain PyTorch version, which is held here
 against the Pallas kernel in interpret mode (N = 16, 32; the 128-step
 unrolled kernel takes minutes to interpret at N = 128) and against an f64
-`lax.linalg.cholesky` at N = 128. The CUDA kernel itself is held against
-the plain version on the card in test_torch_cuda.py.
+`lax.linalg.cholesky` at N = 128. So is `chol_inv_blocked_ref`, the CUDA
+kernel's blocked schedule written out in PyTorch (panel widths 4, 8 and
+32). The CUDA kernel itself is held against the plain version on the card
+in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -57,6 +59,46 @@ def test_chol_inv_ref_matches_f64_lax_at_128():
     assert l_t.dtype == torch.float32
     assert _rel(l_t, l64) <= F32_REL
     assert _rel(m_t, m64) <= F32_REL
+
+
+def _f64_lax(d):
+    l64 = lax.linalg.cholesky(jnp.asarray(d, jnp.float64),
+                              symmetrize_input=False)
+    eye = jnp.broadcast_to(jnp.eye(d.shape[-1], dtype=jnp.float64), l64.shape)
+    return l64, lax.linalg.triangular_solve(l64, eye, left_side=True,
+                                            lower=True)
+
+
+@pytest.mark.parametrize("N,panel", [(16, 4), (32, 8)])
+def test_chol_inv_blocked_ref_matches_pallas_interpret(N, panel):
+    d = _spd_blocks(np.random.default_rng(N + 1), 8, N)
+    l_j, m_j = pk.chol_inv_lanes(jnp.asarray(d), interpret=True)
+    l_t, m_t = hk.chol_inv_blocked_ref(torch.from_numpy(d), panel)
+    assert l_t.dtype == torch.float32
+    assert _rel(l_t, np.tril(np.asarray(l_j))) <= F32_REL
+    assert _rel(m_t, np.tril(np.asarray(m_j))) <= F32_REL
+    assert np.all(np.triu(l_t.numpy(), 1) == 0)
+    assert np.all(np.triu(m_t.numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("panel", [32, 16])
+def test_chol_inv_blocked_ref_matches_f64_lax_at_128(panel):
+    """The kernel's panel width (32), and one more level of halving (16)."""
+    d = _spd_blocks(np.random.default_rng(129), 4, 128)
+    l64, m64 = _f64_lax(d)
+    l_t, m_t = hk.chol_inv_blocked_ref(torch.from_numpy(d), panel)
+    assert _rel(l_t, l64) <= F32_REL
+    assert _rel(m_t, m64) <= F32_REL
+
+
+def test_chol_inv_blocked_ref_reads_only_the_lower_triangle():
+    d = _spd_blocks(np.random.default_rng(5), 3, 64)
+    junk = d + np.triu(np.full_like(d, 1e30), 1)
+    l1, m1 = hk.chol_inv_blocked_ref(torch.from_numpy(d), 16)
+    l2, m2 = hk.chol_inv_blocked_ref(torch.from_numpy(junk), 16)
+    assert torch.equal(l1, l2) and torch.equal(m1, m2)
+    with pytest.raises(ValueError):
+        hk.chol_inv_blocked_ref(torch.from_numpy(d[:, :48, :48]), 16)
 
 
 def test_chol_inv_on_cpu_is_plain_and_uncounted():
