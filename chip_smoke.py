@@ -9,13 +9,15 @@ Phases, each printing one JSON line:
   2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
              csrc` with nvcc, build seconds and the `-Xptxas -v` report;
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
-             blocks (errors against an f64 reference), then timed at the
-             three shapes the slice launches it with, [128|64|32, 128, 128],
-             beside its bound (bytes over 3.35 TB/s or fp32 flops over
-             67 TFLOP/s, whichever is larger), its share of that bound, its
-             plain version and the library pair `cholesky_ex` +
-             `solve_triangular`; `factor_slab` with the kernel vs the plain
-             composite at the 50^3 leaf slab [128, 1440, 864];
+             blocks (errors against an f64 reference), then at each shape
+             the two slices launch it with, [128|64|32, 128, 128] (50^3)
+             and [8192|1024|512|256|128, 128, 128] (140^3), checked the
+             same way and timed beside its
+             bound (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s,
+             whichever is larger), its share of that bound, its plain
+             version and the library pair `cholesky_ex` + `solve_triangular`;
+             `factor_slab` with the kernel vs the plain composite at the 50^3
+             leaf slab [128, 1440, 864];
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -24,7 +26,24 @@ Phases, each printing one JSON line:
              launch counts are reset just before and read just after;
   6. profile: the warm slice's per-level factor times (CUDA events) and,
              under torch.profiler, the factor's and one solve's device busy
-             time, idle share and top kernels.
+             time, idle share and top kernels;
+  7. regimes: 50^3 forced through each capacity regime (two-piece at every
+             non-leaf level; plus bf16 updates; batch-chunked levels; a bf16
+             factor offloaded to host memory and solved without pivot
+             inverses): factor wall, sweeps, peak memory, residual, and the
+             per-level difference of the f32-stored factors from the slice's;
+  8. scale:  the capacity slice's main path, 140^3 under 14 levels (2.74M
+             dofs), f32, with the default budget and then with a 40 GiB one:
+             free memory, budget, the per-level regime plan, host plan
+             seconds, factor walls (cold, warm), per level the CUDA-event ms
+             and the measured peak beside its estimate, two solves with
+             their sweeps and f64 SciPy residuals, `chol_inv` launches
+             against the routing rule's count, seconds of the regime plan;
+             refactorizations after the solves (pinned segments; two that
+             keep the allocator's cache, one that releases it, as factorize()
+             does by default) with the allocator's retry count; and
+             one warm factorization under torch.profiler (device busy, idle
+             share, top kernels).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
 Exits nonzero, without the last line, when there is no CUDA device, when
@@ -43,6 +62,14 @@ INV_REL_TOL = 1e-3                 # kernel vs plain, inv(L) (f32)
 F64_REL_TOL = 2e-6                 # kernel vs f64 reference, L and inv(L)
 SLAB_REL_TOL = 1e-4                # factor_slab, kernel vs plain (f32)
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
+# f32-stored regime factors vs the default (square, f32) factor, relative
+# to the level's largest entry: summation order only (two-piece, chunks),
+# and bf16 storage of the child updates (8 significand bits, ~4e-3 per
+# rounding, through the level chain)
+REGIME_F32_TOL = 1e-4
+REGIME_BF16_TOL = 5e-2
+SCALE = ((140, 140, 140), 14)      # the JAX package's largest verified run
+SCALE_SMALL_BUDGET = 40 << 30      # half the card: forces two-piece levels
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
@@ -128,6 +155,39 @@ def phase_build():
     emit({"phase": "build", "seconds": round(seconds, 3), "kernels": info})
 
 
+def check_chol_inv(x):
+    """chol_inv on blocks x against its plain version on the same blocks
+    and against an f64 reference: the relative errors, the largest absolute
+    difference from the plain version; fails past the tolerances."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    l_k, m_k = hk.chol_inv(x)
+    l_p, m_p = hk.chol_inv_ref(x)
+    l_64, m_64 = hk.chol_inv_ref(x.double())
+    torch.cuda.synchronize()
+    errs = {"L_vs_f64": rel_err(l_k, l_64), "inv_vs_f64": rel_err(m_k, m_64),
+            "plain_L_vs_f64": rel_err(l_p, l_64),
+            "plain_inv_vs_f64": rel_err(m_p, m_64),
+            "L_vs_plain": rel_err(l_k, l_p), "inv_vs_plain": rel_err(m_k, m_p),
+            "max_abs_err": float(max((l_k - l_p).abs().max(),
+                                     (m_k - m_p).abs().max()))}
+    shape = list(x.shape)
+    check(bool(torch.isfinite(l_k).all() and torch.isfinite(m_k).all()),
+          f"chol_inv produced non-finite values at {shape}")
+    check(errs["L_vs_plain"] <= L_REL_TOL,
+          f"chol_inv L differs from plain at {shape}: {errs['L_vs_plain']}")
+    check(errs["inv_vs_plain"] <= INV_REL_TOL,
+          f"chol_inv inv(L) differs from plain at {shape}: "
+          f"{errs['inv_vs_plain']}")
+    check(errs["L_vs_f64"] <= F64_REL_TOL
+          and errs["inv_vs_f64"] <= F64_REL_TOL,
+          f"chol_inv differs from the f64 reference at {shape}: "
+          f"{errs['L_vs_f64']}, {errs['inv_vs_f64']}")
+    return errs
+
+
 def phase_kernel():
     import torch
 
@@ -141,45 +201,37 @@ def phase_kernel():
     d[-1, 72:, :] = 0.0                 # one identity-padded block
     d[-1, :, 72:] = 0.0
     d[-1, 72:, 72:] = eye[72:, 72:]
-    l_k, m_k = hk.chol_inv(d)
-    l_p, m_p = hk.chol_inv_ref(d)
-    l_64, m_64 = hk.chol_inv_ref(d.double())
-    torch.cuda.synchronize()
-    errs = {"L_vs_f64": rel_err(l_k, l_64), "inv_vs_f64": rel_err(m_k, m_64),
-            "plain_L_vs_f64": rel_err(l_p, l_64),
-            "plain_inv_vs_f64": rel_err(m_p, m_64),
-            "L_vs_plain": rel_err(l_k, l_p), "inv_vs_plain": rel_err(m_k, m_p)}
-    max_abs = float(max((l_k - l_p).abs().max(), (m_k - m_p).abs().max()))
-    check(bool(torch.isfinite(l_k).all() and torch.isfinite(m_k).all()),
-          "chol_inv produced non-finite values")
-    check(errs["L_vs_plain"] <= L_REL_TOL,
-          f"chol_inv L differs from plain: {errs['L_vs_plain']}")
-    check(errs["inv_vs_plain"] <= INV_REL_TOL,
-          f"chol_inv inv(L) differs from plain: {errs['inv_vs_plain']}")
-    check(errs["L_vs_f64"] <= F64_REL_TOL
-          and errs["inv_vs_f64"] <= F64_REL_TOL,
-          f"chol_inv differs from the f64 reference: {errs['L_vs_f64']}, "
-          f"{errs['inv_vs_f64']}")
+    errs = check_chol_inv(d)
     emit({"phase": "kernel", "name": "chol_inv", "shape": [300, 128, 128],
-          **errs, "max_abs_err": max_abs, "tol_L": L_REL_TOL,
-          "tol_inv": INV_REL_TOL, "tol_vs_f64": F64_REL_TOL})
+          **errs, "tol_L": L_REL_TOL, "tol_inv": INV_REL_TOL,
+          "tol_vs_f64": F64_REL_TOL})
+    max_abs = errs["max_abs_err"]
 
-    # time at the slice's shapes: the diagonal blocks of levels 7, 6, 5
+    # the shapes the two slices launch it with: 50^3 levels 7, 6, 5 and
+    # 140^3 levels 13, 10, 9, 8 (and 7, B = 128); each checked against its
+    # plain version and the f64 reference, then timed
     def library(x):
         L, _ = torch.linalg.cholesky_ex(x)
         return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
     timed = {}
-    for B in (128, 64, 32):
-        x = d[:B].contiguous()
+    big = torch.randn(8192, 128, 128, generator=gen, device=dev)
+    big = big @ big.transpose(1, 2) / 128 + 0.5 * eye
+    for B in (128, 64, 32, 8192, 1024, 512, 256):
+        x = d[:B].contiguous() if B <= 300 else big[:B].contiguous()
+        errs = check_chol_inv(x)
+        max_abs = max(max_abs, errs["max_abs_err"])
         bound_ms, bound_by = chol_inv_bound(B)
         ms = cuda_ms_median(lambda: hk.chol_inv(x))
         timed[B] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": bound_ms / ms,
                     "plain_ms": cuda_ms_median(lambda: hk.chol_inv_ref(x)),
-                    "library_ms": cuda_ms_median(lambda: library(x))}
+                    "library_ms": cuda_ms_median(lambda: library(x)),
+                    **errs}
         emit({"phase": "kernel", "name": "chol_inv", "timed_shape":
               [B, 128, 128], **timed[B]})
+        del x
+    del big
     emit({"phase": "kernel", "name": "chol_inv",
           "ms_B32_over_B128": timed[32]["ms"] / timed[128]["ms"]})
 
@@ -199,7 +251,7 @@ def phase_kernel():
     emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
           "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
           "ms": slab_ms, "plain_ms": slab_plain_ms})
-    return {"max_abs_err": max_abs, **timed[128],
+    return {**timed[128], "max_abs_err": max_abs,
             "per_shape": {f"[{B},128,128]": t for B, t in timed.items()}}
 
 
@@ -273,12 +325,14 @@ def phase_slice():
         hk.LAUNCHES[k] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(2):                  # cold (first use), then warm
+    walls, plan_s = [], []
+    for _ in range(3):                  # cold (first use), then warm
         t = time.perf_counter()
         s.factorize()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
+        plan_s.append({k: s.factor_stats[k] for k in (
+            "plan_s", "plan_reused", "released_cache")})
     a = _scipy_matrix(n, s.rows, s.cols, s.vals)
     solves = []
     for i in range(3):
@@ -302,7 +356,8 @@ def phase_slice():
     check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
           "a solve took more than 2 refinement sweeps")
     emit({"phase": "slice", "problem": "50^3 L8", "n": n,
-          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1],
+          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
+          "plan_regimes": plan_s,
           "solves": solves, "max_memory_allocated": peak,
           "launches": launches, "factorizations": len(walls)})
     return launches, s, b0
@@ -320,8 +375,6 @@ def phase_profile(s, b):
     events, then torch.profiler over one factorization and one solve
     (device busy and idle share, top kernels by device time)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cholesky_tpu_torch.numeric import frontal as tfrontal
 
@@ -344,27 +397,301 @@ def phase_profile(s, b):
 
     for what, fn in (("factor", s.factorize), ("solve", lambda: s.solve(b))):
         fn()                                    # warm
+        emit({"phase": "profile", "what": what, **profiled(fn)})
+
+
+def profiled(fn) -> dict:
+    """One call of fn under torch.profiler: wall, device busy time and idle
+    share, kernel launches, chol_inv's share, the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = sorted(((e.key, _device_us(e) / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda x: -x[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": sum(r[2] for r in rows),
+            "chol_inv_ms": sum(r[1] for r in rows if "chol_inv" in r[0]),
+            "chol_inv_count": sum(r[2] for r in rows if "chol_inv" in r[0]),
+            "top": [{"kernel": k[:80], "ms": ms, "count": c}
+                    for k, ms, c in rows[:12]]}
+
+
+
+def expected_chol_inv(fp, plan) -> int:
+    """chol_inv launches of one factorization by the routing rule: per
+    chunk of an eligible level, one launch per 128-wide panel."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    total = 0
+    for lvl, lp in enumerate(plan.levels):
+        b = (1 << lvl) // lp.chunks
+        if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
+            total += lp.chunks * -(-fp.W[lvl] // hk.BS)
+    return total
+
+
+def level_probe(s, dev):
+    """A level hook recording CUDA events and the allocator's peak per
+    level (reset at each level's start), and a reader of both."""
+    import torch
+
+    marks = {}
+
+    def hook(lvl, what):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        if what == "start":
+            torch.cuda.reset_peak_memory_stats(dev)
+            marks[lvl] = [e]
+        else:
+            marks[lvl] += [e, torch.cuda.max_memory_allocated(dev)]
+
+    def read():
+        torch.cuda.synchronize()
+        base = s.factor_stats["allocated_at_start"]
+        return {lvl: {"ms": m[0].elapsed_time(m[1]),
+                      "peak_bytes": m[2] - base}
+                for lvl, m in marks.items()}
+
+    return hook, read
+
+
+def pinned_segments(dev) -> dict:
+    """Cached segments of 256 MiB or more in the allocator's common pool
+    (the one fronts come from) that hold a live block: the segments a
+    factorization could not reuse whole. Counted with no factor alive."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import devmem
+
+    pool = devmem._POOLS.get(dev.index or 0)
+    pool = tuple(pool.id) if pool is not None else None
+    segs = [g for g in torch.cuda.memory._snapshot()["segments"]
+            if g["total_size"] >= (256 << 20)
+            and tuple(g.get("segment_pool_id", (0, 0))) != pool
+            and any(b["state"] == "active_allocated" for b in g["blocks"])]
+    return {"segments": len(segs),
+            "segment_bytes": sum(g["total_size"] for g in segs),
+            "live_bytes": sum(g["allocated_size"] for g in segs)}
+
+
+def regime_table(fp, plan, measured):
+    rows = []
+    for d in plan.describe():
+        lvl = d["lvl"]
+        rows.append({"lvl": lvl, "B": 1 << lvl, "F": fp.F[lvl],
+                     "W": fp.W[lvl], **d, **measured.get(lvl, {})})
+    return rows
+
+
+def phase_regimes(base, b0):
+    """50^3 L8 forced through each capacity regime under a small budget."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import regimes
+
+    n = base.plan.n
+    a = _scipy_matrix(n, base.rows, base.cols, base.vals)
+    ref = [p.double() for p in base.panels]
+    # (name, forced choices (keywords of regimes.plan_regimes, installed
+    # through the solver's private plan override), budget, tolerance of the
+    # f32-stored factor);
+    # the first three keep the factor f32 (under 1 GiB the budget alone
+    # would store it bf16); 768 MiB leaves no room for pivot inverses beside
+    # the solve's working set, so the last case solves without them from
+    # host-resident levels
+    f32 = {"store_dtype": torch.float32}
+    cases = [
+        ("two-piece", {"two_piece": True, **f32}, 2 << 30, REGIME_F32_TOL),
+        ("two-piece, bf16 updates",
+         {"two_piece": True, "update_dtype": torch.bfloat16, **f32},
+         2 << 30, REGIME_BF16_TOL),
+        ("chunked", {"chunks": {6: 4, 5: 2, 4: 2}, "lazy": True, **f32},
+         2 << 30, REGIME_F32_TOL),
+        ("bf16 store, offloaded, no re-upload",
+         {"store_dtype": torch.bfloat16, "offload": True,
+          "reupload": False}, 768 << 20, None)]
+    for name, force, budget, tol in cases:
+        s = SparseCholesky(base.plan, base.rows, base.cols, base.vals,
+                           dtype=np.float32, device="cuda")
+        s._fplan = base.fplan
+        s._plan_override = regimes.plan_regimes(base.fplan, np.float32,
+                                                budget, **force)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        s.factorize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated()
+                - s.factor_stats["allocated_at_start"])
+        x = s.solve(b0, tol=TOL)
+        res = float(np.linalg.norm(a @ x - b0) / np.linalg.norm(b0))
+        out = {"phase": "regimes", "problem": "50^3 L8", "case": name,
+               "budget": budget, "lazy": s.regimes.lazy,
+               "plan": s.regimes.describe(), "factor_wall_s": wall,
+               "residual": res, **s.last_solve, "factor_peak_bytes": peak}
+        check(res <= TOL, f"regime {name}: residual {res}")
+        check(peak <= s.regimes.peak_bytes,
+              f"regime {name}: peak {peak} > estimate "
+              f"{s.regimes.peak_bytes}")
+        if tol is not None:
+            diff = [rel_err(p, r) for p, r in zip(s.panels, ref)]
+            out.update(level_rel_diff=diff, tol=tol)
+            check(max(diff) <= tol, f"regime {name}: factor differs by "
+                  f"{max(diff)} > {tol}")
+        else:
+            check(all(p.device.type == "cpu" for p in s.panels[1:])
+                  and s.last_solve["engine"] == "plain",
+                  f"regime {name}: the solve did not read host levels")
+        emit(out)
+        del s
+
+
+def phase_scale():
+    """The capacity slice's main path: 140^3 L14 in f32 under the default
+    budget, then under SCALE_SMALL_BUDGET."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.numeric import regimes
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    shape, levels = SCALE
+    n, r, c, v, o, cl, b0 = generate_problem(shape, levels, seed=SEED)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    fp = s.fplan
+    plan_s = time.perf_counter() - t0
+    problem = f"{shape[0]}^3 L{levels}"
+    a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+    rhs = [b0, np.random.default_rng(SEED + 1).integers(
+        1, 11, size=n).astype(np.float64)]
+    results = {}
+    for run, budget in (("default", None), ("40 GiB", SCALE_SMALL_BUDGET)):
+        s.budget = budget
+        free, total = torch.cuda.mem_get_info(dev)
+        retries = torch.cuda.memory_stats(dev)["num_alloc_retries"]
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        walls, plans_s = [], []
+        hook, read = level_probe(s, dev)
+        runs = 2 if run == "default" else 1     # cold, then warm
+        for i in range(runs):
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        rows = sorted(((e.key, _device_us(e) / 1e3, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA),
-                      key=lambda x: -x[1])
-        busy_ms = sum(r[1] for r in rows)
-        emit({"phase": "profile", "what": what, "wall_ms": wall_ms,
-              "device_busy_ms": busy_ms,
-              "device_idle_share": 1.0 - busy_ms / wall_ms,
-              "kernel_launches": sum(r[2] for r in rows),
-              "chol_inv_ms": sum(r[1] for r in rows if "chol_inv" in r[0]),
-              "chol_inv_count": sum(r[2] for r in rows
-                                    if "chol_inv" in r[0]),
-              "top": [{"kernel": k[:80], "ms": ms, "count": c}
-                      for k, ms, c in rows[:12]]})
+            t = time.perf_counter()
+            s.factorize(level_hook=hook if i == runs - 1 else None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            plans_s.append({k: s.factor_stats[k] for k in (
+                "plan_s", "plan_reused", "released_cache")})
+        launches = dict(hk.LAUNCHES)
+        per_level = read()
+        plan = s.regimes
+        table = regime_table(fp, plan, per_level)
+        emit({"phase": "scale", "problem": problem, "run": run, "n": n,
+              "free_bytes": free, "total_bytes": total,
+              "budget": s.factor_stats["budget"], "lazy": plan.lazy,
+              "reupload": plan.reupload, "host_plan_s": plan_s,
+              "factor_wall_s": walls[0],
+              "factor_wall_warm_s": walls[-1] if len(walls) > 1 else None,
+              "plan_regimes": plans_s, "levels": table,
+              "max_memory_reserved": torch.cuda.max_memory_reserved(dev)})
+        over = [x["lvl"] for x in table if x["peak_bytes"] > x[
+            "est_peak_bytes"]]
+        check(not over, f"{problem} ({run}): measured peak over the "
+              f"estimate at levels {over}")
+        want = expected_chol_inv(fp, plan)
+        check(launches["chol_inv"] == want * len(walls),
+              f"{problem} ({run}): {launches['chol_inv']} chol_inv launches "
+              f"in {len(walls)} factorizations, the routing rule gives "
+              f"{want} each")
+        if run != "default":
+            check(any(lp.two_piece for lp in plan.levels),
+                  f"{problem} ({run}): no level took the two-piece path")
+        solves = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for b in rhs:
+            t = time.perf_counter()
+            x = s.solve(b, tol=TOL)
+            wall = time.perf_counter() - t
+            res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+            check(bool(np.all(np.isfinite(x))) and x.shape == (n,),
+                  "solution not finite or of the wrong shape")
+            check(res <= TOL, f"{problem} ({run}): residual {res} > {TOL}")
+            solves.append({"wall_s": wall, "residual": res,
+                           **s.last_solve})
+        emit({"phase": "scale", "problem": problem, "run": run,
+              "solves": solves, "launches": launches,
+              "launches_per_factorization": want,
+              "factorizations": len(walls),
+              "solve_max_memory_allocated":
+                  torch.cuda.max_memory_allocated(dev),
+              "max_memory_reserved": torch.cuda.max_memory_reserved(dev)})
+        results[run] = {"launches": launches["chol_inv"],
+                        "per_factorization": want}
+        if run == "default":
+            # refactorizations after the solves: with no factor alive, the
+            # common pool's large segments that a live block pins (the
+            # long-lived state has its own pool); then refactorizations that
+            # keep the allocator's cache (the release turned off), which can
+            # run out of memory on fragmentation, beside one that runs as
+            # factorize() does by default, returning the cache to the driver
+            s.panels, s._inv, s.factored = None, None, False
+            refac = {"pinned before": pinned_segments(dev)}
+            for what in ("kept cache", "released cache",
+                         "kept cache after a release"):
+                s._release_cache = what == "released cache"
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    s.factorize()
+                    torch.cuda.synchronize()
+                except torch.OutOfMemoryError as e:
+                    check(not s._release_cache, f"{problem}: {e}")
+                    refac[what] = {"out_of_memory": str(e)[:420]}
+                    s.panels, s.factored = None, False
+                    del e
+                    continue
+                refac[what] = {"wall_s": time.perf_counter() - t,
+                               **{k: s.factor_stats[k] for k in (
+                                   "plan_s", "plan_reused",
+                                   "released_cache")}}
+            s._release_cache = True
+            check(refac["released cache"]["released_cache"],
+                  f"{problem}: the refactorization kept the cache")
+            stats = torch.cuda.memory_stats(dev)
+            emit({"phase": "scale", "problem": problem, "run": run,
+                  "what": "refactorization", **refac,
+                  "num_alloc_retries": stats["num_alloc_retries"] - retries,
+                  "inactive_split_bytes":
+                      stats["inactive_split_bytes.all.current"],
+                  "reserved_bytes": stats["reserved_bytes.all.current"]})
+            emit({"phase": "scale", "problem": problem, "run": run,
+                  "what": "warm factor under torch.profiler",
+                  **profiled(s.factorize)})
+    del s
+    return results
 
 
 def main() -> int:
@@ -387,6 +714,9 @@ def main() -> int:
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
+        phase_regimes(solver, b)
+        del solver
+        scale = phase_scale()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1
@@ -394,7 +724,11 @@ def main() -> int:
         "name": "chol_inv", "route": "cuda",
         "source": "cholesky_tpu_torch/kernels/csrc/chol_inv.cu",
         "replaces": "cholesky_tpu/numeric/pallas_kernels.py:66",
-        "launches": launches["chol_inv"],
+        "launches": scale["default"]["launches"],
+        "launches_by_path": {
+            "50^3 L8 slice": launches["chol_inv"],
+            "140^3 L14 default budget": scale["default"]["launches"],
+            "140^3 L14 40 GiB budget": scale["40 GiB"]["launches"]},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],

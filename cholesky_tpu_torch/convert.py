@@ -8,8 +8,11 @@ factored port solver: its `SolvePlan` (converted by `plan_from_jax`; it
 holds `perm`), its frontal plan
 arrays (`W`, `F`, `front_rows`, `inv_child`, `fwd_child`) and its per-level
 factors, read as NumPy with `np.asarray`. The port then solves against the
-JAX factor. The other way needs no code: the port's per-level [B, F, W]
-factors, read with `.cpu().numpy()`, are the JAX package's layout.
+JAX factor. A level the JAX package stored bfloat16 stays bfloat16, and a
+level it kept in host memory (a NumPy array in its `panels`: the offloaded
+regimes) stays in host memory; the port's solve reads both. The other way
+needs no code: the port's per-level [B, F, W] factors, read with
+`.cpu().numpy()`, are the JAX package's layout.
 
 This module does not import jax; it only reads the arrays it is handed.
 """
@@ -58,16 +61,29 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
                      [_host(a) for a in jfp.inv_child],
                      [_host(a) for a in jfp.fwd_child],
                      fingerprint=jfp.fingerprint)
-    panels = [np.array(p) for p in jax_solver.panels]       # writable copies
-    dtype = panels[0].dtype
+    dtype = np.dtype(jax_solver.dtype)
     if dtype not in TORCH_DTYPES:
-        raise ValueError(f"factor stored as {dtype}; the port takes float32 "
-                         "or float64 factors")
+        raise ValueError(f"solver dtype {dtype}; the port takes float32 or "
+                         "float64 factorizations")
     solver = SparseCholesky(plan, jax_solver.rows, jax_solver.cols,
                             jax_solver.vals, dtype=dtype, device=device)
     solver._fplan = fp
-    solver.panels = tuple(torch.from_numpy(p).to(solver.device)
-                          for p in panels)
+    solver.panels = tuple(
+        _level(p, "cpu" if isinstance(p, np.ndarray) else solver.device)
+        for p in jax_solver.panels)
     solver.factored = True
     return solver
+
+
+def _level(p, device) -> torch.Tensor:
+    """One factor level as a torch tensor on `device`: f32 and f64 as they
+    are, bfloat16 (NumPy's ml_dtypes type, 2 bytes) through its bits."""
+    a = np.array(p)                                    # a writable copy
+    if a.dtype in TORCH_DTYPES:
+        return torch.from_numpy(a).to(device)
+    if a.dtype.name != "bfloat16":
+        raise ValueError(f"factor level stored as {a.dtype}; the port takes "
+                         "float32, float64 or bfloat16 levels")
+    bits = torch.from_numpy(a.view(np.uint16).astype(np.int16))
+    return bits.view(torch.bfloat16).to(device)
 

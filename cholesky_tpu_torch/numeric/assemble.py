@@ -1,12 +1,18 @@
 """Device-side front assembly — the port of `FrontAssembler`
-(`cholesky_tpu/numeric/frontal.py:300-356`).
+(`cholesky_tpu/numeric/frontal.py:300-356`), `LazyFronts` (`:452-491`) and
+`_assemble_level_chunk` (`:410-449`).
 
 The scatter indices are pattern-only: they are built once on the host
 (`frontal_plan._front_scatter_indices`) and moved to the device at
-construction. Each call then uploads only the [nnz] value vector and fills
+construction, into the pool of long-lived state (`devmem`). Each call then uploads only the [nnz] value vector and fills
 each level's [B, F, W] slab with one scatter: ones on the padded pivot
 diagonal first, then the values. Every index appears once, so the scatters
-do not accumulate.
+do not accumulate. The indices are int64, so no slab size needs the JAX
+package's (slot, remainder) int32 split.
+
+`FrontAssembler.lazy(vals)` keeps the uploaded values and assembles one level,
+or blocks [c0, c1) of one level, on the device right before the level runs:
+then only the current level's (or chunk's) slab is ever resident.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import List
 import numpy as np
 import torch
 
+from cholesky_tpu_torch.numeric import devmem
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      _front_scatter_indices)
 
@@ -29,24 +36,85 @@ class FrontAssembler:
         self.device = torch.device(device)
         self.shapes = tuple((1 << lvl, fp.F[lvl], fp.W[lvl])
                             for lvl in range(fp.levels))
-        self.idx = [tuple(torch.from_numpy(a).to(self.device) for a in lvl)
-                    for lvl in _front_scatter_indices(fp, rows, cols)]
+        with devmem.persistent(self.device):
+            self.idx = [tuple(torch.from_numpy(a).to(self.device)
+                              for a in lvl)
+                        for lvl in _front_scatter_indices(fp, rows, cols)]
+        self._chunk_idx = {}
 
-    def __call__(self, vals, dtype=np.float32) -> List[torch.Tensor]:
-        """vals [nnz] -> per-level slabs [B, F, W] on the device."""
+    def upload(self, vals, dtype) -> torch.Tensor:
+        """The [nnz] values on the device in `dtype` (cast on the host
+        first when that halves the upload)."""
         dtype = np.dtype(dtype)
         vals = np.asarray(vals)
         if vals.ndim != 1:
             raise ValueError(f"expected [nnz] values, got {vals.shape}")
         if vals.dtype.itemsize > dtype.itemsize:
-            vals = vals.astype(dtype)       # halve the upload
-        tdt = TORCH_DTYPES[dtype]
-        v = torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
-        one = torch.ones((), dtype=tdt, device=self.device)
-        out = []
-        for (B, Fl, Wl), (sel, flat, ones) in zip(self.shapes, self.idx):
-            slab = torch.zeros(B * Fl * Wl, dtype=tdt, device=self.device)
-            slab.index_put_((ones,), one, accumulate=False)
-            slab.index_put_((flat,), v[sel].to(tdt), accumulate=False)
-            out.append(slab.view(B, Fl, Wl))
-        return out
+            vals = vals.astype(dtype)
+        return torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
+
+    def _scatter(self, v: torch.Tensor, shape, idx) -> torch.Tensor:
+        B, Fl, Wl = shape
+        sel, flat, ones = idx
+        slab = torch.zeros(B * Fl * Wl, dtype=v.dtype, device=self.device)
+        slab.index_put_((ones,), torch.ones((), dtype=v.dtype,
+                                            device=self.device))
+        slab.index_put_((flat,), v[sel])
+        return slab.view(B, Fl, Wl)
+
+    def level(self, v: torch.Tensor, lvl: int) -> torch.Tensor:
+        """Level lvl's slab [B, F, W] from device values `v`."""
+        return self._scatter(v, self.shapes[lvl], self.idx[lvl])
+
+    def chunk(self, v: torch.Tensor, lvl: int, c0: int, c1: int
+              ) -> torch.Tensor:
+        """Blocks [c0, c1) of level lvl's slab, [c1 - c0, F, W], from device
+        values `v`: the level's indices restricted to those blocks and
+        shifted to chunk-local positions (memoized per chunk)."""
+        _, Fl, Wl = self.shapes[lvl]
+        key = (lvl, c0, c1)
+        idx = self._chunk_idx.get(key)
+        if idx is None:
+            lo, hi = c0 * Fl * Wl, c1 * Fl * Wl
+            sel, flat, ones = self.idx[lvl]
+            with devmem.persistent(self.device):
+                m = (flat >= lo) & (flat < hi)
+                mo = (ones >= lo) & (ones < hi)
+                idx = self._chunk_idx[key] = (sel[m], flat[m] - lo,
+                                              ones[mo] - lo)
+        return self._scatter(v, (c1 - c0, Fl, Wl), idx)
+
+    def __call__(self, vals, dtype=np.float32) -> List[torch.Tensor]:
+        """vals [nnz] -> per-level slabs [B, F, W] on the device."""
+        v = self.upload(vals, dtype).to(TORCH_DTYPES[np.dtype(dtype)])
+        return [self.level(v, lvl) for lvl in range(len(self.shapes))]
+
+    def lazy(self, vals, dtype=np.float32) -> "LazyFronts":
+        return LazyFronts(self, vals, dtype)
+
+
+class LazyFronts:
+    """Sequence view over an unassembled front set: each level's slab (or
+    a chunk of it) is scattered on the device when it is asked for and not
+    kept, so a factorization over it holds only the current level's slab —
+    never the whole front set. The values cross to the device once."""
+
+    def __init__(self, asm: FrontAssembler, vals, dtype=np.float32):
+        self.asm = asm
+        self.dtype = np.dtype(dtype)
+        self.device = asm.device
+        self.shapes = asm.shapes
+        self.vals = asm.upload(vals, self.dtype).to(TORCH_DTYPES[self.dtype])
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+    def __getitem__(self, lvl: int) -> torch.Tensor:
+        return self.asm.level(self.vals, lvl)
+
+    def chunk(self, lvl: int, c0: int, c1: int) -> torch.Tensor:
+        """Assemble only blocks [c0, c1) of a level (batch-chunked levels)."""
+        return self.asm.chunk(self.vals, lvl, c0, c1)
+
+    def nbytes_of(self, lvl: int) -> int:
+        return int(np.prod(self.shapes[lvl])) * self.dtype.itemsize

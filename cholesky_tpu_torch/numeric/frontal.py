@@ -1,42 +1,60 @@
-"""Batched multifrontal factorization and the banded solve chain — the
-single-device, in-core part of `cholesky_tpu/numeric/frontal.py`.
+"""Batched multifrontal factorization, its capacity regimes, and the solves —
+the single-device part of `cholesky_tpu/numeric/frontal.py`.
 
 Ported:
   * `_factor_level` (`:1249`): the leaf branch (`:1274-1299`, with the
-    deferred ("xxt", X) Schur product) and the square-front branch
-    (`:1364-1431`).
-  * `_apply_child_updates_fused` (`:857-882`), the one extend-add strategy.
-  * `frontal_factor` (`:1434`) and `factor` (`:2552`, in-core only).
+    deferred ("xxt", X) Schur product), the two-piece branch (`:1314-1362`)
+    and the square-front branch (`:1364-1431`).
+  * The square path's extend-add `_apply_child_updates_fused` (`:857`), as
+    `_extend_add_fused_`, in place and in row chunks.
+  * The two-piece extend-add: `_expand_xxt_2` (`:603`), `_apply_gather_2`
+    (`:755`), `_schur_update_cast` / `_einsum_rows_cast` (`:646-752`) and
+    the dispatcher `_apply_extadd_two_piece` (`:824`).
+  * `_BatchView` (`:1603`), `_take_child_rows` (`:1687`) and
+    `frontal_factor_streamed` (`:1704`), the one level loop: lazily
+    assembled levels, batch-chunked levels, the stored factor's dtype, offload
+    of finished levels to host memory and the spill of emitted update pieces.
+    `factor` (`:2552`) runs it.
   * `invert_pivots` (`:2340`), `_solve_banded_core` / `_solve_banded`
-    (`:1983-2040`).
+    (`:1983-2040`), and `frontal_solve` (`:2043`), the solve without pivot
+    inverses, which also reads bf16 and host-resident levels.
 
-Levels that `hopper_kernels.slab_kernel_eligible` accepts go through
-`factor_slab` (the hand-written Cholesky/inverse kernel on the card); the
-others through `torch.linalg.cholesky_ex` + `solve_triangular`. The
-two-piece path for square fronts past TWO_PIECE_BYTES and the streamed
-factorization past STREAM_BYTES are not ported (ROADMAP, queue 1, item 10)
-and raise NotImplementedError.
+Which regime each level takes comes from one memory budget
+(`regimes.plan_regimes`). Levels that `hopper_kernels.slab_kernel_eligible`
+accepts go through `factor_slab` (the hand-written Cholesky/inverse kernel on
+the card); the others through `torch.linalg.cholesky_ex` +
+`solve_triangular`.
+
+Eager PyTorch runs one level at a time and frees a tensor when its last
+reference goes, so the level loop bounds its working set by dropping
+references (and by writing in place where the JAX code relied on buffer
+donation): a level consumes its pivot slab, and `frontal_factor_streamed`
+consumes the list of slabs it is given. Every large temporary of an
+extend-add or a Schur product is cut into row chunks of at most
+`regimes.CHUNK_BYTES`.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as tnf
 
+from cholesky_tpu_torch.numeric import devmem, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.numeric.assemble import LazyFronts
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 
-# The JAX package's regime thresholds (frontal.py:1111, :2501). Past them it
-# switches to paths that this port does not have yet.
-TWO_PIECE_BYTES = 512 << 20
-STREAM_BYTES = 5 << 30
+
+def _acc(dtype) -> torch.dtype:
+    """Accumulation dtype of a stored dtype: f64 stays f64, else f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _device_index(fp: FrontalPlan, name: str, lvl, device) -> torch.Tensor:
-    """int64 device copy of a plan index array, cached on the plan."""
+    """int64 device copy of a plan index array, cached on the plan (in the
+    pool of long-lived state, `devmem`)."""
     key = (name, lvl, str(device))
     t = fp.cache.get(key)
     if t is None:
@@ -47,11 +65,39 @@ def _device_index(fp: FrontalPlan, name: str, lvl, device) -> torch.Tensor:
             host = pad_of
         elif name == "bnd_pad":
             host = bnd_pad[lvl]
+        elif name == "piv_rows":
+            host = fp.front_rows[lvl][:, :fp.W[lvl]]
+        elif name == "bnd_rows":
+            host = fp.front_rows[lvl][:, fp.W[lvl]:]
         else:                                   # inv_child, fwd_child
             host = getattr(fp, name)[lvl]
-        t = torch.from_numpy(np.asarray(host, dtype=np.int64)).to(device)
+        with devmem.persistent(device):
+            t = torch.from_numpy(np.asarray(host, dtype=np.int64)).to(device)
         fp.cache[key] = t
     return t
+
+
+class _BatchView:
+    """The plan seen from blocks [c0, c1) of level `lvl`: F, W and levels
+    are the plan's; the child maps of level lvl + 1 are cut to rows
+    [2 c0, 2 c1) (sibling pairs (2i, 2i + 1) merge into parent i, so a slice
+    of a level's blocks is a closed sub-problem)."""
+
+    def __init__(self, fp: FrontalPlan, lvl: int, c0: int, c1: int):
+        self.base, self.lvl, self.c0, self.c1 = fp, lvl, c0, c1
+        self.F, self.W, self.levels = fp.F, fp.W, fp.levels
+
+
+def _child_maps(fp, child_lvl: int, device):
+    """(inv [2b, Fp], fwd [2b, Kc]) int64 device maps of level child_lvl,
+    cut to a batch view's rows."""
+    base = fp.base if isinstance(fp, _BatchView) else fp
+    inv = _device_index(base, "inv_child", child_lvl, device)
+    fwd = _device_index(base, "fwd_child", child_lvl, device)
+    if isinstance(fp, _BatchView) and fp.lvl == child_lvl - 1:
+        inv = inv[2 * fp.c0:2 * fp.c1]
+        fwd = fwd[2 * fp.c0:2 * fp.c1]
+    return inv, fwd
 
 
 def _cholesky(a: torch.Tensor) -> torch.Tensor:
@@ -65,50 +111,220 @@ def _solve_lower_t(ld: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          left=False)
 
 
-def _apply_child_updates_fused(fp: FrontalPlan, full: torch.Tensor,
-                               U: torch.Tensor, child_lvl: int):
-    """Subtract both children's updates U [2B, K, K] from the parent's
-    square fronts [B, Fp, Fp] in one gather + one scatter-add:
-
-      * columns: gather from the child update, padded with a zero column
-        (the sentinel K), putting each child row into parent columns;
-      * rows: scatter-add the child rows at their parent positions, with a
-        dummy sentinel row Fp. Sibling pairs share a batch index, so the
-        scatter must accumulate duplicates.
-
-    The update is applied in place on a padded copy of `full`."""
-    device = full.device
-    inv = _device_index(fp, "inv_child", child_lvl, device)     # [2B, Fp]
-    fwd = _device_index(fp, "fwd_child", child_lvl, device)     # [2B, K]
-    B2, K = fwd.shape
-    Fp = fp.F[child_lvl - 1]
-    upad = tnf.pad(U, (0, 1))                                   # col sentinel
-    e1 = torch.gather(upad, 2, inv[:, None, :].expand(B2, K, Fp))
-    seg = (torch.arange(B2, device=device) >> 1)[:, None].expand(B2, K)
-    fullpad = tnf.pad(full, (0, 0, 0, 1))                       # row sentinel
-    fullpad.index_put_((seg, fwd), -e1.to(full.dtype), accumulate=True)
-    return fullpad[:, :Fp, :]
+def _factor_slab(slab: torch.Tensor, Wl: int) -> torch.Tensor:
+    """Partial factorization of pivot slabs [b, F, W] (rows [:W] the pivot
+    Cholesky, rows [W:] the solved boundary strip): `factor_slab` where the
+    routing rule takes the level, else cuSOLVER + TRSM written into one
+    output."""
+    b, Fl, _ = slab.shape
+    if hk.slab_kernel_eligible(b, Wl, slab.dtype):
+        return hk.factor_slab(slab, Wl)
+    if Fl == Wl:
+        return _cholesky(slab)
+    fac = slab.new_empty((b, Fl, Wl))
+    fac[:, :Wl] = _cholesky(slab[:, :Wl, :])
+    fac[:, Wl:] = _solve_lower_t(fac[:, :Wl], slab[:, Wl:, :])
+    return fac
 
 
-def _factor_level(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U):
+def _rows_gather(U: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[j, i] = U[j, idx[j, i]] for U [B2, n, C], idx [B2, r]; rows with
+    the sentinel idx >= n read zero (a masked gather instead of a padded
+    copy of U)."""
+    n = U.shape[1]
+    ar = torch.arange(U.shape[0], device=U.device)[:, None]
+    g = U[ar, idx.clamp(max=n - 1)]
+    g.masked_fill_((idx >= n)[:, :, None], 0)
+    return g
+
+
+def _cols_gather(G: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """out[j, :, i] = G[j, :, idx[j, i]] for G [B2, r, n]; sentinel columns
+    idx >= n read zero."""
+    B2, r, _ = G.shape
+    out = torch.gather(G, 2, idx.clamp(max=n - 1)[:, None, :].expand(
+        B2, r, idx.shape[1]))
+    out.masked_fill_((idx >= n)[:, None, :], 0)
+    return out
+
+
+def _extadd_rows(U: torch.Tensor, inv: torch.Tensor, r0: int, r1: int,
+                 cols: torch.Tensor, acc) -> torch.Tensor:
+    """Rows [r0, r1) of the children's extend-add in parent coordinates,
+    restricted to parent columns `cols`:
+
+        E[b, f, g] = sum_s U[2b+s, inv[2b+s, f], inv[2b+s, g]]
+
+    -> [b, r1 - r0, |cols|] in `acc` (sentinel positions read zero)."""
+    Kc = U.shape[1]
+    E = _cols_gather(_rows_gather(U, inv[:, r0:r1]), cols, Kc)
+    B2 = E.shape[0]
+    return E.view(B2 // 2, 2, r1 - r0, E.shape[2]).sum(1, dtype=acc)
+
+
+def _extend_add_fused_(fp, fullpad: torch.Tensor, U: torch.Tensor,
+                       child_lvl: int) -> None:
+    """The square path's extend-add (`_apply_child_updates_fused`,
+    `frontal.py:857`): subtract both children's updates U [2B, K, K] from
+    the parent's square fronts, in place on the padded buffer
+    [B, Fp + 1, Fp] (row Fp is the sentinel). Per chunk of child rows, the
+    update's columns are gathered into parent column coordinates (sentinel
+    columns read zero) and the rows scatter-added at their parent
+    positions. Sibling pairs share a batch index, so the scatter
+    accumulates."""
+    inv, fwd = _child_maps(fp, child_lvl, fullpad.device)
+    B2, Kc = fwd.shape
+    Fp = fullpad.shape[2]
+    seg = (torch.arange(B2, device=fullpad.device) >> 1)[:, None]
+    ch = regimes.fused_rows(B2, Kc, Fp, U.element_size(),
+                            fullpad.element_size())
+    for k0 in range(0, Kc, ch):
+        k1 = min(k0 + ch, Kc)
+        e1 = _cols_gather(U[:, k0:k1], inv, Kc).to(fullpad.dtype).neg_()
+        fullpad.index_put_((seg.expand(B2, k1 - k0), fwd[:, k0:k1]), e1,
+                           accumulate=True)
+        del e1
+
+
+def _rows_product(A: torch.Tensor, out_dtype) -> torch.Tensor:
+    """A A^T for A [b, K, J] accumulated in f32 (or f64) and stored as
+    out_dtype; by row chunks when out_dtype is narrower, so the full-size
+    accumulator never exists (the port of `_einsum_rows_cast` for Ga = Gb)."""
+    acc = _acc(A.dtype)
+    A = A.to(acc)
+    if out_dtype == acc:
+        return A @ A.transpose(1, 2)
+    b, K, J = A.shape
+    out = torch.empty((b, K, K), dtype=out_dtype, device=A.device)
+    ch = regimes.schur_rows(b, K, J, acc_size=A.element_size())
+    for r0 in range(0, K, ch):
+        out[:, r0:r0 + ch] = A[:, r0:r0 + ch] @ A.transpose(1, 2)
+    return out
+
+
+def _expand_xxt_2(fp, X: torch.Tensor, child_lvl: int, W: int,
+                  t_dtype=None):
+    """Leaf-transition two-piece expansion straight from X [2b, Kc, Wc] (a
+    leaf child's update is exactly X X^T): X's rows are gathered into parent
+    coordinates with the siblings folded into the contraction,
+    Gr = [P1 X1 | P2 X2] [b, Fp, 2 Wc], and
+
+        E_slab = Gr Gr[:, :W]^T  [b, Fp, W],  E_T = Gr[:, W:] Gr[:, W:]^T.
+
+    E_T is stored as t_dtype (accumulated in f32 or f64)."""
+    inv, _ = _child_maps(fp, child_lvl, X.device)
+    B2, Kc, Wc = X.shape
+    b, Fp = B2 // 2, inv.shape[1]
+    acc = _acc(X.dtype)
+    inv2 = inv.view(b, 2, Fp).transpose(1, 2).reshape(b, 2 * Fp)
+    sib = torch.arange(2 * Fp, device=X.device) & 1
+    bat = 2 * torch.arange(b, device=X.device)[:, None] + sib[None, :]
+    Gr = X[bat, inv2.clamp(max=Kc - 1)]                 # [b, 2 Fp, Wc]
+    Gr.masked_fill_((inv2 >= Kc)[:, :, None], 0)
+    Gr = Gr.view(b, Fp, 2 * Wc).to(acc)
+    E_slab = Gr @ Gr[:, :W].transpose(1, 2)
+    E_T = _rows_product(Gr[:, W:], t_dtype or acc) if Fp > W else None
+    return E_slab, E_T
+
+
+def _apply_gather_2(fp, slab: torch.Tensor, U: torch.Tensor, child_lvl: int):
+    """Two-piece extend-add by masked gathers: the slab piece is subtracted
+    from `slab` in place, row chunk by row chunk (each chunk's gather
+    buffers bounded by regimes.CHUNK_BYTES); the trailing piece is returned
+    as the tag ("gather2", U), which `_schur_update_cast` consumes row chunk
+    by row chunk, so the [b, K, K] piece never exists."""
+    inv, _ = _child_maps(fp, child_lvl, slab.device)
+    B2, Kc = U.shape[:2]
+    _, Fp, W = slab.shape
+    cols = inv[:, :W]
+    ch = regimes.gather_rows(B2, Kc, W, U.element_size(),
+                             slab.element_size())
+    for r0 in range(0, Fp, ch):
+        r1 = min(r0 + ch, Fp)
+        slab[:, r0:r1].sub_(_extadd_rows(U, inv, r0, r1, cols, slab.dtype))
+    return slab, (("gather2", U) if Fp > W else None)
+
+
+def _apply_extadd_two_piece(fp, slab: torch.Tensor, U, child_lvl: int,
+                            t_dtype):
+    """The two-piece extend-add of the children's updates into pivot slabs
+    [b, Fp, W] (the slab piece is subtracted in place): the leaf tag
+    ("xxt", X) through the xxt tier, a [2b, Kc, Kc] tensor through the
+    gather tier. Returns (slab, E_T): E_T a [b, K, K] tensor in t_dtype
+    (xxt tier), the tag ("gather2", U) (gather tier), or None when there is
+    no trailing block. (A level whose plan takes the gather tier for the
+    leaves' X materializes X X^T before calling.)"""
+    if isinstance(U, tuple):
+        E_slab, E_T = _expand_xxt_2(fp, U[1], child_lvl, slab.shape[2],
+                                    t_dtype=t_dtype)
+        slab.sub_(E_slab)
+        return slab, E_T
+    if U.shape[1] == 0:
+        return slab, None
+    return _apply_gather_2(fp, slab, U, child_lvl)
+
+
+def _schur_update_cast(X: torch.Tensor, E_T, out_dtype, fp=None,
+                       child_lvl=None, beta: float = 1.0) -> torch.Tensor:
+    """U2 = X X^T + beta E_T, accumulated in X's dtype (f32 or f64) and
+    stored as out_dtype, by exact row chunks when a chunk loop is needed.
+
+    E_T is None; a [b, K, K] tensor (with beta = 1 and E_T already of the
+    output dtype it is accumulated in place, so E_T and U2 never coexist);
+    or the tag ("gather2", U): the trailing extend-add is then gathered row
+    chunk by row chunk inside the loop and never materialized."""
+    acc = X.dtype
+    Xt = X.transpose(1, 2)
+    gather2 = isinstance(E_T, tuple)
+    if out_dtype == acc and not gather2:
+        if E_T is None:
+            return X @ Xt
+        if beta == 1 and E_T.dtype == acc:
+            return E_T.baddbmm_(X, Xt)
+        return torch.baddbmm(E_T.to(acc), X, Xt, beta=beta)
+    b, K, W = X.shape
+    if gather2:
+        U = E_T[1]
+        inv, _ = _child_maps(fp, child_lvl, X.device)
+        cols = inv[:, W:]
+        ch = regimes.schur_rows(b, K, W, U.shape[0], U.shape[1],
+                                U.element_size(), X.element_size())
+        out = torch.empty((b, K, K), dtype=out_dtype, device=X.device)
+    else:
+        ch = regimes.schur_rows(b, K, W, acc_size=X.element_size())
+        seeded = E_T is not None and beta == 1 and E_T.dtype == out_dtype
+        out = E_T if seeded else torch.empty((b, K, K), dtype=out_dtype,
+                                             device=X.device)
+    for r0 in range(0, K, ch):
+        r1 = min(r0 + ch, K)
+        pc = X[:, r0:r1] @ Xt
+        if gather2:
+            pc += _extadd_rows(U, inv, W + r0, W + r1, cols, acc)
+        elif E_T is not None:
+            pc.add_(E_T[:, r0:r1], alpha=beta)
+        out[:, r0:r1] = pc
+        del pc
+    return out
+
+
+def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
+                  lp: Optional["regimes.LevelPlan"] = None):
     """One level of the multifrontal factorization. Consumes the level's
-    pivot slabs `piv` [B, F, W] and the children's accumulated updates `U`
-    (None at the leaf level; a [2B, K, K] tensor; or ("xxt", X), a deferred
-    leaf Schur product). Returns (factor [B, F, W], U_next) where U_next
-    feeds the parent level (None when lvl == 0)."""
+    pivot slabs `piv` [b, F, W] (the two-piece path writes into them) and
+    the children's accumulated updates `U` (None at the leaf level; a
+    [2b, K, K] tensor; or ("xxt", X), a deferred leaf Schur product).
+    Returns (factor [b, F, W], U_next) where U_next feeds the parent level
+    (None when lvl == 0). `lp` is the level's regime (square front or two
+    piece, xxt tier, update dtype); None is the in-core square path with
+    updates in the factor's dtype."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
     B = piv.shape[0]
-    use_kernel = hk.slab_kernel_eligible(B, Wl, piv.dtype)
+    udt = piv.dtype if lp is None else lp.update_dtype
 
     if U is None:
         # leaf levels: no children, so the square front is never needed —
         # factor the [B, F, W] pivot slab directly
-        if use_kernel:
-            fac = hk.factor_slab(piv, Wl)
-        else:
-            ld = _cholesky(piv[:, :Wl, :])
-            fac = (torch.cat([ld, _solve_lower_t(ld, piv[:, Wl:, :])], dim=1)
-                   if Fl > Wl else ld)
+        fac = _factor_slab(piv, Wl)
         if lvl == 0:
             return fac, None
         if Fl > Wl:
@@ -116,68 +332,192 @@ def _factor_level(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U):
             return fac, ("xxt", fac[:, Wl:, :])
         return fac, piv.new_zeros((B, 0, 0))
 
-    if B * Fl * Fl * 4 > TWO_PIECE_BYTES:
-        raise NotImplementedError(
-            f"level {lvl}: square fronts of {B * Fl * Fl * 4 >> 20} MiB need "
-            "the two-piece path, which is not ported yet (ROADMAP, queue 1, "
-            "item 10: capacity regimes)")
-    full = torch.cat([piv, piv.new_zeros((B, Fl, Fl - Wl))], dim=2)
+    if lp is not None and lp.two_piece:
+        # the factorization reads only the pivot slab [B, F, W] and the
+        # trailing block [B, K, K], so the square [B, F, F] front is never
+        # built
+        E_T = None
+        if isinstance(U, tuple) and not lp.xxt_tier:
+            U = _rows_product(U[1], U[1].dtype)     # X X^T; frees X
+        if isinstance(U, tuple) or U.shape[1] > 0:
+            piv, E_T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, udt)
+        del U
+        fac = _factor_slab(piv, Wl)
+        del piv
+        if lvl == 0:
+            return fac, None
+        if Fl > Wl:
+            return fac, _schur_update_cast(fac[:, Wl:, :], E_T, udt, fp=fp,
+                                           child_lvl=lvl + 1)
+        return fac, fac.new_zeros((B, 0, 0))
+
+    full = piv.new_zeros((B, Fl + 1, Fl))             # row Fl: sentinel
+    full[:, :Fl, :Wl] = piv
+    del piv
     if isinstance(U, tuple):
-        xc = U[1]
-        U = xc @ xc.transpose(1, 2)
+        U = _rows_product(U[1], U[1].dtype)
     if U.shape[1] > 0:
-        full = _apply_child_updates_fused(fp, full, U, lvl + 1)
-    if use_kernel:
-        fac = hk.factor_slab(full[:, :, :Wl].contiguous(), Wl)
-    else:
-        ld = _cholesky(full[:, :Wl, :Wl])
-        fac = (torch.cat([ld, _solve_lower_t(ld, full[:, Wl:, :Wl])], dim=1)
-               if Fl > Wl else ld)
+        _extend_add_fused_(fp, full, U, lvl + 1)
+    del U
+    fac = _factor_slab(full[:, :Fl, :Wl], Wl)
     if lvl == 0:
         return fac, None
     if Fl > Wl:
-        X = fac[:, Wl:, :]
-        return fac, X @ X.transpose(1, 2) - full[:, Wl:, Wl:]
-    return fac, piv.new_zeros((B, 0, 0))
+        return fac, _schur_update_cast(fac[:, Wl:, :], full[:, Wl:Fl, Wl:],
+                                       udt, beta=-1.0)
+    return fac, fac.new_zeros((B, 0, 0))
 
 
-def frontal_factor(fp: FrontalPlan, fronts: Sequence[torch.Tensor]
-                   ) -> Tuple[torch.Tensor, ...]:
-    """Factor all fronts level by level, leaves to root; returns per-level
-    [B, F, W] factors (pivot Cholesky stacked over the solved boundary
-    strip)."""
-    out: List[torch.Tensor] = [None] * fp.levels
-    U = None
+def _take_child_rows(pieces: List, counts: List[int], r0: int, r1: int,
+                     device):
+    """Rows [r0, r1) of the concatenation of `pieces` (child-update tensors
+    stacked along axis 0, sizes `counts`; host pieces are uploaded). A
+    span inside one device piece is a view; otherwise a copy on the
+    device."""
+    parts = []
+    off = 0
+    for arr, cnt in zip(pieces, counts):
+        lo, hi = max(r0 - off, 0), min(r1 - off, cnt)
+        if lo < hi:
+            parts.append(arr[lo:hi])
+        off += cnt
+    if len(parts) == 1:
+        return parts[0].to(device)
+    return torch.cat([p.to(device) for p in parts], dim=0)
+
+
+def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
+                            level_hook=None) -> Tuple[torch.Tensor, ...]:
+    """The level loop, leaves to root, under a regime plan
+    (`regimes.plan_regimes`): per level, `plan.levels[lvl]` gives the path
+    (square or two-piece), the update dtype, the batch-chunk count, the
+    stored factor's dtype and whether the finished level moves to host
+    memory (and whether its emitted update pieces do too: the spill).
+
+    `fronts` is a list of [B, F, W] slabs — CONSUMED: each entry is dropped
+    once its level ran and its storage may have been overwritten — or a
+    `LazyFronts`, which assembles each level (or each chunk of it) on the
+    device right before it runs. A chunked level with nc chunks runs nc
+    independent sub-problems over blocks [c0, c1); each consumes rows
+    [2 c0, 2 c1) of the children's update, and update pieces are freed as
+    soon as their last chunk has consumed them.
+
+    `level_hook(lvl, "start" | "end")`, when given, is called around each
+    level (instrumentation: per-level device time and memory).
+
+    Returns the per-level [B, F, W] factors: device tensors, or CPU tensors
+    for offloaded levels."""
+    lazy = isinstance(fronts, LazyFronts)
+    device = fronts.device if lazy else fronts[0].device
+    dtype = plan.dtype
+    out: List[Optional[torch.Tensor]] = [None] * fp.levels
+    pieces = counts = None
+    xxt = False                  # pieces hold a leaf's X (deferred X X^T)
     for lvl in range(fp.levels - 1, -1, -1):
-        out[lvl], U = _factor_level(fp, lvl, fronts[lvl], U)
+        if level_hook is not None:
+            level_hook(lvl, "start")
+        lp = plan.levels[lvl]
+        B, Fl, Wl = 1 << lvl, fp.F[lvl], fp.W[lvl]
+        nc = lp.chunks
+        cb = B // nc
+        # the stored factor stays the compute-dtype tensor on the device:
+        # a leaf's X can then be a view of it
+        keep = not lp.offload and lp.store_dtype == dtype
+        x_view = keep and lp.update_dtype == dtype
+        stored = None if nc == 1 else torch.empty(
+            (B, Fl, Wl), dtype=lp.store_dtype,
+            device="cpu" if lp.offload else device)
+        new_pieces = []
+
+        def slab(c0, c1):
+            if nc == 1:
+                return fronts[lvl]
+            return fronts.chunk(lvl, c0, c1) if lazy else fronts[lvl][c0:c1]
+
+        def update(c0, c1):
+            """Rows [2 c0, 2 c1) of the children's update; pieces that this
+            chunk consumes to their end leave the list, so they are freed
+            when the level drops the update."""
+            if pieces is None:
+                return None
+            U = _take_child_rows(pieces, counts, 2 * c0, 2 * c1, device)
+            off = 0
+            for i, cnt in enumerate(counts):
+                if off + cnt <= 2 * c1:
+                    pieces[i] = None
+                off += cnt
+            return ("xxt", U) if xxt else U
+
+        for c in range(nc):
+            c0, c1 = c * cb, (c + 1) * cb
+            view = fp if nc == 1 else _BatchView(fp, lvl, c0, c1)
+            # slab and update are passed as call expressions, not names, so
+            # that the level can free them as soon as it is done with them
+            fac, nxt = _factor_level(view, lvl, slab(c0, c1), update(c0, c1),
+                                     lp)
+            if nc == 1:
+                stored = fac if keep else _store(fac, lp)
+            else:
+                stored[c0:c1] = fac
+            if isinstance(nxt, tuple):                # the leaf's X
+                nxt = (stored[c0:c1, Wl:, :] if x_view else
+                       nxt[1].to(lp.update_dtype).contiguous())
+            del fac
+            if nxt is not None:
+                new_pieces.append(nxt.cpu() if lp.spill else nxt)
+            del nxt
+        if not lazy:
+            fronts[lvl] = None
+        out[lvl] = stored
+        del stored
+        xxt = lvl == fp.levels - 1 and Fl > Wl
+        pieces, counts = new_pieces, [cb] * nc
+        if level_hook is not None:
+            level_hook(lvl, "end")
     return tuple(out)
 
 
-def factor(fp: FrontalPlan, fronts: Sequence[torch.Tensor]
+def _store(fac: torch.Tensor, lp) -> torch.Tensor:
+    """The level's stored factor: cast to the plan's store dtype and, when
+    the plan offloads the level, copied to host memory."""
+    out = fac.to(lp.store_dtype)
+    return out.cpu() if lp.offload else out
+
+
+def factor(fp: FrontalPlan, fronts, plan, level_hook=None
            ) -> Tuple[torch.Tensor, ...]:
-    """In-core factorization. Front sets past STREAM_BYTES would take the
-    JAX package's streamed path, which is not ported."""
-    total = sum(f.numel() * f.element_size() for f in fronts)
-    if total > STREAM_BYTES:
-        raise NotImplementedError(
-            f"{total >> 20} MiB of fronts needs the streamed factorization, "
-            "which is not ported yet (ROADMAP, queue 1, item 10: capacity "
-            "regimes)")
-    return frontal_factor(fp, fronts)
+    """The factorization under a regime plan (`regimes.plan_regimes`), level
+    by level, leaves to root; returns per-level [B, F, W] factors (pivot
+    Cholesky stacked over the solved boundary strip):
+    `frontal_factor_streamed` over eager slabs or a `LazyFronts`. When the
+    plan offloaded levels and their stored bytes plus the solve's working
+    set fit the budget (`plan.reupload`), the levels move back to the
+    device, so that every solve does not ship them again."""
+    device = fronts.device if isinstance(fronts, LazyFronts) \
+        else fronts[0].device
+    out = frontal_factor_streamed(fp, fronts, plan, level_hook=level_hook)
+    if plan.reupload:
+        out = tuple(f.to(device) for f in out)
+    return out
 
 
-def invert_pivots(fp: FrontalPlan, factors) -> Tuple[torch.Tensor, ...]:
+def invert_pivots(fp: FrontalPlan, factors, device=None
+                  ) -> Tuple[torch.Tensor, ...]:
     """Per-level explicit inverses of the pivot Cholesky factors (a
     triangular solve against the identity), amortized over the many vector
-    solves of the refinement loop. Computed in the factor's dtype (the JAX
-    package inverts in f32 and uses the inverses only for f32 factors)."""
+    solves of the refinement loop. Computed on `device` (default: the
+    factors') in f32, or in f64 for an f64 factor, whatever the stored
+    dtype; a host-resident level is moved to the device for its
+    inversion."""
     out = []
     for lvl in range(fp.levels):
         W = fp.W[lvl]
-        ld = factors[lvl][:, :W, :]
+        f = factors[lvl]
+        ld = f[:, :W, :].to(device or f.device, _acc(f.dtype))
         eye = torch.eye(W, dtype=ld.dtype, device=ld.device)
         out.append(torch.linalg.solve_triangular(ld, eye.expand_as(ld),
                                                  upper=False))
+        del ld
     return tuple(out)
 
 
@@ -189,7 +529,8 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
     Per level the forward step is a slice + 2 batched matvecs + a boundary
     scatter-add (fronts of one level share ancestor rows, so it
     accumulates); the backward step a boundary gather + 2 matvecs + a
-    slice write."""
+    slice write. A level stored narrower than g (bf16) or in host memory
+    is promoted / moved for its products."""
     levels = fp.levels
     _, offs, _, _, _ = _banded_maps(fp)
     g = g.clone()
@@ -201,8 +542,9 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
         y = torch.bmm(inv_pivots[lvl], band)                   # [B, W, 1]
         ys[lvl] = y
         if Fl > Wl:
-            X = factors[lvl][:, Wl:, :].to(y.dtype)
+            X = factors[lvl][:, Wl:, :].to(y.device, y.dtype)
             contrib = torch.bmm(X, y).reshape(-1)
+            del X
             g.index_add_(0, _device_index(fp, "bnd_pad", lvl, g.device)
                          .reshape(-1), contrib, alpha=-1)
     xg = torch.zeros_like(g)
@@ -211,9 +553,10 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
         B = fp.front_rows[lvl].shape[0]
         rhs = ys[lvl]
         if Fl > Wl:
-            X = factors[lvl][:, Wl:, :].to(rhs.dtype)
+            X = factors[lvl][:, Wl:, :].to(rhs.device, rhs.dtype)
             z = xg[_device_index(fp, "bnd_pad", lvl, g.device)]   # [B, K]
             rhs = rhs - torch.bmm(X.transpose(1, 2), z[:, :, None])
+            del X
         x = torch.bmm(inv_pivots[lvl].transpose(1, 2), rhs)
         xg[offs[lvl]:offs[lvl] + B * Wl] = x.reshape(-1)
     return xg
@@ -229,3 +572,74 @@ def _solve_banded(fp: FrontalPlan, factors, inv_pivots,
                    b_perm.new_zeros(1)])                     # [n_pad + 1]
     xg = _solve_banded_core(fp, factors, inv_pivots, g)
     return xg[_device_index(fp, "pad_of", None, device)]
+
+
+def _tri_apply(pan: torch.Tensor, rhs: torch.Tensor, W: int,
+               transpose: bool) -> torch.Tensor:
+    """x with L x = rhs (or L^T x = rhs) for the pivot blocks L =
+    pan[:, :W, :] and rhs [B, W], one batch chunk at a time: each chunk of
+    L is promoted to rhs's dtype on its own (a level-sized promotion of a
+    bf16 level is GiB-scale)."""
+    out = torch.empty_like(rhs)
+    bc = regimes.solve_batch(W, W, rhs.element_size())
+    for i in range(0, rhs.shape[0], bc):
+        ld = pan[i:i + bc, :W, :].to(rhs.dtype)
+        r = rhs[i:i + bc, :, None]
+        x = (torch.linalg.solve_triangular(ld.transpose(1, 2), r, upper=True)
+             if transpose else
+             torch.linalg.solve_triangular(ld, r, upper=False))
+        out[i:i + bc] = x[..., 0]
+    return out
+
+
+def _x_apply(pan: torch.Tensor, vec: torch.Tensor, W: int,
+             forward: bool) -> torch.Tensor:
+    """The boundary products X y ([B, K], forward) or X^T z ([B, W]) of the
+    strips X = pan[:, W:, :], with the same chunk-local promotion."""
+    B, F, _ = pan.shape
+    out = vec.new_empty((B, F - W if forward else W))
+    bc = regimes.solve_batch(F - W, W, vec.element_size())
+    for i in range(0, B, bc):
+        X = pan[i:i + bc, W:, :].to(vec.dtype)
+        v = vec[i:i + bc, :, None]
+        out[i:i + bc] = (X @ v if forward else X.transpose(1, 2) @ v)[..., 0]
+    return out
+
+
+def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
+                  ) -> torch.Tensor:
+    """Forward + backward substitution against the per-level factors
+    without pivot inverses, in the permuted basis: per level, a batched
+    triangular solve of the pivot blocks and the boundary product, with a
+    gather of the level's rows from the work vector and a scatter back.
+    `b_perm` [n] (the rhs in PERMUTED order, f32 or f64, on the solve's
+    device) -> x [n]. A level held in host memory is moved to the device
+    one level at a time, in each sweep; a level stored narrower than the rhs
+    (bf16) is promoted one batch chunk at a time."""
+    n = fp.plan.n
+    device = b_perm.device
+    bg = torch.cat([b_perm, b_perm.new_zeros(1)])       # slot n: sentinel
+    for lvl in range(fp.levels - 1, -1, -1):
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        pan = factors[lvl].to(device)
+        piv = _device_index(fp, "piv_rows", lvl, device)
+        y = _tri_apply(pan, bg[piv], Wl, transpose=False)
+        bg[piv] = y
+        if Fl > Wl:
+            bnd = _device_index(fp, "bnd_rows", lvl, device)
+            bg.index_add_(0, bnd.reshape(-1),
+                          _x_apply(pan, y, Wl, True).reshape(-1), alpha=-1)
+        bg[n] = 0
+        del pan
+    for lvl in range(fp.levels):
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        pan = factors[lvl].to(device)
+        piv = _device_index(fp, "piv_rows", lvl, device)
+        rhs = bg[piv]
+        if Fl > Wl:
+            z = bg[_device_index(fp, "bnd_rows", lvl, device)]
+            rhs = rhs - _x_apply(pan, z, Wl, False)
+        bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
+        bg[n] = 0
+        del pan
+    return bg[:n]

@@ -1,6 +1,10 @@
 """Mixed-precision iterative refinement with a double-float (f32-pair)
 compensated sparse residual — the single-RHS part of
-`cholesky_tpu/numeric/refine.py` (`:65-413`).
+`cholesky_tpu/numeric/refine.py` (`:65-413`), with both of its inner solve
+engines: "banded" (explicit pivot inverses, the level chain in the padded
+basis) and "plain" (no inverses: `frontal.frontal_solve` in the permuted
+basis, `refine.py:316-350`), which also reads bf16 and host-resident
+factor levels.
 
 An fp32 factor reaches the 1e-10 residual contract when the residual is
 computed to ~1e-14: every value is an (hi, lo) pair of f32, products use
@@ -19,19 +23,19 @@ halve the residual norm: the double-float floor is reached).
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from cholesky_tpu_torch.numeric import frontal
+from cholesky_tpu_torch.numeric import frontal, regimes
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 
 _SPLIT = 4097.0                    # Dekker split constant for f32: 2^12 + 1
 
 # beyond this max row degree the ELL form is too padded to be worthwhile;
 # the caller then refines on the host
-ELL_MAX_K = 96
+ELL_MAX_K = regimes.ELL_MAX_K
 
 
 def _two_sum(a, b):
@@ -147,31 +151,45 @@ def _rnorm(r_hi: torch.Tensor) -> float:
 
 
 def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
-                     inv_pivots: Sequence[torch.Tensor], b64: np.ndarray,
-                     ell_pad, tol: float = 1e-12, max_iter: int = 40):
-    """IR with f32 banded solves (explicit pivot inverses) and double-float
-    residuals, all in the banded padded basis. `b64` is the PERMUTED f64
-    RHS [n]; `ell_pad` the `pad_ell` planes on the factors' device (idx as
-    int64). Returns (x_perm64, sweeps, rn_rel): the f64 solution in
-    permuted order, the sweep count, and the loop's own (double-float)
-    estimate of the final RELATIVE residual."""
-    device = factors[0].device
+                     inv_pivots: Optional[Sequence[torch.Tensor]],
+                     b64: np.ndarray, ell, tol: float = 1e-12,
+                     max_iter: int = 40):
+    """IR with f32 solves and double-float residuals. `b64` is the PERMUTED
+    f64 RHS [n]. With `inv_pivots` the whole loop runs in the banded padded
+    basis and `ell` is the `pad_ell` planes; with inv_pivots=None the inner
+    solve is `frontal.frontal_solve` in the permuted basis and `ell` is the
+    `build_ell` planes of the permuted matrix. Either way `ell` lies on the
+    solve's device (idx as int64). Returns
+    (x_perm64, sweeps, rn_rel): the f64 solution in permuted order, the
+    sweep count, and the loop's own (double-float) estimate of the final
+    RELATIVE residual."""
+    idx, a_hi, a_lo = ell
+    device = idx.device
     b64 = np.asarray(b64, np.float64)
     n = b64.shape[0]
     bnorm = float(np.linalg.norm(b64))
-    _, _, inv_map, _, _ = _banded_maps(fp)
-    b_pad = np.concatenate([b64, [0.0]])[np.concatenate([inv_map, [n]])]
-    bs = torch.from_numpy(np.stack(split_f64(b_pad))).to(device)  # one upload
+    banded = inv_pivots is not None
+    if banded:
+        _, _, inv_map, _, _ = _banded_maps(fp)
+        b_vec = np.concatenate([b64, [0.0]])[np.concatenate([inv_map, [n]])]
+    else:
+        b_vec = b64
+    bs = torch.from_numpy(np.stack(split_f64(b_vec))).to(device)  # one upload
     b_hi, b_lo = bs[0], bs[1]
-    idx, a_hi, a_lo = ell_pad
     tol_abs = float(np.float32(tol * bnorm))
 
     def solve(rhs):
-        return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
+        if banded:
+            return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
+        return frontal.frontal_solve(fp, factors, rhs)
 
     def resid(x_hi, x_lo):
-        # state vectors carry their zero sentinel slot inline and the
-        # padded ELL has an all-sentinel last row, so r keeps it at 0
+        # banded: the state vectors carry their zero sentinel slot inline
+        # and the padded ELL has an all-sentinel last row, so r keeps it at
+        # 0; plain: the sentinel slot n is appended for the matvec
+        if not banded:
+            z = x_hi.new_zeros(1)
+            x_hi, x_lo = torch.cat([x_hi, z]), torch.cat([x_lo, z])
         y_hi, y_lo = df_matvec(idx, a_hi, a_lo, x_hi, x_lo)
         return _df_add(b_hi, b_lo, -y_hi, -y_lo)
 
@@ -185,7 +203,9 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
         r_hi, _ = resid(x_hi, x_lo)
         prev, rn = rn, _rnorm(r_hi)
         sweeps += 1
-    pad_of = frontal._device_index(fp, "pad_of", None, device)
-    x = torch.stack([x_hi[pad_of], x_lo[pad_of]]).cpu().numpy()
+    if banded:
+        pad_of = frontal._device_index(fp, "pad_of", None, device)
+        x_hi, x_lo = x_hi[pad_of], x_lo[pad_of]
+    x = torch.stack([x_hi, x_lo]).cpu().numpy()
     x = x[0].astype(np.float64) + x[1].astype(np.float64)
     return x, sweeps, (rn / bnorm if bnorm else 0.0)

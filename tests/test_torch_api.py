@@ -20,7 +20,8 @@ from cholesky_tpu.io import mmio
 from cholesky_tpu.utils.laplacian import generate_problem
 from cholesky_tpu_torch import convert
 from cholesky_tpu_torch.numeric import refine as trefine
-from tests.conftest import FIXTURES, fixture_paths
+from tests.conftest import FIXTURES
+from tests.test_torch_fixtures import port_fixtures  # noqa: F401
 
 TOL = 1e-10         # the solver's relative-residual contract
 X_REL = 1e-8        # solutions of the two packages, both at <= 1e-10
@@ -29,16 +30,16 @@ X_REL = 1e-8        # solutions of the two packages, both at <= 1e-10
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _files(name):
-    p = fixture_paths(name)
+def _files(paths, name):
+    p = paths(name)
     b = mmio.read_array(p["b"]).reshape(-1).astype(np.float64)
     return (p["mat"], p["separators"], p["clusters"]), b
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_solve_matches_jax(name, dtype):
-    files, b = _files(name)
+def test_solve_matches_jax(name, dtype, port_fixtures):
+    files, b = _files(port_fixtures, name)
     ts = cholesky_tpu_torch.SparseCholesky.from_files(*files, dtype=dtype,
                                                       device="cpu")
     ts.factorize()
@@ -54,10 +55,10 @@ def test_solve_matches_jax(name, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_state_from_jax_round_trip(dtype):
+def test_state_from_jax_round_trip(dtype, port_fixtures):
     """A JAX factor solves in the port, and the port's factor in the JAX
     package, both to the residual contract."""
-    files, b = _files("lapl_3375x3375")
+    files, b = _files(port_fixtures, "lapl_3375x3375")
     js = cholesky_tpu.SparseCholesky.from_files(*files, dtype=dtype)
     js.factorize()
     ts = convert.state_from_jax(js, device="cpu")
@@ -83,8 +84,8 @@ def test_host_refinement_when_ell_is_too_dense(monkeypatch):
     assert s.last_solve["sweeps"] == 0 and s.last_solve["host_sweeps"] >= 1
 
 
-def test_solve_spd_and_input_checks():
-    files, b = _files("lapl_400x400")
+def test_solve_spd_and_input_checks(port_fixtures):
+    files, b = _files(port_fixtures, "lapl_400x400")
     x = cholesky_tpu_torch.solve_spd(files[0], files[1], b,
                                      clusters_file=files[2], device="cpu")
     s = cholesky_tpu_torch.SparseCholesky.from_files(*files, device="cpu")
@@ -96,8 +97,8 @@ def test_solve_spd_and_input_checks():
                                                      device="cpu")
 
 
-def test_cuda_device_is_never_a_silent_cpu():
-    files, _ = _files("lapl_9x9")
+def test_cuda_device_is_never_a_silent_cpu(port_fixtures):
+    files, _ = _files(port_fixtures, "lapl_9x9")
     if torch.cuda.is_available():
         s = cholesky_tpu_torch.SparseCholesky.from_files(*files,
                                                          device="cuda")

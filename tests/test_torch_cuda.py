@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cholesky_tpu_torch import SparseCholesky
+from cholesky_tpu_torch.numeric import devmem, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.utils.laplacian import generate_problem
 
@@ -132,3 +133,108 @@ def test_slice_on_card_matches_cpu():
     finally:
         hk.MIN_B, hk.W_PER_B = rule
     assert np.linalg.norm(xs[0] - xs[1]) <= 1e-8 * np.linalg.norm(xs[1])
+
+
+def _regime_solver(force, budget=1 << 40, dtype=np.float32):
+    """A 12^3 L6 solver on the card that factors under the plan `force`
+    (keywords of regimes.plan_regimes) gives under `budget`."""
+    n, r, c, v, o, cl, b = generate_problem((12, 12, 12), 6)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=dtype,
+                                device="cuda")
+    s._plan_override = regimes.plan_regimes(s.fplan, s.dtype, budget,
+                                            **force)
+    return s, b
+
+
+@pytest.mark.cuda
+def test_two_piece_factor_matches_square_on_card():
+    """Every non-leaf level on the two-piece path against the square path,
+    f32 on the card (rounding differs only in summation order)."""
+    _require_cuda()
+    square, _ = _regime_solver({})
+    two, _ = _regime_solver({"two_piece": True})
+    fa, fb = square.factorize(), two.factorize()
+    assert not any(lp.two_piece for lp in square.regimes.levels)
+    assert all(lp.two_piece for lp in two.regimes.levels[:-1])
+    for a, b in zip(fa, fb):
+        assert a.is_cuda and b.is_cuda
+        assert _rel(b, a) <= L_REL
+
+
+@pytest.mark.cuda
+def test_bf16_update_solve_on_card():
+    """Two-piece levels with bf16 child updates: the refined solve meets the
+    residual contract."""
+    _require_cuda()
+    s, b = _regime_solver({"two_piece": True,
+                           "update_dtype": torch.bfloat16})
+    x = s.solve(b)
+    assert all(lp.update_dtype == torch.bfloat16
+               for lp in s.regimes.levels[1:-1])
+    assert s.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+def test_offloaded_bf16_factor_solve_on_card():
+    """Chunked levels, a bf16 factor moved to host memory level by level
+    and not re-uploaded, update pieces spilled: the solve reads the host
+    levels (without pivot inverses) and meets the residual contract."""
+    _require_cuda()
+    s, b = _regime_solver({"store_dtype": torch.bfloat16, "offload": True,
+                           "reupload": False, "spill": True,
+                           "chunks": {5: 4, 4: 2}}, budget=600 << 20)
+    x = s.solve(b)
+    assert all(p.device.type == "cpu" for p in s.panels[1:])
+    assert s.last_solve["engine"] == "plain"
+    assert s.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+def test_long_lived_state_lives_in_its_own_pool():
+    """The plan's index maps, the assembler's scatter indices (per chunk
+    too) and the ELL planes come from the pool of long-lived state
+    (`devmem`), never from a segment that fronts and factors use; a
+    refactorization after solves meets the contract."""
+    _require_cuda()
+    s, b = _regime_solver({"chunks": {4: 2}, "lazy": True})
+    assert s.residual(b, s.solve(b)) <= TOL
+    pool = tuple(devmem._POOLS[torch.cuda.current_device()].id)
+    segs = [(g["address"], g["address"] + g["total_size"],
+             tuple(g["segment_pool_id"]))
+            for g in torch.cuda.memory._snapshot()["segments"]]
+
+    def pool_of(t):
+        p = t.data_ptr()
+        return next(sp for a0, a1, sp in segs if a0 <= p < a1)
+
+    fasm = s._assembler()
+    long_lived = [t for t in s.fplan.cache.values() if torch.is_tensor(t)]
+    long_lived += [t for planes in s._ell_dev.values() for t in planes]
+    long_lived += [t for lvl in fasm.idx for t in lvl]
+    long_lived += [t for idx in fasm._chunk_idx.values() for t in idx]
+    long_lived = [t for t in long_lived if t.numel()]
+    assert fasm._chunk_idx and s._ell_dev
+    assert all(pool_of(t) == pool for t in long_lived)
+    assert all(pool_of(p) != pool for p in s.panels if p.numel())
+    s.factorize()
+    assert s.residual(b, s.solve(b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_refactorize_after_releasing_cached_memory(monkeypatch):
+    """When the planned peak does not fit in the CUDA driver's free
+    memory, factorize() returns the allocator's cache to the driver before
+    it starts, and keeps the long-lived device state (it lives in its own
+    pool); the factorization and the next solve still meet the contract."""
+    _require_cuda()
+    s, b = _regime_solver({}, budget=8 << 30)
+    assert s.residual(b, s.solve(b)) <= TOL
+    ell = s._ell_dev[True]
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (0, 80 << 30))
+    s.factorize()
+    monkeypatch.undo()
+    assert s.factor_stats["released_cache"]
+    assert s._ell_dev[True] is ell
+    x = s.solve(b)
+    assert s.residual(b, x) <= TOL

@@ -16,16 +16,18 @@ from cholesky_tpu.utils.laplacian import generate_problem
 from cholesky_tpu_torch import convert
 from cholesky_tpu_torch.numeric import frontal as tfrontal
 from cholesky_tpu_torch.numeric import frontal_plan, hopper_kernels as hk
+from cholesky_tpu_torch.numeric import regimes
 from cholesky_tpu_torch.numeric import refine as trefine
 from cholesky_tpu_torch.numeric.assemble import FrontAssembler
-from tests.conftest import FIXTURES, fixture_paths
+from tests.conftest import FIXTURES
+from tests.test_torch_fixtures import port_fixtures  # noqa: F401
 
 F64_REL = 1e-12     # f64 factors: same algorithm up to summation order
 F32_REL = 1e-4      # f32 factors: rounding grows with the front chain
 
 
-def _jax_solver(name, dtype=np.float64):
-    p = fixture_paths(name)
+def _jax_solver(paths, name, dtype=np.float64):
+    p = paths(name)
     return cholesky_tpu.SparseCholesky.from_files(
         p["mat"], p["separators"], p["clusters"], dtype=dtype)
 
@@ -35,6 +37,13 @@ def _port_plan(js):
                                            js.rows, js.cols)
 
 
+def _in_core(tfp, fronts):
+    """The port's factor of host slabs under an unbounded budget: every
+    level square, updates and factor in the slabs' dtype, on the device."""
+    plan = regimes.plan_regimes(tfp, fronts[0].dtype, 1 << 40)
+    return tfrontal.factor(tfp, [torch.from_numpy(f) for f in fronts], plan)
+
+
 def _rel(x, ref):
     x = np.asarray(x, np.float64)
     ref = np.asarray(ref, np.float64)
@@ -42,8 +51,8 @@ def _rel(x, ref):
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_frontal_plan_identical(name):
-    js = _jax_solver(name)
+def test_frontal_plan_identical(name, port_fixtures):
+    js = _jax_solver(port_fixtures, name)
     jfp, tfp = js.fplan, _port_plan(js)
     assert tfp.W == jfp.W and tfp.F == jfp.F
     assert tfp.fingerprint == jfp.fingerprint and tfp.key() == jfp.key()
@@ -59,8 +68,8 @@ def test_frontal_plan_identical(name):
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_banded_maps_and_ell_identical(name):
-    js = _jax_solver(name)
+def test_banded_maps_and_ell_identical(name, port_fixtures):
+    js = _jax_solver(port_fixtures, name)
     jfp, tfp = js.fplan, _port_plan(js)
     jm, tm = jfrontal._banded_maps(jfp), frontal_plan._banded_maps(tfp)
     assert tm[0] == jm[0] and list(tm[1]) == list(jm[1])
@@ -82,8 +91,8 @@ def test_banded_maps_and_ell_identical(name):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name", sorted(FIXTURES))
-def test_assembly_bit_identical(name, dtype):
-    js = _jax_solver(name)
+def test_assembly_bit_identical(name, dtype, port_fixtures):
+    js = _jax_solver(port_fixtures, name)
     tfp = _port_plan(js)
     ref = jfrontal.assemble_fronts(js.fplan, js.rows, js.cols, js.vals,
                                    dtype=dtype)
@@ -105,7 +114,7 @@ def _factor_both(shape, levels, dtype):
                                       dtype=dtype)
     jfac = jfrontal.frontal_factor(jfp, tuple(jnp.asarray(f) for f in fronts))
     tfp = _port_plan(js)
-    tfac = tfrontal.frontal_factor(tfp, [torch.from_numpy(f) for f in fronts])
+    tfac = _in_core(tfp, fronts)
     return js, tfp, [np.array(f) for f in jfac], tfac
 
 
@@ -146,10 +155,12 @@ def test_fused_extend_add_matches_jax():
         U = rng.standard_normal((2 * B, K, K))
         ref = jfrontal._apply_child_updates_fused(
             js.fplan, jnp.asarray(full), jnp.asarray(U), child)
-        out = tfrontal._apply_child_updates_fused(
-            tfp, torch.from_numpy(full), torch.from_numpy(U), child)
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
-                                   atol=1e-12)
+        # the port works in place on a buffer with a sentinel row
+        out = torch.zeros((B, Fp + 1, Fp), dtype=torch.float64)
+        out[:, :Fp] = torch.from_numpy(full)
+        tfrontal._extend_add_fused_(tfp, out, torch.from_numpy(U), child)
+        np.testing.assert_allclose(out[:, :Fp].numpy(), np.asarray(ref),
+                                   rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
@@ -175,19 +186,26 @@ def test_banded_solve_matches_jax(dtype, tol):
     assert _rel(out, ref) <= tol
 
 
-def test_unported_regimes_raise(monkeypatch):
+def test_unported_regimes_raise():
+    """No capacity regime is left unported: square fronts past the JAX
+    package's 512 MiB gate take the two-piece path and front sets past its
+    5 GiB gate the lazily assembled, offloaded level loop. What raises is a
+    budget that no regime plan fits, and the error names the level and the
+    bytes."""
     n, r, c, v, o, cl, _ = generate_problem((9, 9), 3)
     js = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl)
     tfp = _port_plan(js)
-    fronts = [torch.from_numpy(f) for f in frontal_plan.assemble_fronts(
-        tfp, js.rows, js.cols, js.vals, dtype=np.float64)]
-    monkeypatch.setattr(tfrontal, "STREAM_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        tfrontal.factor(tfp, fronts)
-    monkeypatch.undo()
-    monkeypatch.setattr(tfrontal, "TWO_PIECE_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="two-piece"):
-        tfrontal.factor(tfp, fronts)
+    fronts = frontal_plan.assemble_fronts(tfp, js.rows, js.cols, js.vals,
+                                          dtype=np.float64)
+    ref = _in_core(tfp, fronts)
+    plan = regimes.plan_regimes(tfp, np.float64, 1 << 40, two_piece=True,
+                                offload=True, reupload=False)
+    out = tfrontal.factor(tfp, [torch.tensor(f) for f in fronts], plan)
+    for a, b in zip(out, ref):
+        assert _rel(a, b) <= F64_REL
+    with pytest.raises(regimes.BudgetError,
+                       match=r"level \d+ .*needs at least \d+ bytes"):
+        regimes.plan_regimes(tfp, np.float64, 1 << 20)
 
 
 def test_df_matvec_matches_jax():

@@ -18,7 +18,8 @@ from cholesky_tpu_torch.io import ordering as tord
 from cholesky_tpu_torch.symbolic import plan as tplan
 from cholesky_tpu_torch.utils import laplacian as tlap
 from cholesky_tpu_torch.utils import round_up as tround_up
-from tests.conftest import FIXTURES, fixture_paths
+from tests.conftest import FIXTURES
+from tests.test_torch_fixtures import port_fixtures  # noqa: F401
 
 GENERATED = "generated_6x6x6_L3"
 CASES = sorted(FIXTURES) + [GENERATED]
@@ -64,26 +65,26 @@ def _same_plan(t, j):
         "tree", "n", "clusters"}
 
 
-def _orderings(case):
+def _orderings(case, paths):
     """(port ordering, port clusters, JAX ordering, JAX clusters)."""
     if case == GENERATED:
         t = tlap.generate_problem((6, 6, 6), 3)
         j = jlap.generate_problem((6, 6, 6), 3)
         return t[4], t[5], j[4], j[5]
-    p = fixture_paths(case)
+    p = paths(case)
     return (tord.parse_ordering(p["separators"]),
             tord.parse_clusters(p["clusters"]),
             jord.parse_ordering(p["separators"]),
             jord.parse_clusters(p["clusters"]))
 
 
-def _coo(case):
+def _coo(case, paths):
     """(port (r, c, v), JAX (r, c, v)) as read or generated."""
     if case == GENERATED:
         t = tlap.generate_problem((6, 6, 6), 3)
         j = jlap.generate_problem((6, 6, 6), 3)
         return t[1:4], j[1:4]
-    path = fixture_paths(case)["mat"]
+    path = paths(case)["mat"]
     tb, *t = tmmio.read_coo(path)
     jb, *j = jmmio.read_coo(path)
     assert dataclasses.asdict(tb) == dataclasses.asdict(jb)
@@ -91,16 +92,16 @@ def _coo(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_parse_ordering_and_clusters_identical(case):
-    to, tc, jo, jc = _orderings(case)
+def test_parse_ordering_and_clusters_identical(case, port_fixtures):
+    to, tc, jo, jc = _orderings(case, port_fixtures)
     _same_ordering(to, jo)
     _same_clusters(tc, jc)
     _same(to.sizes(), jo.sizes())
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_read_coo_and_dedup_lower_identical(case):
-    t, j = _coo(case)
+def test_read_coo_and_dedup_lower_identical(case, port_fixtures):
+    t, j = _coo(case, port_fixtures)
     for a, b in zip(t, j):
         _same(a, b)
     td = tmmio.dedup_lower(*t)
@@ -112,8 +113,8 @@ def test_read_coo_and_dedup_lower_identical(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_build_plan_identical(case):
-    to, tc, jo, jc = _orderings(case)
+def test_build_plan_identical(case, port_fixtures):
+    to, tc, jo, jc = _orderings(case, port_fixtures)
     for pad_to in (8, 1):
         j = jplan.build_plan(jo, jc, pad_to=pad_to)
         t = tplan.build_plan(to, tc, pad_to=pad_to)
@@ -123,10 +124,10 @@ def test_build_plan_identical(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_plan_from_jax_matches_own_plan(case):
+def test_plan_from_jax_matches_own_plan(case, port_fixtures):
     """The JAX plan converted field by field equals the port's own, and
     shares no array with the original."""
-    to, tc, jo, jc = _orderings(case)
+    to, tc, jo, jc = _orderings(case, port_fixtures)
     j = jplan.build_plan(jo, jc)
     conv = convert.plan_from_jax(j)
     _same_plan(conv, j)
@@ -149,8 +150,8 @@ def test_generate_problem_identical(shape, levels, cluster_size, seed):
 
 
 @pytest.mark.parametrize("case", sorted(FIXTURES))
-def test_read_array_identical(case):
-    path = fixture_paths(case)["b"]
+def test_read_array_identical(case, port_fixtures):
+    path = port_fixtures(case)["b"]
     _same(tmmio.read_array(path), jmmio.read_array(path))
 
 

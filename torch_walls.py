@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Host walls of the port's factorize() and solve() on one GPU, so that two
+trees of the port can be compared in one run on the same card.
+
+    python3 torch_walls.py [--tree DIR] [--shape 50] [--levels 8]
+                           [--repeat 30]
+
+`--tree DIR` puts DIR first on the import path: a checkout of another
+commit (unpacked with `git archive` into a directory that .gitignore
+lists) is then timed by this same script. Run the two trees alternately
+(A, B, B, A) and compare within the run. Prints one JSON line: the
+package's path, the problem, the cold factor wall, every warm factor wall
+and their median, the median solve wall, and the seconds of the regime
+plan per factorization where the tree records them. Exits nonzero when
+there is no CUDA device.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    ap.add_argument("--shape", type=int, default=50)
+    ap.add_argument("--levels", type=int, default=8)
+    ap.add_argument("--repeat", type=int, default=30)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.tree))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_walls: no CUDA device", file=sys.stderr)
+        return 2
+    import cholesky_tpu_torch
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    n, r, c, v, o, cl, b = generate_problem((args.shape,) * 3, args.levels,
+                                            seed=0)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    walls, plan_s = [], []
+    for _ in range(1 + args.repeat):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.factorize()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        plan_s.append(getattr(s, "factor_stats", {}).get("plan_s"))
+    solves = []
+    for _ in range(1 + args.repeat // 3):
+        t = time.perf_counter()
+        s.solve(b)
+        solves.append(time.perf_counter() - t)
+    print(json.dumps({
+        "package": os.path.dirname(cholesky_tpu_torch.__file__),
+        "problem": f"{args.shape}^3 L{args.levels}", "n": n,
+        "factor_wall_cold_s": walls[0], "factor_wall_warm_s": walls[1:],
+        "factor_wall_warm_median_s": statistics.median(walls[1:]),
+        "plan_regimes_s": plan_s,
+        "solve_wall_median_s": statistics.median(solves[1:]),
+        "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
