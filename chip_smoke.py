@@ -43,16 +43,39 @@ Phases, each printing one JSON line:
              keep the allocator's cache, one that releases it, as factorize()
              does by default) with the allocator's retry count; and
              one warm factorization under torch.profiler (device busy, idle
-             share, top kernels).
+             share, top kernels); and one block of 8 right-hand sides;
+  9. multi:  block right-hand sides on the slice's 50^3 factor: solve of
+             [n, k] for k = 1, 16, 128 with per-column f64 SciPy residuals,
+             sweeps, engine, loop, synchronized wall, wall per column
+             beside a single-RHS solve, peak memory; under torch.profiler
+             the k = 16 solve's busy / idle share and top kernels beside
+             the k = 1 solve's (run right after the profile phase);
+ 10. ordering: the user-facing path with no ordering files: from_scipy on
+             three gallery matrices (aniso3d 48^3, elasticity 168^2 x 3,
+             circuit 13,500 dofs), f32: host ordering seconds, the chosen
+             candidate (ND or MD), per-level shapes and routing, chol_inv
+             launches against the routing rule, factor and solve walls, a
+             block solve, f64 residuals; then update_values with a seeded
+             SPD-preserving perturbation -> factorize (the regime plan is
+             reused) -> solve against the new matrix, and logdet against
+             the port's own f64 factor on the CPU;
+ 11. cli:    a 30^3 problem written to files and run through
+             `python -m cholesky_tpu_torch.cli` as a subprocess on the card
+             (-o, -m, --profile, --save-factor; then --load-factor): exit
+             codes, the SOLVE residual, the solution file against SciPy,
+             FACTOR_SLAB lines exactly on the kernel-routed levels.
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
 Exits nonzero, without the last line, when there is no CUDA device, when
 the package cannot be imported, or when any phase fails.
 """
 
+import ast
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -70,6 +93,14 @@ REGIME_F32_TOL = 1e-4
 REGIME_BF16_TOL = 5e-2
 SCALE = ((140, 140, 140), 14)      # the JAX package's largest verified run
 SCALE_SMALL_BUDGET = 40 << 30      # half the card: forces two-piece levels
+LOGDET_REL_TOL = 1e-6              # f32 factor's logdet vs the f64 CPU factor's
+MULTI_K = (1, 16, 128)             # block widths of the multi phase
+# (gallery name, scale) of the ordering phase: a 3-D anisotropic grid
+# (110,592 dofs), 2-D 3-component elasticity (84,672) and a power-law
+# circuit graph (13,500: under md_small, so the minimum-degree candidate
+# runs)
+ORDERING = (("aniso3d", 4), ("elasticity", 12), ("circuit", 3))
+CLI_PROBLEM = ((30, 30, 30), 7)
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
@@ -298,6 +329,19 @@ def phase_small():
               **s.last_solve})
 
 
+def level_routes(fp):
+    """Per level the batch, the front and pivot widths and the f32 route:
+    "kernel" where the rule sends the level through factor_slab."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    return [{"lvl": lvl, "B": 1 << lvl, "F": fp.F[lvl], "W": fp.W[lvl],
+             "route": ("kernel" if hk.slab_kernel_eligible(
+                 1 << lvl, fp.W[lvl], torch.float32) else "plain")}
+            for lvl in range(fp.levels)]
+
+
 def phase_slice():
     import numpy as np
     import torch
@@ -312,10 +356,7 @@ def phase_slice():
                                 device="cuda")
     fp = s.fplan
     plan_s = time.perf_counter() - t0
-    routes = [{"lvl": lvl, "B": 1 << lvl, "F": fp.F[lvl], "W": fp.W[lvl],
-               "route": ("kernel" if hk.slab_kernel_eligible(
-                   1 << lvl, fp.W[lvl], torch.float32) else "plain")}
-              for lvl in range(fp.levels)]
+    routes = level_routes(fp)
     emit({"phase": "plan", "problem": "50^3 L8", "n": n, "nnz_lower":
           int(len(s.vals)), "host_plan_s": plan_s, "levels": routes})
     check([x["lvl"] for x in routes if x["route"] == "kernel"] == [5, 6, 7],
@@ -641,8 +682,11 @@ def phase_scale():
             check(res <= TOL, f"{problem} ({run}): residual {res} > {TOL}")
             solves.append({"wall_s": wall, "residual": res,
                            **s.last_solve})
+        block = None
+        if run == "default":
+            block = block_solve(s, a, 8, SEED + 2, f"{problem} ({run})")
         emit({"phase": "scale", "problem": problem, "run": run,
-              "solves": solves, "launches": launches,
+              "solves": solves, "block_solve": block, "launches": launches,
               "launches_per_factorization": want,
               "factorizations": len(walls),
               "solve_max_memory_allocated":
@@ -694,6 +738,234 @@ def phase_scale():
     return results
 
 
+def column_residuals(a, B, X):
+    import numpy as np
+
+    bn = np.linalg.norm(B, axis=0)
+    return np.linalg.norm(a @ X - B, axis=0) / np.where(bn > 0, bn, 1.0)
+
+
+def block_solve(s, a, k: int, seed: int, what: str) -> dict:
+    """One solve of a seeded [n, k] block through `s`, timed with the device
+    synchronized, each column held to the residual contract against the
+    SciPy matrix `a` in f64."""
+    import numpy as np
+    import torch
+
+    n = s.plan.n
+    B = np.random.default_rng(seed).standard_normal((n, k))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    X = s.solve(B if k > 1 else B[:, 0], tol=TOL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    X = X.reshape(n, k)
+    res = column_residuals(a, B, X)
+    check(bool(np.all(np.isfinite(X))), f"{what}: k = {k} solution not finite")
+    check(float(res.max()) <= TOL,
+          f"{what}: k = {k} worst column residual {res.max()} > {TOL}")
+    return {"k": k, "wall_s": wall, "wall_per_column_s": wall / k,
+            "residual_max": float(res.max()),
+            "residual_median": float(np.median(res)),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            **s.last_solve}
+
+
+def phase_multi(s):
+    """Block right-hand sides against the slice's 50^3 factor."""
+    import numpy as np
+
+    a = _scipy_matrix(s.plan.n, s.rows, s.cols, s.vals)
+    check(s.factored, "the slice's factor is gone")
+    rows = []
+    for k in MULTI_K:
+        block_solve(s, a, k, SEED + 10 + k, "multi (warm-up)")
+        rows.append(block_solve(s, a, k, SEED + 10 + k, "multi"))
+        check(k == 1 or rows[-1]["loop"] == "device",
+              f"multi: k = {k} left the device loop")
+    emit({"phase": "multi", "problem": "50^3 L8", "n": s.plan.n,
+          "solves": rows,
+          "wall_per_column_vs_single": {
+              str(r["k"]): r["wall_per_column_s"] / rows[0]["wall_s"]
+              for r in rows}})
+    B = np.random.default_rng(SEED + 26).standard_normal((s.plan.n, 16))
+    for what, rhs in (("solve k=1", B[:, 0]), ("solve k=16", B)):
+        emit({"phase": "multi", "what": what + " under torch.profiler",
+              **profiled(lambda: s.solve(rhs, tol=TOL))})
+
+
+def spd_perturbation(rows, cols, vals, seed):
+    """Values of D A D + sigma I for a seeded positive diagonal D and
+    sigma > 0: a congruence and a positive shift, both SPD-preserving."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.8, 1.25, size=int(rows.max()) + 1)
+    new = vals * d[rows] * d[cols]
+    diag = rows == cols
+    new[diag] += 0.01 * float(np.abs(vals[diag]).mean())
+    return new
+
+
+def phase_ordering():
+    """from_scipy -> factorize -> solves -> update_values -> factorize ->
+    solve -> logdet on matrices that come with no ordering."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.utils import problems
+
+    total = 0
+    for name, scale in ORDERING:
+        n, r, c, v = problems.make_gallery(scale)[name]()
+        lower = sp.csr_matrix((v, (r, c)), shape=(n, n))
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        s = SparseCholesky.from_scipy(lower, dtype=np.float32, device="cuda")
+        build_s = time.perf_counter() - t0
+        fp = s.fplan
+        levels = level_routes(fp)
+        walls = []
+        for i in range(2):          # cold (pivots checked), then warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.factorize(check=i == 0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        want = expected_chol_inv(fp, s.regimes)
+        a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+        solves = [block_solve(s, a, k, SEED + 30 + k, name) for k in (1, 4)]
+        problem = f"{name} x{scale}"
+        emit({"phase": "ordering", "problem": problem, "n": n,
+              "nnz_lower": int(len(s.vals)),
+              "ordering": s.ordering_info, "build_s": build_s,
+              "levels": levels, "factor_wall_s": walls[0],
+              "factor_wall_warm_s": walls[1], "solves": solves,
+              "chol_inv_launches_per_factorization": want})
+
+        new = spd_perturbation(s.rows, s.cols, s.vals, SEED + 40)
+        s.update_values(new)
+        check(s.panels is None and not s.factored, "update_values kept "
+              "the old factor")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.factorize(check=True)
+        torch.cuda.synchronize()
+        refactor_s = time.perf_counter() - t
+        check(s.factor_stats["plan_reused"],
+              f"{problem}: the regime plan was searched again")
+        a_new = _scipy_matrix(n, s.rows, s.cols, new)
+        after = block_solve(s, a_new, 1, SEED + 41, problem + " updated")
+        launches = dict(hk.LAUNCHES)
+        check(launches["chol_inv"] == 3 * want,
+              f"{problem}: {launches['chol_inv']} chol_inv launches in 3 "
+              f"factorizations, the routing rule gives {want} each")
+        logdet = s.logdet()
+        t = time.perf_counter()
+        ref = SparseCholesky(s.plan, s.rows, s.cols, new, dtype=np.float64,
+                             device="cpu")
+        ref._fplan = fp
+        logdet_ref = ref.logdet()
+        ref_s = time.perf_counter() - t
+        rel = abs(logdet - logdet_ref) / abs(logdet_ref)
+        check(rel <= LOGDET_REL_TOL, f"{problem}: logdet {logdet} vs the f64 "
+              f"CPU factor's {logdet_ref} ({rel})")
+        emit({"phase": "ordering", "problem": problem,
+              "what": "update_values -> factorize -> solve -> logdet",
+              "refactor_wall_s": refactor_s,
+              "plan_reused": s.factor_stats["plan_reused"], "solve": after,
+              "logdet": logdet, "logdet_f64_cpu": logdet_ref,
+              "logdet_rel_diff": rel, "tol": LOGDET_REL_TOL,
+              "f64_cpu_factor_s": ref_s, "launches": launches})
+        total += launches["chol_inv"]
+        del s, ref
+    check(total > 0, "the ordering path launched no chol_inv kernel")
+    return total
+
+
+def _tagged(stdout: str, tag: str):
+    return [ast.literal_eval(ln.split(": ", 1)[1])
+            for ln in stdout.splitlines() if ln.startswith(tag + ": ")]
+
+
+def phase_cli():
+    """The command-line interface as a subprocess on the card."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from cholesky_tpu_torch.io import mmio, ordering as ordio
+    from cholesky_tpu_torch.numeric.frontal_plan import build_frontal_plan
+    from cholesky_tpu_torch.symbolic.plan import build_plan
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    shape, levels = CLI_PROBLEM
+    n, r, c, v, o, cl, b = generate_problem(shape, levels, seed=SEED)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory() as d:
+        f = {k: os.path.join(d, k) for k in (
+            "m.mtx", "ord.txt", "clust.txt", "b.mtx", "sol.txt", "sol2.txt",
+            "factor.mtx", "ck.npz")}
+        mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
+        ordio.write_ordering(f["ord.txt"], o)
+        ordio.write_clusters(f["clust.txt"], cl)
+        mmio.write_array(f["b.mtx"], b)
+        base = [sys.executable, "-m", "cholesky_tpu_torch.cli", "-i",
+                f["m.mtx"], "-s", f["ord.txt"], "-c", f["clust.txt"], "-b",
+                f["b.mtx"], "--dtype", "float32", "--device", "cuda"]
+        runs = []
+        for extra in (["-o", f["sol.txt"], "-m", f["factor.mtx"], "--profile",
+                       "--save-factor", f["ck.npz"], "--bench"],
+                      ["-o", f["sol2.txt"], "--load-factor", f["ck.npz"]]):
+            t = time.perf_counter()
+            p = subprocess.run(base + extra, cwd=root, env=env, timeout=600,
+                               capture_output=True, text=True)
+            check(p.returncode == 0, f"cli exited {p.returncode}: "
+                  f"{p.stderr[-2000:]}")
+            runs.append((p.stdout, time.perf_counter() - t))
+        x = np.loadtxt(f["sol.txt"])
+        x2 = np.loadtxt(f["sol2.txt"])
+        with open(f["factor.mtx"]) as fh:
+            fh.readline()
+            fdim = [int(t) for t in fh.readline().split()]
+    (out, wall), (out2, wall2) = runs
+    a = _scipy_matrix(n, r, c, v)
+    x_ref = spla.spsolve(a.tocsc(), b)
+    err = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
+    (factor,), (solve,) = _tagged(out, "FACTOR"), _tagged(out, "SOLVE")
+    (solve2,) = _tagged(out2, "SOLVE")
+    blas = _tagged(out, "BLAS")
+    fp = build_frontal_plan(build_plan(o, cl), r, c)
+    routed = [x["lvl"] for x in level_routes(fp) if x["route"] == "kernel"]
+    slab_levels = sorted(x["Level"] for x in blas if x["op"] == "FACTOR_SLAB")
+    potrf_levels = sorted(x["Level"] for x in blas if x["op"] == "POTRF")
+    check(routed and slab_levels == routed,
+          f"cli: FACTOR_SLAB on levels {slab_levels}, the rule routes "
+          f"{routed}")
+    check(potrf_levels == [lvl for lvl in range(fp.levels)
+                           if lvl not in routed],
+          f"cli: POTRF on levels {potrf_levels}")
+    check(solve["residual"] <= TOL and solve2["residual"] <= TOL,
+          f"cli: residuals {solve['residual']}, {solve2['residual']}")
+    check(err <= SMALL_REL_TOL, f"cli: solution file differs from SciPy: "
+          f"{err}")
+    check(float(np.abs(x2 - x).max()) <= SMALL_REL_TOL * float(
+        np.abs(x).max()), "cli: the resumed solve differs")
+    check("Loaded factor:" in out2 and "Done factoring" not in out2,
+          "cli: --load-factor factored again")
+    check(fdim[:2] == [n, n] and fdim[2] > n, f"cli: factor file {fdim}")
+    emit({"phase": "cli", "problem": f"{shape[0]}^3 L{levels}", "n": n,
+          "kernel_routed_levels": routed, "factor": factor, "solve": solve,
+          "resumed_solve": solve2, "rel_err_vs_scipy": err,
+          "factor_file_nnz": fdim[2], "blas": blas,
+          "process_wall_s": [wall, wall2]})
+
+
 def main() -> int:
     import torch
 
@@ -714,9 +986,12 @@ def main() -> int:
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
+        phase_multi(solver)
         phase_regimes(solver, b)
         del solver
         scale = phase_scale()
+        ordering_launches = phase_ordering()
+        phase_cli()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1
@@ -728,7 +1003,8 @@ def main() -> int:
         "launches_by_path": {
             "50^3 L8 slice": launches["chol_inv"],
             "140^3 L14 default budget": scale["default"]["launches"],
-            "140^3 L14 40 GiB budget": scale["40 GiB"]["launches"]},
+            "140^3 L14 40 GiB budget": scale["40 GiB"]["launches"],
+            "from_scipy gallery (ordering phase)": ordering_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],

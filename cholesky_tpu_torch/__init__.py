@@ -1,28 +1,39 @@
 """cholesky_tpu_torch — the PyTorch/CUDA port of `cholesky_tpu`, for NVIDIA
 Hopper (H100).
 
-The single-device SPD solve: plan (the port's own copies of the JAX
-package's host modules: io, symbolic, utils), device assembly, batched
-multifrontal factorization with a hand-written CUDA Cholesky/inverse kernel
-on the high-batch levels, its capacity regimes under one memory budget
-(two-piece extend-add, bf16 child updates, lazily assembled and
-batch-chunked levels, a bf16 or host-resident factor), and iterative
-refinement with a double-float residual.
+The single-device SPD solver and its user-facing surface: ordering (graph
+nested dissection with a minimum-degree candidate) and plan (the port's own
+copies of the JAX package's host modules: io, symbolic, utils), device
+assembly, batched multifrontal factorization with a hand-written CUDA
+Cholesky/inverse kernel on the high-batch levels, its capacity regimes
+under one memory budget (two-piece extend-add, bf16 child updates, lazily
+assembled and batch-chunked levels, a bf16 or host-resident factor),
+iterative refinement with a double-float residual for one right-hand side
+or a block, value updates on a fixed pattern, factor export and
+checkpoints, a per-stage profiler and a command-line interface.
 
-  api.py                   SparseCholesky, solve_spd
+  api.py                   SparseCholesky (from_files, from_coo, from_matrix,
+                           from_scipy), solve_spd, spsolve
+  cli.py                   python -m cholesky_tpu_torch.cli (flag-compatible
+                           with python -m cholesky_tpu.cli)
   convert.py               carry a plan and a factor across from the JAX package
-  io/, symbolic/, utils/   MatrixMarket and ordering readers, SolvePlan,
-                           problem generator (copies of cholesky_tpu's)
+  io/                      MatrixMarket and ordering readers and writers
+  symbolic/                SolvePlan; nd.py, mdtree.py, quality.py: the
+                           ordering of a matrix that comes without one
+  utils/                   problem generators (grid Laplacians, the gallery)
   numeric/frontal_plan.py  host frontal analysis (NumPy)
   numeric/regimes.py       the budget and the per-level regime plan
   numeric/devmem.py        the allocator pool of long-lived device state
   numeric/assemble.py      device assembly, eager or level by level
-  numeric/frontal.py       per-level factorization, level loop, solves
+  numeric/frontal.py       per-level factorization, level loop, solves of
+                           [n] and [n, k], factor extraction
   numeric/hopper_kernels.py  chol_inv kernel wrapper, factor_slab
-  numeric/refine.py        double-float iterative refinement
+  numeric/refine.py        double-float iterative refinement, single and block
+  numeric/profile.py       per-level, per-stage BLAS: timing lines
   kernels/                 CUDA sources and their nvcc build
 """
 
 __version__ = "0.1.0"
 
-from cholesky_tpu_torch.api import SparseCholesky, solve_spd  # noqa: E402,F401
+from cholesky_tpu_torch.api import (SparseCholesky, solve_spd,  # noqa: E402,F401
+                                    spsolve)

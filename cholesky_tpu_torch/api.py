@@ -1,10 +1,21 @@
-"""High-level API of the port: load → plan → assemble → factor → solve.
+"""High-level API of the port: load -> plan -> assemble -> factor -> solve.
 
-The single-device counterpart of `cholesky_tpu/api.py:147-733` and
-`:1535-1664`: `SparseCholesky.from_files` / `from_coo`, `factorize()`,
-`solve(b)` for a 1-D right-hand side, `residual`, and `solve_spd`. The
-device is an explicit argument everywhere; asking for "cuda" without a card
-raises.
+The single-device SPD surface of `cholesky_tpu/api.py`:
+
+  * ways in: `SparseCholesky.from_files` / `from_coo` (an ordering computed
+    elsewhere), `from_matrix` / `from_scipy` (no ordering: graph nested
+    dissection with a minimum-degree candidate, `symbolic/nd.py`), and the
+    one-shots `solve_spd` and `spsolve`;
+  * `factorize(check=)`, `update_values` (new coefficients on the same
+    pattern: only the numeric phase runs again), `save_factor` /
+    `load_factor` (the JAX package's `.npz` layout, so a checkpoint written
+    by either package loads in the other);
+  * ways out: `solve(b, refine=, tol=, max_iter=)` for one right-hand side
+    [n] or a block [n, k], `residual`, `logdet`, `factor_dense`,
+    `factor_coo`, `permuted_dense`, `aslinearoperator`.
+
+The device is an explicit argument everywhere; asking for "cuda" without a
+card raises. The port reads no environment variable.
 
 Capacity: `factorize()` plans its regimes against one memory budget
 (`numeric/regimes.py`): by default BUDGET_FRACTION of the card's free
@@ -14,12 +25,16 @@ levels up front, or each level right before it runs), each level's path,
 update dtype and batch chunks, and the stored factor's dtype and place
 (device or host). `solve()` then uses explicit pivot inverses when they fit
 the same budget beside the factor, and the solve without inverses
-otherwise. The plan of the last budget is kept: a refactorization under
-the same budget does not search again.
+otherwise; a block of right-hand sides refines in one device loop when the
+block residual's temporaries fit that budget too, else in a host loop over
+column chunks. The plan of the last budget is kept: a refactorization
+under the same budget does not search again.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 from typing import List, Optional
 
@@ -28,7 +43,8 @@ import torch
 
 from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
-from cholesky_tpu_torch.numeric import devmem, frontal, refine, regimes
+from cholesky_tpu_torch.numeric import devmem, frontal, regimes
+from cholesky_tpu_torch.numeric import refine as refine_mod
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      build_frontal_plan)
@@ -53,7 +69,10 @@ class SparseCholesky:
         solver = SparseCholesky.from_files(mtx, ord_file, clust_file,
                                            dtype=np.float32, device="cuda")
         solver.factorize()
-        x = solver.solve(b)          # b in original dof order
+        x = solver.solve(b)          # b [n] or [n, k] in original dof order
+
+        solver = SparseCholesky.from_scipy(a)      # no ordering files
+        solver.update_values(new_vals)             # same pattern, new values
     """
 
     def __init__(self, plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
@@ -89,6 +108,7 @@ class SparseCholesky:
         self._ell = None            # (host ELL planes,) or False
         self._ell_dev = {}          # {banded: ELL planes on the device}
         self.factor_stats = {}      # budget and baseline of factorize()
+        self.ordering_info = {}     # from_matrix: what the ordering decided
 
     @classmethod
     def from_files(cls, matrix_file: str, separator_file: str,
@@ -107,14 +127,116 @@ class SparseCholesky:
                    budget=budget)
 
     @classmethod
+    def from_matrix(cls, n: int, rows, cols, vals, levels=None,
+                    dtype=np.float64, device="cuda",
+                    budget: Optional[int] = None, md_max: int = 131072,
+                    md_small: int = 16384, _canonical: bool = False
+                    ) -> "SparseCholesky":
+        """Solve an arbitrary SPD matrix with NO precomputed ordering: a
+        nested-dissection ordering is computed from the sparsity graph
+        (`symbolic/nd.py`; `md_max` / `md_small` gate its minimum-degree
+        candidate). `ordering_info` keeps what it decided and its host
+        seconds.
+
+        `_canonical=True` asserts the COO is already lower-triangle with
+        unique coordinates (from_scipy's fold guarantees this), skipping a
+        redundant O(nnz log nnz) dedup pass."""
+        from cholesky_tpu_torch.symbolic.nd import nested_dissection_graph
+
+        _resolve_device(device)             # fail before the host work
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        info = {}
+        t0 = time.perf_counter()
+        ordng, clusters = nested_dissection_graph(
+            n, rows, cols, levels, md_max=md_max, md_small=md_small,
+            info=info)
+        info["seconds"] = time.perf_counter() - t0
+        solver = cls.from_coo(n, rows, cols, vals, ordng, clusters,
+                              dtype=dtype, device=device, budget=budget,
+                              _canonical=_canonical)
+        solver.ordering_info = info
+        return solver
+
+    @classmethod
+    def from_scipy(cls, a, dtype=None, levels=None, device="cuda",
+                   budget: Optional[int] = None, **kw) -> "SparseCholesky":
+        """Build from a scipy sparse matrix (any format) or a dense
+        symmetric ndarray. Accepts the lower triangle, the upper triangle,
+        or a fully-populated symmetric matrix: (i,j)/(j,i) pairs fold to
+        the lower triangle by averaging, so a full symmetric store and a
+        one-triangle store give identical input. `dtype=None` keeps the
+        matrix's own dtype. Extra keywords go to `from_matrix`."""
+        import scipy.sparse as _sp
+
+        if _sp.issparse(a):
+            if a.shape[0] != a.shape[1]:
+                raise ValueError("matrix must be square")
+            # canonicalize through CSR first: scipy's COO convention sums
+            # duplicate coordinates; the triangle fold below must then see
+            # at most one entry per (i,j)
+            coo = a.tocsr().tocoo()
+            n, r, c, v = coo.shape[0], coo.row, coo.col, coo.data
+        else:
+            arr = np.asarray(a)
+            if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
+                raise ValueError("dense input must be square 2-D")
+            r, c = np.nonzero(arr)
+            n, v = arr.shape[0], arr[r, c]
+        # a full symmetric store carries each off-diagonal twice; fold
+        # (i,j)/(j,i) to the lower triangle by MEAN so one-triangle and
+        # full-symmetric stores produce identical COO input
+        off = r != c
+        lo_r = np.where(off & (r < c), c, r)
+        lo_c = np.where(off & (r < c), r, c)
+        key = lo_r.astype(np.int64) * n + lo_c
+        order = np.argsort(key, kind="stable")
+        key_s = key[order]
+        v64 = np.asarray(v, dtype=np.float64)[order]
+        uniq, start, counts = np.unique(key_s, return_index=True,
+                                        return_counts=True)
+        vsum = np.add.reduceat(v64, start)
+        vmean = vsum / counts
+        # symmetry guard: where BOTH triangles are stored, (i,j) and (j,i)
+        # must agree — silently averaging a nonsymmetric matrix would
+        # return a confidently wrong answer for the system the user meant
+        both = counts == 2
+        if np.any(both):
+            second = np.minimum(start + 1, v64.size - 1)
+            va, vb = v64[start[both]], v64[second[both]]
+            scale = np.maximum(np.abs(va), np.abs(vb))
+            bad = np.abs(va - vb) > 1e-8 * np.maximum(scale, 1e-30)
+            if np.any(bad):
+                k = int(np.flatnonzero(bad)[0])
+                ij = uniq[both][k]
+                raise ValueError(
+                    f"matrix is not symmetric: A[{ij // n},{ij % n}] stores "
+                    f"{va[k]!r} and {vb[k]!r} across the two triangles "
+                    "(this solver is for symmetric positive-definite "
+                    "systems; symmetrize explicitly if intended)")
+        rr, cc = uniq // n, uniq % n
+        if dtype is None:
+            dtype = np.asarray(v).dtype
+            if np.dtype(dtype).kind != "f":
+                dtype = np.float64
+        return cls.from_matrix(int(n), rr, cc, vmean, levels=levels,
+                               dtype=dtype, device=device, budget=budget,
+                               _canonical=True, **kw)
+
+    @classmethod
     def from_coo(cls, n: int, rows, cols, vals, ordng: ordio.Ordering,
                  clusters=None, dtype=np.float64, pad_to: int = 8,
-                 device="cuda", budget: Optional[int] = None
-                 ) -> "SparseCholesky":
+                 device="cuda", budget: Optional[int] = None,
+                 _canonical: bool = False) -> "SparseCholesky":
         plan = build_plan(ordng, clusters, pad_to=pad_to)
         if plan.n != n:
             raise ValueError("ordering does not cover the matrix dimension")
-        r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
+        if _canonical:
+            r2 = np.asarray(rows, dtype=np.int64)
+            c2 = np.asarray(cols, dtype=np.int64)
+            v2 = np.asarray(vals, dtype=np.float64)
+        else:
+            r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
                    budget=budget)
 
@@ -138,6 +260,54 @@ class SparseCholesky:
         self.factored = False
         return self.panels
 
+    def coo_pattern(self):
+        """The canonical sparsity pattern (0-based lower-triangle rows, cols)
+        that `update_values(vals)` must align with."""
+        return self.rows, self.cols
+
+    def update_values(self, vals, rows=None, cols=None):
+        """Replace the matrix's numeric values, keeping the sparsity pattern
+        and every symbolic artifact: the ordering and plan, the frontal
+        plan, the assembler's scatter indices and the regime plan of the
+        budget. The next factorize()/solve() re-runs only the numeric phase
+        (time stepping, Newton iterations). Everything derived from the old
+        values goes, on the host and on the device: the factor, the pivot
+        inverses, the CSR matrix and the ELL planes of the residual.
+
+        With only `vals`, entries must align with `coo_pattern()` (the
+        deduplicated lower triangle). With `rows`/`cols`, any COO layout of
+        the SAME pattern is accepted (either triangle, duplicates dropped as
+        at construction) and checked against the stored pattern."""
+        if (rows is None) != (cols is None):
+            raise ValueError("pass both rows and cols, or neither")
+        if rows is not None:
+            r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
+            # dedup_lower preserves input entry order, so compare patterns
+            # canonically and realign the values to the stored entry order
+            n = int(self.plan.n)
+            key_new = r2 * n + c2
+            key_old = self.rows * n + self.cols
+            order_new = np.argsort(key_new)
+            order_old = np.argsort(key_old)
+            if (len(r2) != len(self.rows)
+                    or not np.array_equal(key_new[order_new],
+                                          key_old[order_old])):
+                raise ValueError(
+                    "sparsity pattern differs from the planned matrix — "
+                    "build a new SparseCholesky for a new pattern")
+            vals = np.empty_like(v2)
+            vals[order_old] = v2[order_new]
+        else:
+            vals = np.asarray(vals, dtype=np.float64)
+            if vals.shape != self.vals.shape:
+                raise ValueError(
+                    f"expected {self.vals.shape[0]} values aligned with "
+                    f"coo_pattern(), got {vals.shape}")
+        self.vals = vals
+        self.panels, self.factored = None, False
+        self._inv = self._csr = self._ell = None
+        self._ell_dev = {}
+
     def _budget_bytes(self) -> int:
         if self.budget is not None:
             return int(self.budget)
@@ -145,7 +315,7 @@ class SparseCholesky:
             return regimes.default_budget(self.device)
         return 1 << 62                          # the CPU: unbounded
 
-    def factorize(self, level_hook=None):
+    def factorize(self, check: bool = False, level_hook=None):
         """Numeric factorization under the regime plan of the budget;
         returns the per-level [B, F, W] factors (device tensors, or CPU
         tensors for levels the plan keeps in host memory). `level_hook(lvl,
@@ -154,7 +324,12 @@ class SparseCholesky:
         the seconds spent planning (and whether the plan of the last budget
         was reused), whether the allocator's cache was released, and the
         bytes allocated on the device when the factorization began (after
-        the previous factor was dropped)."""
+        the previous factor was dropped).
+
+        With `check=True`, every pivot is verified finite and positive
+        afterwards and ArithmeticError names the first bad separator (the
+        LAPACK `info`-style diagnosis). Off by default: the check reads
+        each level's diagonals back to the host."""
         asm = self._assembler()
         pre = self.panels if (self.panels is not None
                               and not self.factored) else None
@@ -163,8 +338,9 @@ class SparseCholesky:
         self.panels, self.factored, self._inv = None, False, None
         t0 = time.perf_counter()
         budget = self._budget_bytes()
-        reused = self._plans is not None and self._plans[0] == budget
+        kept = self._plans[1] if self._plans is not None else None
         plan = self._plan_override or self._plan(budget)
+        reused = plan is kept
         self.regimes = plan
         plan_s = time.perf_counter() - t0
         # A factorization that does not fit in the driver's free memory runs
@@ -195,13 +371,52 @@ class SparseCholesky:
         self.panels = frontal.factor(self.fplan, fronts, plan,
                                      level_hook=level_hook)
         self.factored = True
+        if check:
+            self._check_pivots()
         return self.panels
 
+    def _level_diagonals(self):
+        """(level, [B, W] f64 pivot diagonals) per level: one host transfer
+        each; bf16 and host-resident levels are read through f32."""
+        for lvl, p in enumerate(self.panels):
+            w = int(self.fplan.W[lvl])
+            if w == 0 or p.shape[0] == 0:
+                continue
+            d = torch.diagonal(p[:, :w, :w], dim1=1, dim2=2)
+            if d.dtype == torch.bfloat16:
+                d = d.to(torch.float32)
+            yield lvl, d.cpu().numpy().astype(np.float64)
+
+    def _check_pivots(self) -> None:
+        """Raise if any factor pivot is non-finite or <= 0 (non-SPD input,
+        or catastrophic cancellation in low precision)."""
+        for lvl, d in self._level_diagonals():
+            bad = ~(np.isfinite(d) & (d > 0))
+            if bad.any():
+                slot, idx = np.argwhere(bad)[0]
+                raise ArithmeticError(
+                    f"factorization failed: non-positive/non-finite pivot at "
+                    f"tree level {lvl}, separator slot {slot}, local dof "
+                    f"{idx} — input matrix is not positive definite (or lost "
+                    f"definiteness in {np.dtype(self.dtype).name})")
+
     def _plan(self, budget: int) -> regimes.RegimePlan:
-        """The regime plan of `budget`, searched once per budget."""
-        if self._plans is None or self._plans[0] != budget:
-            self._plans = (budget, regimes.plan_regimes(
-                self.fplan, self.dtype, budget))
+        """The regime plan of `budget`, searched once per budget. The
+        default budget (no `budget` given) follows the card's free memory,
+        which long-lived state (ELL planes, index maps) lowers a little
+        between factorizations: a smaller default budget that the kept
+        plan's peak still fits takes the kept plan. The search would return
+        it: every option it passed over fits a smaller budget no better,
+        and every level it chose still fits. (Not when the plan re-uploads
+        offloaded levels: that choice reads the budget itself.)"""
+        if self._plans is not None:
+            kept_budget, kept = self._plans
+            if budget == kept_budget or (
+                    self.budget is None and not kept.reupload
+                    and kept.peak_bytes <= budget < kept_budget):
+                return kept
+        self._plans = (budget, regimes.plan_regimes(self.fplan, self.dtype,
+                                                    budget))
         return self._plans[1]
 
     def _factor_bytes(self) -> int:
@@ -210,24 +425,33 @@ class SparseCholesky:
         return sum(p.numel() * p.element_size() for p in self.panels
                    if p.device == self.device)
 
-    def _want_inv_pivots(self) -> bool:
-        """Explicit pivot inverses when they fit the budget beside the
-        device-resident factor and the solve's working set (ELL planes,
-        work vectors, the promotion of one bf16 or host level); the solve
-        without inverses needs no extra residency."""
+    def _solve_fits(self, use_inv: bool, k: int = 1) -> bool:
+        """Whether a refined solve of k right-hand sides fits the budget:
+        the device-resident factor, with the banded engine the pivot
+        inverses, and the working set of `regimes.solve_bytes` (ELL planes
+        and the residual's temporaries, the [n, K, k] operands of a block
+        among them; work vectors; the promotion of one bf16 or host
+        level)."""
         fp = self.fplan
         tdt = TORCH_DTYPES[self.dtype]
-        promote = max((p.numel() * 4 for p in self.panels
-                       if p.device != self.device
-                       or p.dtype == torch.bfloat16), default=0)
         ell = self._ell_host()
         ell_k = ell[0].shape[1] if ell is not None else regimes.ELL_MAX_K
-        need = (self._factor_bytes() + regimes.inv_bytes(fp.F, fp.W, tdt)
-                + regimes.solve_bytes(fp.F, fp.W, tdt, ell_k,
-                                      host_level=promote))
-        budget = (self.regimes.budget if self.regimes is not None
-                  else self._budget_bytes())
-        return need <= budget
+        need = (self._solve_residency(use_inv) + regimes.solve_bytes(
+            fp.F, fp.W, tdt, ell_k, host_level=self._promote_bytes(), k=k))
+        return need <= self._solve_budget()
+
+    def _want_inv_pivots(self) -> bool:
+        """Explicit pivot inverses when they fit the budget beside the
+        factor and one solve's working set; the solve without inverses
+        needs no extra residency."""
+        return self._solve_fits(True)
+
+    def _promote_bytes(self) -> int:
+        """f32 bytes of the largest level a solve promotes or moves whole:
+        one stored bf16 or held in host memory."""
+        return max((p.numel() * 4 for p in self.panels
+                    if p.device != self.device
+                    or p.dtype == torch.bfloat16), default=0)
 
     def _inv_pivots(self):
         """Per-level pivot inverses, cached with the factorization."""
@@ -243,7 +467,7 @@ class SparseCholesky:
         host (None when a row is too dense)."""
         if self._ell is None:
             r, c, v = mmio.symmetrize_coo(self.rows, self.cols, self.vals)
-            ell = refine.build_ell(self.plan.n, self.plan.iperm[r],
+            ell = refine_mod.build_ell(self.plan.n, self.plan.iperm[r],
                                    self.plan.iperm[c], v)
             self._ell = (ell,) if ell is not None else False
             self._ell_dev = {}
@@ -256,7 +480,7 @@ class SparseCholesky:
         if ell is None:
             return None
         if banded not in self._ell_dev:
-            planes = refine.pad_ell(self.fplan, ell) if banded else ell
+            planes = refine_mod.pad_ell(self.fplan, ell) if banded else ell
             self._ell_dev = {}
             with devmem.persistent(self.device):
                 self._ell_dev[banded] = (
@@ -267,63 +491,131 @@ class SparseCholesky:
         return self._ell_dev[banded]
 
     def _solve_once(self, b: np.ndarray) -> np.ndarray:
-        """One solve against the factor: b [n] -> x [n] (f64): the banded
-        chain with pivot inverses when they fit the budget, else the solve
-        without inverses."""
-        bp = torch.from_numpy(np.ascontiguousarray(
-            b.reshape(-1)[self.plan.perm].astype(self.dtype))).to(self.device)
-        if self._want_inv_pivots():
-            xp = frontal._solve_banded(self.fplan, self.panels,
-                                       self._inv_pivots(), bp)
-        else:
-            xp = frontal.frontal_solve(self.fplan, self.panels, bp)
-        x = np.empty(self.plan.n)
-        x[self.plan.perm] = xp.cpu().numpy()
-        return x
+        """One solve against the factor: b [n] or [n, k] -> x of the same
+        shape (f64): the banded chain with pivot inverses when they fit the
+        budget, else the solve without inverses. A block goes through in
+        column chunks whose work vectors fit the budget."""
+        use_inv = self._want_inv_pivots()
+        perm, iperm = self._perm_device()
+        b2 = b.reshape(self.plan.n, -1)
+        x = np.empty(b2.shape)
+        step = self._solve_cols(b2.shape[1])
+        for j in range(0, b2.shape[1], step):
+            bp = torch.from_numpy(np.ascontiguousarray(
+                b2[:, j:j + step])).to(self.device)[perm].to(
+                    TORCH_DTYPES[self.dtype])
+            if use_inv:
+                xp = frontal._solve_banded(self.fplan, self.panels,
+                                           self._inv_pivots(), bp)
+            else:
+                xp = frontal.frontal_solve(self.fplan, self.panels, bp)
+            x[:, j:j + step] = xp[iperm].cpu().numpy()
+        return x.reshape(b.shape)
 
-    def solve(self, b: np.ndarray, tol: float = 1e-10,
+    def _perm_device(self):
+        """(perm, iperm) of the plan on the device: permuting a right-hand
+        side and a solution there costs the host no pass over them."""
+        return tuple(frontal._device_index(self.fplan, name, None,
+                                           self.device)
+                     for name in ("perm", "iperm"))
+
+    def _solve_residency(self, use_inv: bool) -> int:
+        """Device bytes of what a solve keeps beside its working set: the
+        device-resident factor and, with the banded engine, the pivot
+        inverses."""
+        fp = self.fplan
+        inv = regimes.inv_bytes(fp.F, fp.W, TORCH_DTYPES[self.dtype])
+        return self._factor_bytes() + (inv if use_inv else 0)
+
+    def _solve_budget(self) -> int:
+        return (self.regimes.budget if self.regimes is not None
+                else self._budget_bytes())
+
+    def _solve_cols(self, k: int) -> int:
+        """Columns per chunk of a block solve outside the device loop: as
+        many as the budget leaves work vectors for beside the factor, the
+        inverses and one solve's fixed working set (at least one)."""
+        fp = self.fplan
+        tdt = TORCH_DTYPES[self.dtype]
+        room = (self._solve_budget()
+                - self._solve_residency(self._want_inv_pivots())
+                - regimes.solve_bytes(fp.F, fp.W, tdt, 0,
+                                      host_level=self._promote_bytes()))
+        more = room // regimes.solve_vector_bytes(fp.W, tdt)
+        return int(max(1, min(k, 1 + more)))
+
+    def solve(self, b: np.ndarray, refine: str = "auto", tol: float = 1e-10,
               max_iter: int = 50) -> np.ndarray:
-        """Solve A x = b for a 1-D b; b and x are in ORIGINAL dof order.
+        """Solve A x = b; b and x are in ORIGINAL dof order. b is one
+        right-hand side [n] (or [n, 1]: x comes back [n]) or a block
+        [n, k]; [n, 0] gives [n, 0].
+
+        refine: 'auto' runs mixed-precision iterative refinement when the
+        factor is below float64; 'never' applies the factor once; 'always'
+        refines an f64 factor too (on the host: the device loop's
+        double-float residual is built for f32 solves).
 
         An f32 factor (stored f32 or bf16, on the device or in host memory)
         is refined on the device (f32 solves, double-float residuals) to a
-        relative residual of tol / 3; should that not reach `tol`, a host
-        loop with an f64 residual continues. An f64 factor is applied once.
-        `last_solve` records the sweeps and the inner engine ("banded" with
-        pivot inverses, "plain" without)."""
+        relative residual of tol / 3, a block in one loop that stops on its
+        worst column; should that not reach `tol`, or the block's residual
+        temporaries not fit the budget, a host loop with an f64 CSR
+        residual and block device solves continues. `last_solve` records
+        the sweeps of each loop, the inner engine ("banded" with pivot
+        inverses, "plain" without), the block width and which loop
+        finished ("device", "host", or "none" without refinement)."""
+        if refine not in ("auto", "never", "always"):
+            raise ValueError(f"refine must be 'auto', 'never' or 'always', "
+                             f"got {refine!r}")
         b = np.asarray(b, dtype=np.float64)
+        if b.ndim not in (1, 2) or b.shape[0] != self.plan.n:
+            raise ValueError(f"b must be [{self.plan.n}] or "
+                             f"[{self.plan.n}, k], got {b.shape}")
         if b.ndim == 2 and b.shape[1] == 1:
             b = b.reshape(-1)
-        if b.ndim != 1 or b.shape[0] != self.plan.n:
-            raise ValueError(f"b must be [{self.plan.n}], got {b.shape}")
         if not self.factored:
             self.factorize()
+        k = b.shape[1] if b.ndim == 2 else 1
         use_inv = self._want_inv_pivots()
-        self.last_solve = {"sweeps": 0, "host_sweeps": 0,
-                           "engine": "banded" if use_inv else "plain"}
-        if self.dtype == np.float64:
+        self.last_solve = {"sweeps": 0, "host_sweeps": 0, "k": k,
+                           "engine": "banded" if use_inv else "plain",
+                           "loop": "none"}
+        if k == 0:
+            return np.zeros((self.plan.n, 0))
+        want_ir = refine == "always" or (
+            refine == "auto" and self.dtype != np.float64)
+        if not want_ir:
             return self._solve_once(b)
         x = None
-        ell = self._ell_device(use_inv)
+        ell = (self._ell_device(use_inv) if self.dtype == np.float32
+               else None)
+        if ell is not None and k > 1 and not self._solve_fits(use_inv, k):
+            ell = None          # a very wide block: the host loop below
         if ell is not None:
             # the device loop targets tol/3: its f32 residual-norm estimate
             # can sit slightly above the true f64 residual
-            x_perm, sweeps, rn_rel = refine.solve_refined_df(
+            loop = (refine_mod.solve_refined_df if b.ndim == 1
+                    else refine_mod.solve_refined_df_multi)
+            perm, iperm = self._perm_device()
+            x_perm, sweeps, rn_rel = loop(
                 self.fplan, self.panels,
                 self._inv_pivots() if use_inv else None,
-                b[self.plan.perm], ell, tol=tol / 3.0, max_iter=max_iter)
-            x = np.empty(self.plan.n)
-            x[self.plan.perm] = x_perm
-            self.last_solve.update(sweeps=sweeps, rn_rel=rn_rel)
+                torch.from_numpy(b).to(self.device)[perm], ell,
+                tol=tol / 3.0, max_iter=max_iter)
+            x = x_perm[iperm].cpu().numpy()
+            del x_perm
+            self.last_solve.update(sweeps=sweeps, rn_rel=rn_rel,
+                                   loop="device")
             if rn_rel <= tol:
                 return x
         a = self._matrix_csr()
-        bnorm = np.linalg.norm(b)
+        bnorm = np.linalg.norm(b, axis=0)
         if x is None:
             x = self._solve_once(b)
+        self.last_solve["loop"] = "host"
         for _ in range(max_iter):
             r = b - a @ x
-            if np.linalg.norm(r) <= tol * bnorm:
+            if np.all(np.linalg.norm(r, axis=0) <= tol * bnorm):
                 break
             x = x + self._solve_once(r)
             self.last_solve["host_sweeps"] += 1
@@ -338,11 +630,158 @@ class SparseCholesky:
                 (v, (r, c)), shape=(self.plan.n, self.plan.n))
         return self._csr
 
+    # ------------------------------------------------------------------
+    def logdet(self) -> float:
+        """log det(A) = 2 sum log diag(L), read off the factor's per-level
+        pivot blocks (bf16 and host-resident levels included). Padded
+        diagonal entries are exactly 1 and contribute nothing."""
+        if not self.factored:
+            self.factorize()
+        return 2.0 * sum(float(np.log(d).sum())
+                         for _, d in self._level_diagonals())
+
+    def factor_dense(self) -> np.ndarray:
+        """The factor L as a dense lower-triangular array in permuted
+        coords."""
+        if not self.factored:
+            self.factorize()
+        return frontal.extract_factor_dense(self.fplan, self.panels)
+
+    def factor_coo(self):
+        """The factor L as COO (0-based permuted coordinates, lower
+        triangle): scales to problems where a dense n^2 factor is
+        infeasible."""
+        if not self.factored:
+            self.factorize()
+        return frontal.extract_factor_coo(self.fplan, self.panels)
+
+    def permuted_dense(self) -> np.ndarray:
+        """The permuted (unfactored) matrix, lower triangle, dense: what
+        the CLI's -p writes. Built from the COO entries and the plan's
+        inverse permutation."""
+        n = int(self.plan.n)
+        pr, pc = self.plan.iperm[self.rows], self.plan.iperm[self.cols]
+        dense = np.zeros((n, n))
+        dense[np.maximum(pr, pc), np.minimum(pr, pc)] = self.vals
+        return dense
+
+    def aslinearoperator(self, inverse: bool = True, tol: float = 1e-10):
+        """A scipy.sparse.linalg.LinearOperator view of A^-1 (default) or A,
+        in original dof order: plugs the factored solver into any scipy
+        iterative code as a black-box preconditioner/operator
+        (`eigsh(..., OPinv=s.aslinearoperator())`, `cg(..., M=...)`). Each
+        `matvec` of the inverse operator is one refined solve through the
+        factor; `matmat` maps to the block solve."""
+        import scipy.sparse.linalg
+
+        n = int(self.plan.n)
+        if inverse:
+            if not self.factored:
+                self.factorize()
+            return scipy.sparse.linalg.LinearOperator(
+                (n, n), dtype=np.float64,
+                matvec=lambda v: self.solve(np.asarray(v).reshape(n),
+                                            tol=tol),
+                matmat=lambda V: self.solve(np.asarray(V),
+                                            tol=tol).reshape(n, -1))
+        return scipy.sparse.linalg.aslinearoperator(self._matrix_csr())
+
+    # ------------------------------------------------------------------
+    def _factor_fingerprint(self) -> str:
+        """Identity of (matrix, ordering, dtype) a saved factor binds to:
+        the JAX package's hash over the same fields."""
+        h = hashlib.sha256()
+        h.update(np.int64(self.plan.n).tobytes())
+        h.update(np.ascontiguousarray(self.plan.perm, dtype=np.int64).tobytes())
+        # panel layout: sep boundaries + padded bucket shapes (covers pad_to:
+        # same perm with different padding yields incompatible panel shapes)
+        for arr in (self.plan.sep_sizes, self.plan.S, self.plan.H,
+                    self.rows, self.cols):
+            h.update(np.ascontiguousarray(arr, dtype=np.int64).tobytes())
+        h.update(np.ascontiguousarray(self.vals, dtype=np.float64).tobytes())
+        h.update(str(np.dtype(self.dtype)).encode())
+        h.update(b"frontal")        # engine tag kept for checkpoint compat
+        return h.hexdigest()
+
+    @staticmethod
+    def _npz_path(path: str) -> str:
+        return path if path.endswith(".npz") else path + ".npz"
+
+    def save_factor(self, path: str) -> str:
+        """Checkpoint the completed factorization to `path` (.npz): the
+        factored per-level panels plus a fingerprint binding them to this
+        exact matrix/ordering/dtype, in the JAX package's layout (version
+        2), so either package loads it. Levels held in host memory are
+        saved from there. bf16 levels are stored as their bit patterns
+        (uint16). Returns the written path."""
+        if not self.factored:
+            self.factorize()
+        arrays, dtypes = {}, []
+        for i, p in enumerate(self.panels):
+            if p.dtype == torch.bfloat16:
+                dtypes.append("bfloat16")
+                arrays[f"panel_{i}"] = p.cpu().view(torch.int16).numpy().view(
+                    np.uint16)
+            else:
+                a = p.cpu().numpy()
+                dtypes.append(str(a.dtype))
+                arrays[f"panel_{i}"] = a
+        meta = {"version": 2, "engine": "frontal", "storage": "bits",
+                "n_panels": len(dtypes), "panel_dtypes": dtypes,
+                "fingerprint": self._factor_fingerprint(),
+                # the JAX package's matmul-precision ladder has no
+                # counterpart here: null is its default
+                "precision": None}
+        arrays["meta"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+        path = self._npz_path(path)
+        # uncompressed: factor panels are high-entropy floats
+        np.savez(path, **arrays)
+        return path
+
+    def load_factor(self, path: str) -> None:
+        """Load a factorization written by `save_factor` (of either
+        package). Refuses a factor whose fingerprint does not match this
+        solver's matrix/ordering/dtype (a mismatched factor would silently
+        solve the wrong system). Each level keeps its stored dtype and goes
+        where the regime plan of this solver's budget puts it: on the
+        device, or in host memory for levels the plan offloads."""
+        with np.load(self._npz_path(path)) as data:
+            meta = json.loads(bytes(data["meta"].tobytes()).decode())
+            if meta.get("fingerprint") != self._factor_fingerprint():
+                raise ValueError(
+                    "saved factor does not match this solver's "
+                    "matrix/ordering/dtype/engine")
+            self.panels, self.factored, self._inv = None, False, None
+            plan = self._plan_override or self._plan(self._budget_bytes())
+            panels = []
+            for i in range(meta["n_panels"]):
+                a = data[f"panel_{i}"]
+                want = meta["panel_dtypes"][i]
+                if meta.get("storage") == "bits" and a.dtype == np.uint16:
+                    t = torch.from_numpy(a.view(np.int16)).view(
+                        torch.bfloat16)
+                else:
+                    t = torch.from_numpy(a.astype(np.dtype(want)))
+                host = plan.levels[i].offload and not plan.reupload
+                panels.append(t if host else t.to(self.device))
+        self.regimes = plan
+        self.panels = tuple(panels)
+        self.factored = True
+
     def residual(self, b: np.ndarray, x: np.ndarray) -> float:
         """Relative residual ||Ax-b|| / ||b|| against the original matrix,
-        in f64 on the host."""
-        b = np.asarray(b, dtype=np.float64).reshape(-1)
-        ax = self._matrix_csr() @ np.asarray(x, dtype=np.float64).reshape(-1)
+        in f64 on the host. For a block ([n, k] b and x) this is the WORST
+        column's relative residual: the gate every column must meet."""
+        b = np.asarray(b, dtype=np.float64)
+        x = np.asarray(x, dtype=np.float64)
+        if b.ndim == 2 and b.shape[1] > 1:
+            r = self._matrix_csr() @ x - b
+            bn = np.linalg.norm(b, axis=0)
+            bn = np.where(bn > 0, bn, 1.0)
+            return float((np.linalg.norm(r, axis=0) / bn).max())
+        b = b.reshape(-1)
+        ax = self._matrix_csr() @ x.reshape(-1)
         return float(np.linalg.norm(ax - b) / np.linalg.norm(b))
 
 
@@ -354,3 +793,25 @@ def solve_spd(matrix_file: str, separator_file: str, b: np.ndarray,
                                   dtype=dtype, device=device, budget=budget)
     s.factorize()
     return s.solve(b)
+
+
+def spsolve(a, b: np.ndarray, dtype=None, levels=None, tol: float = 1e-10,
+            device="cuda", budget: Optional[int] = None, **kw) -> np.ndarray:
+    """scipy.sparse.linalg.spsolve-shaped one-shot: solve A x = b for a
+    symmetric positive-definite scipy sparse (or dense symmetric) matrix,
+    ordering computed automatically (graph nested dissection). Either
+    triangle (or both) of A may be populated. `dtype=None` keeps A's dtype
+    (float32 factors in f32 and refines to `tol`). A sparse `b` is
+    densified: a direct factor-solve has no sparsity to exploit in the
+    right-hand side. Extra keywords pass through to
+    `SparseCholesky.from_scipy`."""
+    import scipy.sparse as _sp
+
+    if _sp.issparse(b):
+        b = b.toarray()
+        if b.ndim == 2 and b.shape[1] == 1:
+            b = b.reshape(-1)
+    s = SparseCholesky.from_scipy(a, dtype=dtype, levels=levels,
+                                  device=device, budget=budget, **kw)
+    s.factorize()
+    return s.solve(b, tol=tol)

@@ -1,13 +1,12 @@
-"""MatrixMarket input.
+"""MatrixMarket I/O.
 
-The port's copy of the readers and COO helpers of `cholesky_tpu/io/mmio.py`
-(`read_banner`, `read_coo`, `read_array`, `symmetrize_coo`,
-`dedup_lower`), line for line apart from one thing: `read_coo` always
-takes the NumPy parser (the JAX package's optional C++ fast path in
-`cholesky_tpu.native` is not used). The writers, `read_dense` and
-`MMBanner.typecode` are not copied. The solver itself does not call
-`read_array`: it is here for callers that read a right-hand side from a
-file before `solve`, as the tests do.
+The port's copy of `cholesky_tpu/io/mmio.py` (`read_banner`, `read_coo`,
+`read_array`, `read_dense`, `symmetrize_coo`, `dedup_lower`, and the writers
+`write_array`, `write_coo`, `write_dense_coo`), line for line apart from one
+thing: `read_coo` and `write_coo` always take the NumPy path (the JAX
+package's optional C++ fast path in `cholesky_tpu.native` is not used), so
+the files written are those of the JAX package's NumPy writer, byte for
+byte.
 
 Reference: the vendored NIST mmio library (mmio.c:96 `mm_read_banner`,
 mmio.c:189 `mm_read_mtx_crd_size`, typecode macros mmio.h:33-75).
@@ -32,6 +31,10 @@ class MMBanner:
     format: str = "coordinate"      # coordinate | array
     field: str = "real"             # real | integer | pattern | complex
     symmetry: str = "general"       # general | symmetric | hermitian | skew-symmetric
+
+    @property
+    def typecode(self) -> str:
+        return f"%%MatrixMarket {self.object} {self.format} {self.field} {self.symmetry}"
 
 
 class MMIOError(RuntimeError):
@@ -140,3 +143,61 @@ def dedup_lower(rows, cols, vals):
     _, first = np.unique(keys, return_index=True)
     first.sort()
     return r[first], c[first], vals[first]
+
+
+def read_dense(path: str) -> np.ndarray:
+    """Read any MatrixMarket file to a dense ndarray with symmetry expanded
+    (equivalent of scipy.io.mmread(...).toarray() as used by verify.py:129-130)."""
+    banner = read_banner(path)
+    if banner.format == "array":
+        return read_array(path)
+    _, r, c, v = read_coo(path)
+    a = np.zeros((banner.rows, banner.cols))
+    a[r, c] = v
+    if banner.symmetry in ("symmetric", "hermitian"):
+        off = r != c
+        a[c[off], r[off]] = v[off]
+    elif banner.symmetry == "skew-symmetric":
+        off = r != c
+        a[c[off], r[off]] = -v[off]
+    return a
+
+
+def write_array(path: str, arr: np.ndarray, field: str = "real") -> None:
+    """Write a dense array MatrixMarket file (column-major body) — what
+    scipy.io.mmwrite emits for the reference's RHS fixtures
+    (generate_b, verify.py:305-308)."""
+    a = np.asarray(arr)
+    if a.ndim == 1:
+        a = a[:, None]
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix array {field} general\n")
+        f.write(f"{a.shape[0]} {a.shape[1]}\n")
+        for j in range(a.shape[1]):
+            for i in range(a.shape[0]):
+                if field == "integer":
+                    f.write(f"{int(a[i, j])}\n")
+                else:
+                    f.write(f"{a[i, j]:.17g}\n")
+
+
+def write_coo(path: str, rows, cols, vals, shape, symmetry: str = "hermitian",
+              field: str = "real", precision: int = 17) -> None:
+    """Write a coordinate MatrixMarket file with 1-based indices
+    (reference: write_matrix, mmat.rg:103-147 — banner, nnz count, then entries)."""
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n")
+        f.write(f"{shape[0]} {shape[1]} {len(vals)}\n")
+        for i, j, v in zip(rows, cols, vals):
+            f.write(f"{i + 1} {j + 1} {v:.{precision}g}\n")
+
+
+def write_dense_coo(path: str, mat: np.ndarray, symmetry: str = "hermitian",
+                    tol: float = 0.0) -> None:
+    """Write the nonzero entries of a dense matrix as a coordinate file
+    (the reference dumps its whole dense region this way, mmat.rg:114-144)."""
+    r, c = np.nonzero(np.abs(mat) > tol)
+    write_coo(path, r, c, mat[r, c], mat.shape, symmetry=symmetry)

@@ -2,8 +2,8 @@
 (`*_clust_*.txt`) file parsers.
 
 The port's copy of `cholesky_tpu/io/ordering.py` (`Ordering`,
-`ClusterHierarchy`, `parse_ordering`, `parse_clusters`); the writers and
-the helpers the port does not call are not copied.
+`ClusterHierarchy`, `parse_ordering`, `parse_clusters`, `write_ordering`,
+`write_clusters`); the helpers the port does not call are not copied.
 
 TPU-native equivalents of the reference's Legion-region readers
 (reference: read_separators mnd.c:22-69, read_clusters mnd.c:71-150), producing
@@ -104,3 +104,20 @@ def parse_clusters(path: str) -> ClusterHierarchy:
             intervals[sep] = ivs
     return ClusterHierarchy(levels, num_separators, intervals)
 
+
+def write_ordering(path: str, ordering: Ordering) -> None:
+    with open(path, "w") as f:
+        f.write(f"{ordering.levels} {ordering.num_separators}\n")
+        for sep in range(1, ordering.num_separators + 1):
+            dof_s = ",".join(str(int(d)) for d in ordering.dofs[sep])
+            f.write(f"{sep - 1};{dof_s},\n")
+
+
+def write_clusters(path: str, clusters: ClusterHierarchy) -> None:
+    with open(path, "w") as f:
+        f.write(f"{clusters.levels} {clusters.num_separators}\n")
+        for sep in range(1, clusters.num_separators + 1):
+            groups = ";".join(
+                ",".join(str(int(b)) for b in iv) + "," for iv in clusters.intervals[sep]
+            )
+            f.write(f"{sep - 1};{groups};\n")

@@ -17,7 +17,10 @@ Ported:
     `factor` (`:2552`) runs it.
   * `invert_pivots` (`:2340`), `_solve_banded_core` / `_solve_banded`
     (`:1983-2040`), and `frontal_solve` (`:2043`), the solve without pivot
-    inverses, which also reads bf16 and host-resident levels.
+    inverses, which also reads bf16 and host-resident levels. Every solve
+    takes one right-hand side [n] or a block [n, k]; `solve_multi`
+    (`:2431`) is the block's entry point.
+  * `extract_factor_coo` / `extract_factor_dense` (`:2649-2700`).
 
 Which regime each level takes comes from one memory budget
 (`regimes.plan_regimes`). Levels that `hopper_kernels.slab_kernel_eligible`
@@ -59,7 +62,9 @@ def _device_index(fp: FrontalPlan, name: str, lvl, device) -> torch.Tensor:
     t = fp.cache.get(key)
     if t is None:
         _, _, inv_map, pad_of, bnd_pad = _banded_maps(fp)
-        if name == "inv_map":
+        if name in ("perm", "iperm"):
+            host = getattr(fp.plan, name)
+        elif name == "inv_map":
             host = inv_map
         elif name == "pad_of":
             host = pad_of
@@ -101,8 +106,13 @@ def _child_maps(fp, child_lvl: int, device):
 
 
 def _cholesky(a: torch.Tensor) -> torch.Tensor:
-    """Batched Cholesky of the lower triangle of `a`."""
-    return torch.linalg.cholesky_ex(a)[0]
+    """Batched Cholesky of the lower triangle of `a`. A block that is not
+    positive definite comes back all NaN (LAPACK stops at the failing
+    column and leaves finite garbage), so that it poisons its ancestors as
+    it does on the kernel route and `factorize(check=True)` sees it; the
+    mask is applied on the device, with no host read."""
+    L, info = torch.linalg.cholesky_ex(a)
+    return L.masked_fill_((info != 0)[:, None, None], float("nan"))
 
 
 def _solve_lower_t(ld: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -524,26 +534,30 @@ def invert_pivots(fp: FrontalPlan, factors, device=None
 def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
                        g: torch.Tensor) -> torch.Tensor:
     """Forward + backward substitution in the level-major padded basis (see
-    `_banded_maps`). `g` is the PADDED rhs [n_pad + 1] with a zero sentinel
-    last slot (left unchanged); returns x padded [n_pad + 1], sentinel 0.
-    Per level the forward step is a slice + 2 batched matvecs + a boundary
-    scatter-add (fronts of one level share ancestor rows, so it
-    accumulates); the backward step a boundary gather + 2 matvecs + a
-    slice write. A level stored narrower than g (bf16) or in host memory
-    is promoted / moved for its products."""
+    `_banded_maps`). `g` is the PADDED rhs [n_pad + 1], or a block of k of
+    them [n_pad + 1, k] (columns the minor axis, so that a level's band
+    views as [B, W, k]), with a zero sentinel last slot (left unchanged);
+    returns x padded in g's shape, sentinel 0. Per level the forward step is
+    a slice + 2 batched products + a boundary scatter-add (fronts of one
+    level share ancestor rows, so it accumulates; with atomics, so sums
+    over shared rows come in no fixed order); the backward step a boundary
+    gather + 2 products + a slice write. A level stored narrower than g
+    (bf16) or in host memory is promoted / moved for its products."""
     levels = fp.levels
     _, offs, _, _, _ = _banded_maps(fp)
-    g = g.clone()
+    vec = g.dim() == 1
+    g = (g[:, None] if vec else g).clone()
+    k = g.shape[1]
     ys = [None] * levels
     for lvl in range(levels - 1, -1, -1):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         B = fp.front_rows[lvl].shape[0]
-        band = g[offs[lvl]:offs[lvl] + B * Wl].view(B, Wl, 1)
-        y = torch.bmm(inv_pivots[lvl], band)                   # [B, W, 1]
+        band = g[offs[lvl]:offs[lvl] + B * Wl].view(B, Wl, k)
+        y = torch.bmm(inv_pivots[lvl], band)                   # [B, W, k]
         ys[lvl] = y
         if Fl > Wl:
             X = factors[lvl][:, Wl:, :].to(y.device, y.dtype)
-            contrib = torch.bmm(X, y).reshape(-1)
+            contrib = torch.bmm(X, y).reshape(-1, k)
             del X
             g.index_add_(0, _device_index(fp, "bnd_pad", lvl, g.device)
                          .reshape(-1), contrib, alpha=-1)
@@ -554,22 +568,24 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
         rhs = ys[lvl]
         if Fl > Wl:
             X = factors[lvl][:, Wl:, :].to(rhs.device, rhs.dtype)
-            z = xg[_device_index(fp, "bnd_pad", lvl, g.device)]   # [B, K]
-            rhs = rhs - torch.bmm(X.transpose(1, 2), z[:, :, None])
+            z = xg[_device_index(fp, "bnd_pad", lvl, g.device)]  # [B, K, k]
+            rhs = rhs - torch.bmm(X.transpose(1, 2), z)
             del X
         x = torch.bmm(inv_pivots[lvl].transpose(1, 2), rhs)
-        xg[offs[lvl]:offs[lvl] + B * Wl] = x.reshape(-1)
-    return xg
+        xg[offs[lvl]:offs[lvl] + B * Wl] = x.reshape(-1, k)
+    return xg[:, 0] if vec else xg
 
 
 def _solve_banded(fp: FrontalPlan, factors, inv_pivots,
                   b_perm: torch.Tensor) -> torch.Tensor:
     """Permuted-basis wrapper around `_solve_banded_core`: one entry gather
-    into the padded basis, one exit gather back. `b_perm` [n] -> x [n]."""
+    into the padded basis, one exit gather back. `b_perm` [n] or [n, k] ->
+    x of the same shape."""
     device = b_perm.device
-    b_ext = torch.cat([b_perm, b_perm.new_zeros(1)])
+    zero = b_perm.new_zeros((1,) + tuple(b_perm.shape[1:]))
+    b_ext = torch.cat([b_perm, zero])
     g = torch.cat([b_ext[_device_index(fp, "inv_map", None, device)],
-                   b_perm.new_zeros(1)])                     # [n_pad + 1]
+                   zero])                                # [n_pad + 1(, k)]
     xg = _solve_banded_core(fp, factors, inv_pivots, g)
     return xg[_device_index(fp, "pad_of", None, device)]
 
@@ -577,32 +593,33 @@ def _solve_banded(fp: FrontalPlan, factors, inv_pivots,
 def _tri_apply(pan: torch.Tensor, rhs: torch.Tensor, W: int,
                transpose: bool) -> torch.Tensor:
     """x with L x = rhs (or L^T x = rhs) for the pivot blocks L =
-    pan[:, :W, :] and rhs [B, W], one batch chunk at a time: each chunk of
-    L is promoted to rhs's dtype on its own (a level-sized promotion of a
+    pan[:, :W, :] and rhs [B, W, k], one batch chunk at a time: each chunk
+    of L is promoted to rhs's dtype on its own (a level-sized promotion of a
     bf16 level is GiB-scale)."""
     out = torch.empty_like(rhs)
-    bc = regimes.solve_batch(W, W, rhs.element_size())
+    bc = regimes.solve_batch(W, W, rhs.element_size(), rhs.shape[2])
     for i in range(0, rhs.shape[0], bc):
         ld = pan[i:i + bc, :W, :].to(rhs.dtype)
-        r = rhs[i:i + bc, :, None]
-        x = (torch.linalg.solve_triangular(ld.transpose(1, 2), r, upper=True)
-             if transpose else
-             torch.linalg.solve_triangular(ld, r, upper=False))
-        out[i:i + bc] = x[..., 0]
+        r = rhs[i:i + bc]
+        out[i:i + bc] = (
+            torch.linalg.solve_triangular(ld.transpose(1, 2), r, upper=True)
+            if transpose else
+            torch.linalg.solve_triangular(ld, r, upper=False))
     return out
 
 
 def _x_apply(pan: torch.Tensor, vec: torch.Tensor, W: int,
              forward: bool) -> torch.Tensor:
-    """The boundary products X y ([B, K], forward) or X^T z ([B, W]) of the
-    strips X = pan[:, W:, :], with the same chunk-local promotion."""
+    """The boundary products X y ([B, K, k], forward) or X^T z ([B, W, k])
+    of the strips X = pan[:, W:, :], with the same chunk-local promotion."""
     B, F, _ = pan.shape
-    out = vec.new_empty((B, F - W if forward else W))
-    bc = regimes.solve_batch(F - W, W, vec.element_size())
+    k = vec.shape[2]
+    out = vec.new_empty((B, F - W if forward else W, k))
+    bc = regimes.solve_batch(F - W, W, vec.element_size(), k)
     for i in range(0, B, bc):
         X = pan[i:i + bc, W:, :].to(vec.dtype)
-        v = vec[i:i + bc, :, None]
-        out[i:i + bc] = (X @ v if forward else X.transpose(1, 2) @ v)[..., 0]
+        v = vec[i:i + bc]
+        out[i:i + bc] = X @ v if forward else X.transpose(1, 2) @ v
     return out
 
 
@@ -612,13 +629,16 @@ def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
     without pivot inverses, in the permuted basis: per level, a batched
     triangular solve of the pivot blocks and the boundary product, with a
     gather of the level's rows from the work vector and a scatter back.
-    `b_perm` [n] (the rhs in PERMUTED order, f32 or f64, on the solve's
-    device) -> x [n]. A level held in host memory is moved to the device
-    one level at a time, in each sweep; a level stored narrower than the rhs
-    (bf16) is promoted one batch chunk at a time."""
+    `b_perm` [n] or [n, k] (the rhs in PERMUTED order, f32 or f64, on the
+    solve's device) -> x of the same shape. A level held in host memory is
+    moved to the device one level at a time, in each sweep; a level stored
+    narrower than the rhs (bf16) is promoted one batch chunk at a time."""
     n = fp.plan.n
     device = b_perm.device
-    bg = torch.cat([b_perm, b_perm.new_zeros(1)])       # slot n: sentinel
+    vec = b_perm.dim() == 1
+    b2 = b_perm[:, None] if vec else b_perm
+    k = b2.shape[1]
+    bg = torch.cat([b2, b2.new_zeros((1, k))])          # row n: sentinel
     for lvl in range(fp.levels - 1, -1, -1):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         pan = factors[lvl].to(device)
@@ -628,7 +648,8 @@ def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
         if Fl > Wl:
             bnd = _device_index(fp, "bnd_rows", lvl, device)
             bg.index_add_(0, bnd.reshape(-1),
-                          _x_apply(pan, y, Wl, True).reshape(-1), alpha=-1)
+                          _x_apply(pan, y, Wl, True).reshape(-1, k),
+                          alpha=-1)
         bg[n] = 0
         del pan
     for lvl in range(fp.levels):
@@ -642,4 +663,78 @@ def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
         bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
         bg[n] = 0
         del pan
-    return bg[:n]
+    return bg[:n, 0] if vec else bg[:n]
+
+
+def solve_multi(fp: FrontalPlan, factors, b_perm: torch.Tensor
+                ) -> torch.Tensor:
+    """A block of right-hand sides [n, k] against the factor, without pivot
+    inverses (`frontal.py:2431`, which maps the vector solve over columns;
+    here the column axis is carried through every product)."""
+    if b_perm.dim() != 2:
+        raise ValueError(f"solve_multi takes [n, k], got "
+                         f"{tuple(b_perm.shape)}")
+    return frontal_solve(fp, factors, b_perm)
+
+
+# ---------------------------------------------------------------------------
+# Extraction (verification / .mtx output)
+
+
+def _level_host64(f: torch.Tensor) -> np.ndarray:
+    """One stored level as an f64 NumPy array; bf16 and host-resident
+    levels are read through f32."""
+    if f.dtype == torch.bfloat16:
+        f = f.to(torch.float32)
+    return f.cpu().numpy().astype(np.float64)
+
+
+def extract_factor_coo(fp: FrontalPlan, factors, drop_tol: float = 0.0):
+    """Extract the factor L as COO (permuted coordinates, lower triangle).
+    Returns (rows, cols, vals) with 0-based permuted indices."""
+    plan = fp.plan
+    t = plan.tree
+    out_r, out_c, out_v = [], [], []
+    for lvl in range(fp.levels):
+        arr = _level_host64(factors[lvl])
+        Wl = fp.W[lvl]
+        for sl in range(1 << lvl):
+            s = t.sep_at(lvl, sl)
+            off = int(plan.sep_offset[s])
+            sz = int(plan.sep_sizes[s])
+            fr = fp.front_rows[lvl][sl]
+            piv = np.tril(arr[sl][:sz, :sz])
+            pr_, pc_ = np.nonzero(np.abs(piv) > drop_tol)
+            out_r.append(pr_ + off)
+            out_c.append(pc_ + off)
+            out_v.append(piv[pr_, pc_])
+            bnd = fr[Wl:]
+            bv = bnd < plan.n
+            strip = arr[sl][Wl:, :sz][bv]
+            br, bc = np.nonzero(np.abs(strip) > drop_tol)
+            out_r.append(bnd[bv][br])
+            out_c.append(bc + off)
+            out_v.append(strip[br, bc])
+    return (np.concatenate(out_r), np.concatenate(out_c),
+            np.concatenate(out_v))
+
+
+def extract_factor_dense(fp: FrontalPlan, factors) -> np.ndarray:
+    """Materialize L (permuted coordinates, lower triangular)."""
+    plan = fp.plan
+    L = np.zeros((plan.n, plan.n))
+    t = plan.tree
+    for lvl in range(fp.levels):
+        arr = _level_host64(factors[lvl])
+        Wl = fp.W[lvl]
+        for sl in range(1 << lvl):
+            s = t.sep_at(lvl, sl)
+            off = int(plan.sep_offset[s])
+            sz = int(plan.sep_sizes[s])
+            fr = fp.front_rows[lvl][sl]
+            cols = np.arange(off, off + sz)
+            L[np.ix_(cols, cols)] = np.tril(arr[sl][:sz, :sz])
+            bnd = fr[Wl:]
+            bv = bnd < plan.n
+            L[np.ix_(bnd[bv], cols)] = arr[sl][Wl:, :sz][bv]
+    return L

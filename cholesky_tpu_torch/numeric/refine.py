@@ -1,10 +1,11 @@
 """Mixed-precision iterative refinement with a double-float (f32-pair)
-compensated sparse residual — the single-RHS part of
-`cholesky_tpu/numeric/refine.py` (`:65-413`), with both of its inner solve
-engines: "banded" (explicit pivot inverses, the level chain in the padded
-basis) and "plain" (no inverses: `frontal.frontal_solve` in the permuted
-basis, `refine.py:316-350`), which also reads bf16 and host-resident
-factor levels.
+compensated sparse residual — the port of `cholesky_tpu/numeric/refine.py`:
+the single-RHS loop (`:65-413`) and the block loop (`df_matvec_multi`,
+`solve_refined_df_multi`, `:433-533`), each with both inner solve engines:
+"banded" (explicit pivot inverses, the level chain in the padded basis) and
+"plain" (no inverses: `frontal.frontal_solve` in the permuted basis,
+`refine.py:316-350`), which also reads bf16 and host-resident factor
+levels.
 
 An fp32 factor reaches the 1e-10 residual contract when the residual is
 computed to ~1e-14: every value is an (hi, lo) pair of f32, products use
@@ -15,9 +16,14 @@ column whose x is 0).
 Each Dekker/Knuth step is its own eager tensor op. Do not run these under
 `torch.compile` or any fusing compiler: a fused multiply-add breaks TwoProd.
 
-The loop is a Python loop with one host read of the residual norm per
+Each loop is a Python loop with one host read of the residual norm per
 sweep. It stops on the tolerance or on stagnation (a sweep that does not
-halve the residual norm: the double-float floor is reached).
+halve the residual norm: the double-float floor is reached). The two loops
+differ by design in what the tolerance means: the single-RHS loop takes an
+absolute tol * ||b||; the block loop stops on the worst column's RELATIVE
+residual (a shared absolute tolerance would over- or under-solve columns of
+different scale). When touching the stagnation rule or the scaled norm,
+change both.
 """
 
 from __future__ import annotations
@@ -67,6 +73,38 @@ def split_f64(x64: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     hi = x64.astype(np.float32)
     lo = (x64 - hi.astype(np.float64)).astype(np.float32)
     return hi, lo
+
+
+def _rhs_on_device(b64, device):
+    """(f64 tensor on `device`, whether the caller gave NumPy) of a
+    right-hand side given as an f64 NumPy array or a tensor."""
+    if isinstance(b64, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(
+            b64, dtype=np.float64)).to(device), True
+    return b64.to(device=device, dtype=torch.float64), False
+
+
+def _split_rhs(fp: FrontalPlan, b64: torch.Tensor, banded: bool):
+    """The (hi, lo) f32 planes of a permuted f64 rhs [n] or [n, k] on its
+    device (`split_f64`'s arithmetic), for the banded engine gathered into
+    the padded basis with the zero sentinel slot appended."""
+    if banded:
+        zero = b64.new_zeros((1,) + tuple(b64.shape[1:]))
+        inv_map = frontal._device_index(fp, "inv_map", None, b64.device)
+        b64 = torch.cat([torch.cat([b64, zero])[inv_map], zero])
+    hi = b64.to(torch.float32)
+    return hi, (b64 - hi.to(torch.float64)).to(torch.float32)
+
+
+def _join_solution(fp: FrontalPlan, x_hi, x_lo, banded: bool, as_numpy: bool):
+    """x_hi + x_lo in f64 in the permuted basis (out of the padded one for
+    the banded engine): a NumPy array when the caller gave one, else a
+    tensor on the device."""
+    if banded:
+        pad_of = frontal._device_index(fp, "pad_of", None, x_hi.device)
+        x_hi, x_lo = x_hi[pad_of], x_lo[pad_of]
+    x = x_hi.to(torch.float64) + x_lo.to(torch.float64)
+    return x.cpu().numpy() if as_numpy else x
 
 
 def build_ell(n: int, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
@@ -155,27 +193,21 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
                      b64: np.ndarray, ell, tol: float = 1e-12,
                      max_iter: int = 40):
     """IR with f32 solves and double-float residuals. `b64` is the PERMUTED
-    f64 RHS [n]. With `inv_pivots` the whole loop runs in the banded padded
-    basis and `ell` is the `pad_ell` planes; with inv_pivots=None the inner
-    solve is `frontal.frontal_solve` in the permuted basis and `ell` is the
+    f64 RHS [n]: a NumPy array, or a tensor (then everything but the norms
+    read per sweep stays on the device, the result too). With `inv_pivots`
+    the whole loop runs in the banded padded basis and `ell` is the
+    `pad_ell` planes; with inv_pivots=None the inner solve is
+    `frontal.frontal_solve` in the permuted basis and `ell` is the
     `build_ell` planes of the permuted matrix. Either way `ell` lies on the
-    solve's device (idx as int64). Returns
-    (x_perm64, sweeps, rn_rel): the f64 solution in permuted order, the
-    sweep count, and the loop's own (double-float) estimate of the final
-    RELATIVE residual."""
+    solve's device (idx as int64). Returns (x_perm64, sweeps, rn_rel): the
+    f64 solution in permuted order, the sweep count, and the loop's own
+    (double-float) estimate of the final RELATIVE residual."""
     idx, a_hi, a_lo = ell
     device = idx.device
-    b64 = np.asarray(b64, np.float64)
-    n = b64.shape[0]
-    bnorm = float(np.linalg.norm(b64))
+    b64, as_numpy = _rhs_on_device(b64, device)
+    bnorm = float(torch.linalg.vector_norm(b64))
     banded = inv_pivots is not None
-    if banded:
-        _, _, inv_map, _, _ = _banded_maps(fp)
-        b_vec = np.concatenate([b64, [0.0]])[np.concatenate([inv_map, [n]])]
-    else:
-        b_vec = b64
-    bs = torch.from_numpy(np.stack(split_f64(b_vec))).to(device)  # one upload
-    b_hi, b_lo = bs[0], bs[1]
+    b_hi, b_lo = _split_rhs(fp, b64, banded)
     tol_abs = float(np.float32(tol * bnorm))
 
     def solve(rhs):
@@ -203,9 +235,92 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
         r_hi, _ = resid(x_hi, x_lo)
         prev, rn = rn, _rnorm(r_hi)
         sweeps += 1
-    if banded:
-        pad_of = frontal._device_index(fp, "pad_of", None, device)
-        x_hi, x_lo = x_hi[pad_of], x_lo[pad_of]
-    x = torch.stack([x_hi, x_lo]).cpu().numpy()
-    x = x[0].astype(np.float64) + x[1].astype(np.float64)
-    return x, sweeps, (rn / bnorm if bnorm else 0.0)
+    return (_join_solution(fp, x_hi, x_lo, banded, as_numpy), sweeps,
+            rn / bnorm if bnorm else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# A block of right-hand sides [n, k]: the same loop, one for the whole block.
+
+
+def df_matvec_multi(idx, a_hi, a_lo, x_hi, x_lo):
+    """Y = A @ X in double-float for X planes [n + 1, k] (sentinel row n = 0)
+    through one [n, K, k]-operand gather. Returns (y_hi, y_lo), each
+    [n, k]."""
+    K = idx.shape[1]
+    if K == 0:
+        z = x_hi.new_zeros((idx.shape[0], x_hi.shape[1]))
+        return z, z
+    xg = torch.stack([x_hi, x_lo], dim=-1)[idx]         # [n, K, k, 2]
+    xh = xg[..., 0]
+    xl = xg[..., 1]
+    ah = a_hi[:, :, None]
+    al = a_lo[:, :, None]
+    p, pe = _two_prod(ah, xh)
+    cross = ah * xl + al * xh
+    e_all = pe + cross
+    s = p[:, 0, :]
+    c = e_all[:, 0, :]
+    for j in range(1, K):
+        s, se = _two_sum(s, p[:, j, :])
+        c = c + (se + e_all[:, j, :])
+    return s, c
+
+
+def _rel_norms(r_hi: torch.Tensor, bnorms: torch.Tensor) -> torch.Tensor:
+    """Per-column scaled 2-norms of r_hi [., k] over bnorms [k] (see
+    `_rnorm`)."""
+    m = torch.clamp(r_hi.abs().amax(dim=0), min=1e-30)
+    return m * torch.linalg.vector_norm(r_hi / m[None, :], dim=0) / bnorms
+
+
+def solve_refined_df_multi(fp: FrontalPlan, factors: Sequence[torch.Tensor],
+                           inv_pivots: Optional[Sequence[torch.Tensor]],
+                           B64: np.ndarray, ell, tol: float = 1e-12,
+                           max_iter: int = 40):
+    """IR for a block of right-hand sides: `B64` is the PERMUTED f64 [n, k]
+    block (NumPy or tensor, as in `solve_refined_df`); engines and `ell` as
+    there. Sweeps are shared across columns (every column gets the
+    correction each round); the loop stops on the worst column's relative
+    residual, with a zero column guarded by a unit norm. The block is split,
+    normed and joined on the device: the host sees one upload, one read
+    per sweep and one download. Returns (X_perm64 [n, k], sweeps,
+    rn_rel_max)."""
+    idx, a_hi, a_lo = ell
+    device = idx.device
+    B64, as_numpy = _rhs_on_device(B64, device)
+    k = B64.shape[1]
+    bnorms = torch.linalg.vector_norm(B64, dim=0)
+    bnorms_safe = torch.where(bnorms > 0, bnorms,
+                              torch.ones_like(bnorms)).to(torch.float32)
+    banded = inv_pivots is not None
+    b_hi, b_lo = _split_rhs(fp, B64, banded)
+    del B64
+    tol_rel = float(np.float32(tol))
+
+    def solve(rhs):
+        if banded:
+            return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
+        return frontal.frontal_solve(fp, factors, rhs)
+
+    def resid(x_hi, x_lo):
+        if not banded:
+            z = x_hi.new_zeros((1, k))
+            x_hi, x_lo = torch.cat([x_hi, z]), torch.cat([x_lo, z])
+        y_hi, y_lo = df_matvec_multi(idx, a_hi, a_lo, x_hi, x_lo)
+        return _df_add(b_hi, b_lo, -y_hi, -y_lo)
+
+    def worst(r_hi):
+        return float(_rel_norms(r_hi, bnorms_safe).max())
+
+    x0 = solve(b_hi)
+    x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
+    r_hi, _ = resid(x_hi, x_lo)
+    rn, prev, sweeps = worst(r_hi), math.inf, 0
+    while sweeps < max_iter and rn > tol_rel and rn < 0.5 * prev:
+        dx = solve(r_hi)
+        x_hi, x_lo = _df_add(x_hi, x_lo, dx, torch.zeros_like(dx))
+        r_hi, _ = resid(x_hi, x_lo)
+        prev, rn = rn, worst(r_hi)
+        sweeps += 1
+    return _join_solution(fp, x_hi, x_lo, banded, as_numpy), sweeps, rn

@@ -205,10 +205,12 @@ def _schur_chunk(b, K, W, acc, B2=0, Kc=0, u=0) -> int:
     return ch * per + 9 * B2 * K
 
 
-def solve_batch(rows: int, W: int, size: int) -> int:
+def solve_batch(rows: int, W: int, size: int, k: int = 1) -> int:
     """Blocks per chunk of a solve's promoted triangular solve or boundary
-    product."""
-    return _rows(rows * W * size, 1 << 62)
+    product: the promoted [rows, W] block and, for a block of k > 1
+    right-hand sides, the chunk's k - 1 further columns of operand and
+    result."""
+    return _rows(rows * (W + 2 * (k - 1)) * size, 1 << 62)
 
 
 # ---------------------------------------------------------------------------
@@ -506,15 +508,23 @@ def inv_bytes(F, W, dtype) -> int:
     return sum((1 << l) * W[l] * W[l] * size for l in range(len(F)))
 
 
+def solve_vector_bytes(W, dtype) -> int:
+    """The ~24 work vectors over the padded basis that a refined solve
+    holds per right-hand side."""
+    n_pad = sum((1 << l) * W[l] for l in range(len(W)))
+    return 24 * (n_pad + 1) * (8 if dtype == torch.float64 else 4)
+
+
 def solve_bytes(F, W, dtype, ell_k: int = ELL_MAX_K,
-                host_level: int = 0) -> int:
-    """Device bytes a refined solve holds beside the stored factor: the
-    ELL planes and the double-float matvec's temporaries (~40 bytes per
-    row and ELL slot), ~24 work vectors over the padded basis, one chunk
-    of promoted factor, and the largest host level moved to the device."""
+                host_level: int = 0, k: int = 1) -> int:
+    """Device bytes a refined solve of k right-hand sides holds beside the
+    stored factor: the ELL planes and the double-float matvec's
+    temporaries (~40 bytes per row, ELL slot and column; the [n, K, k]
+    operands of the block residual are within it), the work vectors per
+    column, one chunk of promoted factor, and the largest host level moved
+    to the device."""
     n_pad = sum((1 << l) * W[l] for l in range(len(F)))
-    size = 8 if dtype == torch.float64 else 4
-    return (40 * (n_pad + 1) * ell_k + 24 * (n_pad + 1) * size
+    return ((40 * (n_pad + 1) * ell_k + solve_vector_bytes(W, dtype)) * k
             + 3 * CHUNK_BYTES + host_level + SLACK_BYTES)
 
 

@@ -91,7 +91,7 @@ def test_solve_spd_and_input_checks(port_fixtures):
     s = cholesky_tpu_torch.SparseCholesky.from_files(*files, device="cpu")
     assert s.residual(b, x) <= TOL
     with pytest.raises(ValueError):
-        s.solve(np.stack([b, b], axis=1))
+        s.solve(np.stack([b, b], axis=0))       # [2, n]: rows are not dofs
     with pytest.raises(ValueError):
         cholesky_tpu_torch.SparseCholesky.from_files(*files, dtype=np.int32,
                                                      device="cpu")
@@ -109,8 +109,9 @@ def test_cuda_device_is_never_a_silent_cpu(port_fixtures):
 
 
 def test_port_never_imports_jax():
-    """A solve through the port loads neither jax nor any module of the JAX
-    package."""
+    """The port's entry points (from_coo, from_scipy, spsolve, block solve,
+    update_values, checkpoint, profiler) load neither jax nor any module
+    of the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -122,6 +123,24 @@ def test_port_never_imports_jax():
         "    n, r, c, v, o, cl, dtype=np.float32, device='cpu')\n"
         "x = s.solve(b)\n"
         "assert s.residual(b, x) <= 1e-10\n"
+        "import os, tempfile, scipy.sparse as sp\n"
+        "from cholesky_tpu_torch.numeric import profile\n"
+        "from cholesky_tpu_torch.utils import problems\n"
+        "n, r, c, v = problems.make_gallery(1)['elasticity']()\n"
+        "a = sp.csr_matrix((v, (r, c)), shape=(n, n))\n"
+        "t = cholesky_tpu_torch.SparseCholesky.from_scipy(\n"
+        "    a, dtype=np.float32, device='cpu')\n"
+        "B = np.ones((n, 3))\n"
+        "assert t.residual(B, t.solve(B)) <= 1e-10\n"
+        "t.update_values(2.0 * t.vals)\n"
+        "t.factorize(check=True)\n"
+        "assert np.isfinite(t.logdet()) and len(t.factor_coo()[2]) > n\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    t.load_factor(t.save_factor(os.path.join(d, 'ck')))\n"
+        "profile.profile_frontal(t.fplan, t.assemble(), iters=1,\n"
+        "                        emit=lambda line: None)\n"
+        "x = cholesky_tpu_torch.spsolve(a, np.ones(n), device='cpu')\n"
+        "assert np.linalg.norm(t._matrix_csr() @ x / 2 - 1) <= 1e-8\n"
         "print('jax' in sys.modules)\n"
         "print(sorted(m for m in sys.modules if m == 'cholesky_tpu'\n"
         "             or m.startswith('cholesky_tpu.')))\n")

@@ -1,0 +1,191 @@
+"""`python -m cholesky_tpu_torch.cli --device cpu` against the reference
+harness contract (check_matrix + check_solution against SciPy, 1e-4, as
+tests/test_cli.py) and against the JAX package's CLI on the same files
+(solution and factor files within 1e-10), plus the port's own flags."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.io
+import scipy.linalg
+
+from cholesky_tpu.io import mmio, ordering as ordio
+from cholesky_tpu.symbolic.plan import build_plan, permute_matrix_dense
+from tests.conftest import FIXTURES
+from tests.test_torch_fixtures import port_fixtures  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FILE_TOL = 1e-10        # the two CLIs' output files, f64 runs
+
+
+def run_cli(args, module="cholesky_tpu_torch.cli", cpu=True, python_args=()):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+    extra = ["--device", "cpu"] if cpu and module.endswith("torch.cli") else []
+    return subprocess.run(
+        [sys.executable, *python_args, "-m", module] + list(args) + extra,
+        capture_output=True, text=True, env=env, timeout=600)
+
+
+def _files(p):
+    return ["-i", p["mat"], "-s", p["separators"], "-c", p["clusters"]]
+
+
+def check_matrix(matrix_file, separator_file, factored_mat):
+    plan = build_plan(ordio.parse_ordering(separator_file))
+    pmat = permute_matrix_dense(plan, mmio.read_dense(matrix_file))
+    l_numpy = scipy.linalg.cholesky(pmat + np.tril(pmat, -1).T, lower=True)
+    l_ours = np.tril(scipy.io.mmread(factored_mat).toarray())
+    return np.allclose(l_numpy, l_ours, rtol=1e-4, atol=1e-4)
+
+
+def check_solution(matrix_file, b_file, solution_file):
+    a = mmio.read_dense(matrix_file)
+    b = mmio.read_array(b_file)
+    sol = np.genfromtxt(solution_file).reshape(b.shape)
+    return np.allclose(scipy.linalg.solve(a, b), sol, rtol=1e-4, atol=1e-4)
+
+
+def _lines(stdout, tag):
+    return [ast.literal_eval(ln.split(": ", 1)[1])
+            for ln in stdout.splitlines() if ln.startswith(tag + ": ")]
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_cli_end_to_end_matches_scipy_and_the_jax_cli(name, tmp_path,
+                                                      port_fixtures):
+    p = port_fixtures(name)
+    out = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        sol, fac, perm = (str(tmp_path / f"{tag}_{x}") for x in (
+            "solution.txt", "factored.mtx", "permuted.mtx"))
+        dump = [] if name == "lapl_3375x3375" else ["-p", perm]
+        r = run_cli([*_files(p), "-b", p["b"], "-o", sol, "-m", fac, *dump,
+                     "-fflow", "0", "-ll:cpu", "3", "-lg:spy"], module)
+        assert r.returncode == 0, r.stderr[-2000:]
+        out[tag] = (r.stdout, sol, fac, perm if dump else None)
+    stdout, sol, fac, perm = out["t"]
+    jout, jsol, jfac, jperm = out["j"]
+    for want in ("Iterations: 1", "levels: ", "separators: ", "Done fill.",
+                 "Done factoring Iteration: 0.", "Done solve."):
+        assert want in stdout
+    head = [ln for ln in stdout.splitlines() if ln.startswith("M: ")]
+    assert head == [ln for ln in jout.splitlines() if ln.startswith("M: ")]
+    (factor,), (solve,) = _lines(stdout, "FACTOR"), _lines(stdout, "SOLVE")
+    assert factor["op"] == "factor" and factor["time_s"] > 0
+    assert solve["residual"] <= 1e-10 and solve["time_s"] > 0
+    assert check_matrix(p["mat"], p["separators"], fac)
+    assert check_solution(p["mat"], p["b"], sol)
+    x, xj = np.genfromtxt(sol), np.genfromtxt(jsol)
+    assert np.abs(x - xj).max() <= FILE_TOL * np.abs(xj).max()
+    L = scipy.io.mmread(fac).toarray()
+    Lj = scipy.io.mmread(jfac).toarray()
+    assert np.abs(L - Lj).max() <= FILE_TOL * np.abs(Lj).max()
+    if perm:
+        assert open(perm).read() == open(jperm).read()
+
+
+def test_cli_without_an_ordering_file(tmp_path, port_fixtures):
+    p = port_fixtures("lapl_400x400")
+    sol = str(tmp_path / "sol.txt")
+    r = run_cli(["-i", p["mat"], "-b", p["b"], "-o", sol, "--dtype",
+                 "float32", "--iterations", "2", "--bench"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "No separator file; computing nested-dissection ordering." \
+        in r.stdout
+    assert len(_lines(r.stdout, "FACTOR")) == 2
+    assert _lines(r.stdout, "SOLVE")[0]["residual"] <= 1e-10
+    assert check_solution(p["mat"], p["b"], sol)
+    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    assert bench["metric"] == "factor_wall_s" and bench["value"] > 0
+
+
+def test_cli_save_then_load_factor(tmp_path, port_fixtures):
+    p = port_fixtures("lapl_400x400")
+    ck = str(tmp_path / "ck.npz")
+    r = run_cli([*_files(p), "--save-factor", ck, "--budget", str(4 << 30)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert f"Saved factor: {ck}" in r.stdout
+    sol = str(tmp_path / "sol.txt")
+    r = run_cli([*_files(p), "--load-factor", ck, "-b", p["b"], "-o", sol,
+                 "--bench"])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert f"Loaded factor: {ck}" in r.stdout
+    assert "Done factoring" not in r.stdout
+    assert check_solution(p["mat"], p["b"], sol)
+    assert json.loads(r.stdout.strip().splitlines()[-1])["value"] is None
+    # the JAX CLI resumes from the port's checkpoint too
+    r = run_cli([*_files(p), "--load-factor", ck, "-b", p["b"]],
+                module="cholesky_tpu.cli")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert _lines(r.stdout, "SOLVE")[0]["residual"] <= 1e-10
+
+
+def test_cli_profile_emits_the_jax_profilers_ops(port_fixtures):
+    """`--profile`: one BLAS line per stage in the JAX profiler's format.
+    On the CPU fixtures no level is kernel-routed in either package
+    (B < 32), so the op sequences are the same line for line."""
+    p = port_fixtures("lapl_400x400")
+    ops = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        r = run_cli([*_files(p), "--profile", "--dtype", "float32"], module)
+        assert r.returncode == 0, r.stderr[-2000:]
+        ops[tag] = _lines(r.stdout, "BLAS")
+    assert [{k: v for k, v in d.items() if k != "Time"} for d in ops["t"]] \
+        == [{k: v for k, v in d.items() if k != "Time"} for d in ops["j"]]
+    assert {d["op"] for d in ops["t"]} == {"EXTADD", "POTRF", "TRSM", "SYRK"}
+    assert all(isinstance(d["Time"], int) and d["Time"] >= 0
+               for d in ops["t"])
+
+
+@pytest.mark.parametrize("flag,args", [
+    ("--signs", ["--signs", "signs.txt"]),
+    ("--inv-diag", ["--inv-diag", "d.txt"]),
+    ("--devices", ["--devices", "4"]),
+    ("--slices", ["--slices", "2"]),
+    ("-d", ["-d", "dbg"]),
+    ("--debug-dumps", ["--debug-dumps"])])
+def test_cli_unported_flags_exit_2_naming_the_flag(flag, args, capsys,
+                                                   port_fixtures):
+    from cholesky_tpu_torch import cli
+
+    p = port_fixtures("lapl_9x9")
+    assert cli.main([*_files(p), *args, "--device", "cpu"]) == 2
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and f" {flag} " in lines[0]
+
+
+def test_cli_usage_and_device_default(port_fixtures):
+    assert run_cli([]).returncode == 2
+    p = port_fixtures("lapl_9x9")
+    r = run_cli([*_files(p), "--signs", "signs.txt"])
+    assert r.returncode == 2 and "--signs" in r.stdout
+    import torch
+
+    if not torch.cuda.is_available():
+        # without a card the default device fails: nothing runs on the CPU
+        # unasked
+        r = run_cli(_files(p), cpu=False)
+        assert r.returncode != 0 and "Done factoring" not in r.stdout
+        assert "cuda" in r.stderr
+
+
+def test_cli_never_loads_jax(port_fixtures):
+    """The import trace of a whole run (factor, profile, checkpoint, solve)
+    names neither jax nor any module of the JAX package."""
+    p = port_fixtures("lapl_25x25")
+    r = run_cli([*_files(p), "-b", p["b"], "--profile"],
+                python_args=("-X", "importtime"))
+    assert r.returncode == 0, r.stderr[-2000:]
+    mods = [ln.rsplit("|", 1)[1].strip() for ln in r.stderr.splitlines()
+            if ln.startswith("import time:") and "|" in ln]
+    assert "torch" in mods and "cholesky_tpu_torch.api" in mods
+    bad = [m for m in mods if m == "jax" or m.startswith("jax.")
+           or m == "cholesky_tpu" or m.startswith("cholesky_tpu.")]
+    assert not bad, bad

@@ -238,3 +238,70 @@ def test_refactorize_after_releasing_cached_memory(monkeypatch):
     assert s._ell_dev[True] is ell
     x = s.solve(b)
     assert s.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5])
+def test_block_solve_on_card_matches_cpu(k):
+    """[n, k] through the device loop on the card: every column at the
+    contract, and within 1e-8 of the same solve on the CPU."""
+    _require_cuda()
+    n, r, c, v, o, cl, _ = generate_problem((12, 12, 12), 5)
+    B = np.random.default_rng(7).standard_normal((n, k))
+    B[:, -1] *= 1e6
+    xs = {}
+    for dev in ("cuda", "cpu"):
+        s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                    device=dev)
+        xs[dev] = s.solve(B).reshape(n, k)
+        assert s.last_solve["loop"] == "device" and s.last_solve["k"] == k
+        assert s.residual(B, xs[dev]) <= TOL
+    diff = np.linalg.norm(xs["cuda"] - xs["cpu"], axis=0)
+    assert np.all(diff <= 1e-8 * np.linalg.norm(xs["cpu"], axis=0))
+
+
+@pytest.mark.cuda
+def test_from_scipy_update_values_and_checkpoint_on_card(tmp_path):
+    _require_cuda()
+    import scipy.sparse as sp
+
+    from cholesky_tpu_torch.utils import problems
+
+    n, r, c, v = problems.make_gallery(1)["wathen"]()
+    a = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    s = SparseCholesky.from_scipy(a, dtype=np.float32)
+    assert s.device.type == "cuda"
+    b = np.random.default_rng(8).standard_normal(n)
+    assert s.residual(b, s.solve(b)) <= TOL
+    s.update_values(3.0 * s.vals)
+    x = s.solve(b)
+    assert s.residual(b, x) <= TOL and s.factor_stats["plan_reused"]
+    cpu = SparseCholesky.from_scipy(3.0 * a, dtype=np.float64, device="cpu")
+    assert abs(s.logdet() - cpu.logdet()) <= 1e-6 * abs(cpu.logdet())
+    path = s.save_factor(str(tmp_path / "ck"))
+    t = SparseCholesky(s.plan, s.rows, s.cols, s.vals, dtype=np.float32)
+    t.load_factor(path)
+    assert all(p.device.type == "cuda" for p in t.panels)
+    assert np.linalg.norm(t.solve(b) - x) <= 1e-8 * np.linalg.norm(x)
+
+
+@pytest.mark.cuda
+def test_profile_frontal_times_the_kernel_route_on_card():
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import profile
+
+    n, r, c, v, o, cl, _ = generate_problem((20, 20, 20), 7)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
+    fp = s.fplan
+    lines = []
+    before = hk.LAUNCHES["chol_inv"]
+    recs = profile.profile_frontal(fp, s.assemble(), iters=2,
+                                   emit=lines.append)
+    routed = [lvl for lvl in range(fp.levels) if hk.slab_kernel_eligible(
+        1 << lvl, fp.W[lvl], torch.float32)]
+    assert routed and hk.LAUNCHES["chol_inv"] > before
+    assert sorted(x["level"] for x in recs
+                  if x["op"] == "FACTOR_SLAB") == routed
+    assert len(lines) == len(recs) and all(
+        ln.startswith("BLAS: {'op': ") for ln in lines)
+    assert all(x["time_us"] >= 0 for x in recs)

@@ -3,7 +3,7 @@
 trees of the port can be compared in one run on the same card.
 
     python3 torch_walls.py [--tree DIR] [--shape 50] [--levels 8]
-                           [--repeat 30]
+                           [--repeat 30] [--rhs K]
 
 `--tree DIR` puts DIR first on the import path: a checkout of another
 commit (unpacked with `git archive` into a directory that .gitignore
@@ -11,8 +11,10 @@ lists) is then timed by this same script. Run the two trees alternately
 (A, B, B, A) and compare within the run. Prints one JSON line: the
 package's path, the problem, the cold factor wall, every warm factor wall
 and their median, the median solve wall, and the seconds of the regime
-plan per factorization where the tree records them. Exits nonzero when
-there is no CUDA device.
+plan per factorization where the tree records them. `--rhs K` (K > 1)
+solves a seeded [n, K] block instead of one right-hand side (a tree whose
+solve takes no block fails there). Exits nonzero when there is no CUDA
+device.
 """
 
 import argparse
@@ -30,6 +32,7 @@ def main() -> int:
     ap.add_argument("--shape", type=int, default=50)
     ap.add_argument("--levels", type=int, default=8)
     ap.add_argument("--repeat", type=int, default=30)
+    ap.add_argument("--rhs", type=int, default=1)
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -55,10 +58,14 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         plan_s.append(getattr(s, "factor_stats", {}).get("plan_s"))
+    if args.rhs > 1:
+        b = np.random.default_rng(0).standard_normal((n, args.rhs))
     solves = []
     for _ in range(1 + args.repeat // 3):
+        torch.cuda.synchronize()
         t = time.perf_counter()
         s.solve(b)
+        torch.cuda.synchronize()
         solves.append(time.perf_counter() - t)
     print(json.dumps({
         "package": os.path.dirname(cholesky_tpu_torch.__file__),
@@ -66,7 +73,9 @@ def main() -> int:
         "factor_wall_cold_s": walls[0], "factor_wall_warm_s": walls[1:],
         "factor_wall_warm_median_s": statistics.median(walls[1:]),
         "plan_regimes_s": plan_s,
+        "rhs": args.rhs,
         "solve_wall_median_s": statistics.median(solves[1:]),
+        "last_solve": getattr(s, "last_solve", None),
         "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
