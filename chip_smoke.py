@@ -10,12 +10,13 @@ Phases, each printing one JSON line:
              csrc` with nvcc, build seconds and the `-Xptxas -v` report;
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
              blocks (errors against an f64 reference), then at each shape
-             the two slices launch it with, [128|64|32, 128, 128] (50^3)
-             and [8192|1024|512|256|128, 128, 128] (140^3), checked the
-             same way and timed beside its
-             bound (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s,
-             whichever is larger), its share of that bound, its plain
-             version and the library pair `cholesky_ex` + `solve_triangular`;
+             the main paths launch it with, [128|64|32, 128, 128] (50^3),
+             [8192|1024|512|256|128, 128, 128] (140^3) and [2048, 128, 128]
+             (the 50^3 family at K = 16), checked the same way and timed
+             beside its bound (bytes over 3.35 TB/s or fp32 flops over 67
+             TFLOP/s, whichever is larger), its share of that bound, its
+             plain version and the library pair `cholesky_ex` +
+             `solve_triangular`;
              `factor_slab` with the kernel vs the plain composite at the 50^3
              leaf slab [128, 1440, 864];
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
@@ -61,9 +62,30 @@ Phases, each printing one JSON line:
              the port's own f64 factor on the CPU;
  11. cli:    a 30^3 problem written to files and run through
              `python -m cholesky_tpu_torch.cli` as a subprocess on the card
-             (-o, -m, --profile, --save-factor; then --load-factor): exit
-             codes, the SOLVE residual, the solution file against SciPy,
-             FACTOR_SLAB lines exactly on the kernel-routed levels.
+             (-o, -m, --profile, --save-factor, --inv-diag; then
+             --load-factor): exit codes, the SOLVE residual, the solution
+             file against SciPy, FACTOR_SLAB lines exactly on the
+             kernel-routed levels, the diag(A^-1) file against refined
+             solves of unit vectors;
+ 12. selinv: selected inversion, gradients and sampling on the slice's
+             50^3 f32 factor: inv_diag wall (cold, warm) and peak memory
+             beside the `regimes.selinv_bytes` estimate; inv_diag at 64
+             seeded dofs and inv_entries at 1,000 seeded entries of the
+             pattern against refined block solves of unit vectors (each
+             column at the residual contract); logdet_grad over every
+             entry (wall with its host part), quadform_grad, solve_grad;
+             sample at k = 1 and 64 and whiten(sample(z)) against z. The
+             same inv_diag check runs on the ordering phase's aniso3d
+             solver, and the scale phase's 140^3 solver must refuse
+             inv_diag (BudgetError, nothing allocated);
+ 13. family: factorize_many at 50^3 L8 for K = 8 and 16 (a seeded
+             scale-and-shift family): walls cold and warm beside K
+             sequential update_values + factorize(), peak beside the
+             family plan's estimate, chol_inv launches against the routing
+             rule at the folded batch K 2^lvl, a solve of [K, n]
+             right-hand sides and of one shared one with per-system f64
+             SciPy residuals, and each system's logdet against the single
+             solver's after update_values.
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
 Exits nonzero, without the last line, when there is no CUDA device, when
@@ -101,6 +123,18 @@ MULTI_K = (1, 16, 128)             # block widths of the multi phase
 # runs)
 ORDERING = (("aniso3d", 4), ("elasticity", 12), ("circuit", 3))
 CLI_PROBLEM = ((30, 30, 30), 7)
+# f32 selected inversion against refined unit-vector solves, relative per
+# entry for the diagonal and to the largest entry for inv_entries: f32 vs
+# f64 selected inversion on the CPU gave 1.2-2.4e-6 from 16^3 to 32^3 and
+# on aniso3d 12^3 / 24^3, slowly growing with the size
+SELINV_F32_TOL = 1e-4
+SAMPLE_F32_TOL = 1e-4              # whiten(sample(z)) against z, f32
+FAMILY_K = (8, 16)
+# chol_inv launches per factorization of a 50^3 L8 family by the routing
+# rule at the folded batch K 2^lvl: levels 7-3 (7 + 2 + 2 + 3 + 5) at K = 8,
+# and level 2 (5 more) at K = 16
+FAMILY_LAUNCHES = {8: 19, 16: 24}
+FAMILY_LOGDET_TOL = 1e-6           # a family system's f32 logdet vs single
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
@@ -238,8 +272,9 @@ def phase_kernel():
           "tol_vs_f64": F64_REL_TOL})
     max_abs = errs["max_abs_err"]
 
-    # the shapes the two slices launch it with: 50^3 levels 7, 6, 5 and
-    # 140^3 levels 13, 10, 9, 8 (and 7, B = 128); each checked against its
+    # the shapes the main paths launch it with: 50^3 levels 7, 6, 5 and
+    # 140^3 levels 13, 10, 9, 8 (and 7, B = 128); the 50^3 family's
+    # [2048|1024|512|256|128|64] at K = 8 and 16; each checked against its
     # plain version and the f64 reference, then timed
     def library(x):
         L, _ = torch.linalg.cholesky_ex(x)
@@ -248,7 +283,7 @@ def phase_kernel():
     timed = {}
     big = torch.randn(8192, 128, 128, generator=gen, device=dev)
     big = big @ big.transpose(1, 2) / 128 + 0.5 * eye
-    for B in (128, 64, 32, 8192, 1024, 512, 256):
+    for B in (128, 64, 32, 8192, 2048, 1024, 512, 256):
         x = d[:B].contiguous() if B <= 300 else big[:B].contiguous()
         errs = check_chol_inv(x)
         max_abs = max(max_abs, errs["max_abs_err"])
@@ -472,14 +507,15 @@ def profiled(fn) -> dict:
 
 def expected_chol_inv(fp, plan) -> int:
     """chol_inv launches of one factorization by the routing rule: per
-    chunk of an eligible level, one launch per 128-wide panel."""
+    chunk of an eligible level, one launch per 128-wide panel (a family's
+    level holds plan.family 2^lvl fronts)."""
     import torch
 
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
     total = 0
     for lvl, lp in enumerate(plan.levels):
-        b = (1 << lvl) // lp.chunks
+        b = (plan.family << lvl) // lp.chunks
         if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
             total += lp.chunks * -(-fp.W[lvl] // hk.BS)
     return total
@@ -734,6 +770,23 @@ def phase_scale():
             emit({"phase": "scale", "problem": problem, "run": run,
                   "what": "warm factor under torch.profiler",
                   **profiled(s.factorize)})
+            # selected inversion does not fit beside this factor: it must
+            # refuse before it allocates anything
+            before = torch.cuda.memory_allocated(dev)
+            try:
+                s.inv_diag()
+                refused = None
+            except regimes.BudgetError as e:
+                refused = str(e)
+            check(refused is not None, f"{problem}: inv_diag did not raise "
+                  "BudgetError")
+            check(torch.cuda.memory_allocated(dev) == before,
+                  f"{problem}: inv_diag allocated before refusing")
+            emit({"phase": "selinv", "problem": problem,
+                  "what": "inv_diag refused", **s.selinv_stats,
+                  "allocated_before": before,
+                  "allocated_after": torch.cuda.memory_allocated(dev),
+                  "error": refused[:400]})
     del s
     return results
 
@@ -793,6 +846,238 @@ def phase_multi(s):
     for what, rhs in (("solve k=1", B[:, 0]), ("solve k=16", B)):
         emit({"phase": "multi", "what": what + " under torch.profiler",
               **profiled(lambda: s.solve(rhs, tol=TOL))})
+
+
+def unit_solves(s, a, cols, what: str):
+    """A^-1 e_j for the dofs `cols`: refined block solves of the unit
+    vectors, 256 columns at a time, each column held to the residual
+    contract against the SciPy matrix `a` in f64. [n, len(cols)]."""
+    import numpy as np
+
+    n = s.plan.n
+    X = np.empty((n, len(cols)))
+    for j0 in range(0, len(cols), 256):
+        c = cols[j0:j0 + 256]
+        E = np.zeros((n, len(c)))
+        E[c, np.arange(len(c))] = 1.0
+        X[:, j0:j0 + len(c)] = s.solve(E, tol=TOL).reshape(n, len(c))
+        res = column_residuals(a, E, X[:, j0:j0 + len(c)])
+        check(float(res.max()) <= TOL,
+              f"{what}: a unit-vector solve's residual {res.max()} > {TOL}")
+    return X
+
+
+def inv_diag_check(s, a, seed: int, what: str):
+    """inv_diag() (synchronized wall, peak device bytes above what was
+    allocated before, beside the estimate less the resident bytes) and its
+    value at 64 seeded dofs against e_i^T A^-1 e_i from refined solves.
+    Returns (the record, the diagonal)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    d = s.inv_diag()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - before
+    est = s.selinv_stats["estimate"] - s._resident_bytes()
+    n = s.plan.n
+    check(d.shape == (n,) and bool(np.all(np.isfinite(d)) and np.all(d > 0)),
+          f"{what}: inv_diag not finite and positive")
+    check(peak <= est, f"{what}: inv_diag peak {peak} > estimate {est}")
+    dofs = np.random.default_rng(seed).choice(n, 64, replace=False)
+    ref = unit_solves(s, a, dofs, what)[dofs, np.arange(64)]
+    err = float((np.abs(d[dofs] - ref) / np.abs(ref)).max())
+    check(err <= SELINV_F32_TOL, f"{what}: inv_diag differs from the "
+          f"unit-vector solves by {err} > {SELINV_F32_TOL}")
+    return {"wall_s": wall, "peak_bytes": peak,
+            "est_bytes": est, "est_with_resident": s.selinv_stats["estimate"],
+            "budget": s.selinv_stats["budget"], "rel_err_64_dofs": err,
+            "tol": SELINV_F32_TOL}, d
+
+
+def phase_selinv(s):
+    """Selected inversion, value gradients and sampling on the slice's
+    50^3 L8 f32 factor."""
+    import numpy as np
+    import torch
+
+    check(s.factored, "the slice's factor is gone")
+    n = s.plan.n
+    a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+    cold, _ = inv_diag_check(s, a, SEED + 50, "selinv 50^3 (cold)")
+    warm, d = inv_diag_check(s, a, SEED + 51, "selinv 50^3")
+    emit({"phase": "selinv", "problem": "50^3 L8", "n": n,
+          "what": "inv_diag", "cold": cold, "warm": warm})
+
+    rng = np.random.default_rng(SEED + 52)
+    pick = rng.choice(len(s.rows), 1000, replace=False)
+    er, ec = s.rows[pick], s.cols[pick]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    e = s.inv_entries(er, ec)
+    wall = time.perf_counter() - t
+    cols, which = np.unique(ec, return_inverse=True)
+    ref = unit_solves(s, a, cols, "inv_entries")[er, which]
+    err = float(np.abs(e - ref).max() / np.abs(ref).max())
+    check(err <= SELINV_F32_TOL, f"inv_entries differs from the unit-vector "
+          f"solves by {err} > {SELINV_F32_TOL}")
+    emit({"phase": "selinv", "what": "inv_entries", "entries": 1000,
+          "wall_s": wall, "rel_err": err, "tol": SELINV_F32_TOL})
+
+    t = time.perf_counter()
+    g = s.logdet_grad()
+    g_wall = time.perf_counter() - t
+    diag = s.rows == s.cols
+    g_diag = float(np.abs(g[diag] - d[s.rows[diag]]).max()
+                   / np.abs(d).max())
+    check(g.shape == s.vals.shape and bool(np.all(np.isfinite(g)))
+          and g_diag <= 1e-6, f"logdet_grad: diagonal vs inv_diag {g_diag}")
+    b = rng.standard_normal(n)
+    t = time.perf_counter()
+    q = s.quadform_grad(b)
+    q_wall = time.perf_counter() - t
+    t = time.perf_counter()
+    vbar, lam = s.solve_grad(b, rng.standard_normal(n))
+    sg_wall = time.perf_counter() - t
+    check(bool(np.all(np.isfinite(q)) and np.all(np.isfinite(vbar))),
+          "quadform_grad / solve_grad not finite")
+    emit({"phase": "selinv", "what": "gradients", "entries": int(len(g)),
+          "logdet_grad_wall_s": g_wall, "logdet_grad_diag_vs_inv_diag":
+              g_diag, "quadform_grad_wall_s": q_wall,
+          "solve_grad_wall_s": sg_wall})
+
+    rows = []
+    for k in (1, 64):
+        z = rng.standard_normal((n, k) if k > 1 else n)
+        s.sample(z)                                   # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = s.sample(z)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        t = time.perf_counter()
+        w = s.whiten(x)
+        torch.cuda.synchronize()
+        w_wall = time.perf_counter() - t
+        err = float(np.abs(w - z).max() / np.abs(z).max())
+        check(x.shape == z.shape and bool(np.all(np.isfinite(x)))
+              and err <= SAMPLE_F32_TOL,
+              f"sample k = {k}: whiten(sample(z)) differs from z by {err}")
+        rows.append({"k": k, "sample_wall_s": wall, "whiten_wall_s": w_wall,
+                     "round_trip_rel_err": err})
+    emit({"phase": "selinv", "what": "sample / whiten", "runs": rows,
+          "tol": SAMPLE_F32_TOL})
+
+
+def phase_family(base):
+    """factorize_many at 50^3 L8 for K = 8 and 16."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    n = base.plan.n
+    fp = base.fplan
+    diag = base.rows == base.cols
+    out = {}
+    for K in FAMILY_K:
+        rng = np.random.default_rng(SEED + 60 + K)
+        scales = 1.0 + rng.uniform(0, 2, size=K)
+        shifts = rng.uniform(0, 1, size=K)
+        vals = scales[:, None] * base.vals[None, :]
+        vals[:, diag] += shifts[:, None]
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        walls, peaks, bf = [], [], None
+        for _ in range(2):                     # cold, then warm
+            bf = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            bf = base.factorize_many(vals)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+        launches = dict(hk.LAUNCHES)
+        want = expected_chol_inv(fp, bf.regimes)
+        check(want == FAMILY_LAUNCHES[K], f"family K = {K}: the rule gives "
+              f"{want} chol_inv launches, expected {FAMILY_LAUNCHES[K]}")
+        check(launches["chol_inv"] == 2 * want,
+              f"family K = {K}: {launches['chol_inv']} chol_inv launches in "
+              f"2 factorizations, the rule gives {want} each")
+        est = bf.regimes.peak_bytes
+        check(max(peaks) <= est, f"family K = {K}: peak {max(peaks)} > "
+              f"estimate {est}")
+
+        seq = SparseCholesky(base.plan, base.rows, base.cols, base.vals,
+                             dtype=np.float32, device="cuda")
+        seq._fplan = fp
+        seq.factorize()                       # its plan, index maps, warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(K):
+            seq.update_values(vals[i])
+            seq.factorize()
+        torch.cuda.synchronize()
+        seq_wall = time.perf_counter() - t
+        logdets = []
+        for i in range(K):
+            seq.update_values(vals[i])
+            logdets.append(seq.logdet())
+        del seq
+
+        B = rng.standard_normal((K, n))
+        solves = []
+        # the first solve builds the family's ELL planes on the host
+        for rhs in (B, B, base_rhs(n)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            X = bf.solve(rhs, tol=TOL)
+            wall = time.perf_counter() - t
+            R = np.broadcast_to(rhs, (K, n))
+            res = np.array([
+                np.linalg.norm(_scipy_matrix(n, base.rows, base.cols, vals[i])
+                               @ X[i] - R[i]) / np.linalg.norm(R[i])
+                for i in range(K)])
+            check(X.shape == (K, n) and bool(np.all(np.isfinite(X))),
+                  f"family K = {K}: solution not finite or misshapen")
+            check(float(res.max()) <= TOL, f"family K = {K}: worst system's "
+                  f"residual {res.max()} > {TOL}")
+            solves.append({"rhs": "per system" if rhs.ndim == 2 else "shared",
+                           "first": not solves, "wall_s": wall,
+                           "residual_max": float(res.max()),
+                           **bf.last_solve})
+        ld = bf.logdet()
+        ld_err = float(np.max(np.abs(ld - logdets) / np.abs(logdets)))
+        check(ld_err <= FAMILY_LOGDET_TOL, f"family K = {K}: logdet differs "
+              f"from the single solver's by {ld_err}")
+        emit({"phase": "family", "problem": "50^3 L8", "n": n, "K": K,
+              "factor_many_wall_s": walls[0], "factor_many_warm_s": walls[1],
+              "sequential_update_factorize_s": seq_wall,
+              "warm_over_sequential": walls[1] / seq_wall,
+              "peak_bytes": peaks, "est_peak_bytes": est,
+              "lazy": bf.regimes.lazy, "plan": bf.regimes.describe(),
+              "launches": launches, "launches_per_factorization": want,
+              "solves": solves, "logdet_rel_diff_max": ld_err,
+              "logdet_tol": FAMILY_LOGDET_TOL})
+        out[K] = launches["chol_inv"]
+        del bf
+    return out
+
+
+def base_rhs(n: int):
+    """The shared right-hand side of the family solves: seeded integers
+    1..10, as the slice's."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 70).integers(
+        1, 11, size=n).astype(np.float64)
 
 
 def spd_perturbation(rows, cols, vals, seed):
@@ -875,6 +1160,10 @@ def phase_ordering():
         rel = abs(logdet - logdet_ref) / abs(logdet_ref)
         check(rel <= LOGDET_REL_TOL, f"{problem}: logdet {logdet} vs the f64 "
               f"CPU factor's {logdet_ref} ({rel})")
+        if name == "aniso3d":
+            sel, _ = inv_diag_check(s, a_new, SEED + 42, problem)
+            emit({"phase": "selinv", "problem": problem, "n": n,
+                  "what": "inv_diag", **sel})
         emit({"phase": "ordering", "problem": problem,
               "what": "update_values -> factorize -> solve -> logdet",
               "refactor_wall_s": refactor_s,
@@ -898,6 +1187,7 @@ def phase_cli():
     import numpy as np
     import scipy.sparse.linalg as spla
 
+    from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.io import mmio, ordering as ordio
     from cholesky_tpu_torch.numeric.frontal_plan import build_frontal_plan
     from cholesky_tpu_torch.symbolic.plan import build_plan
@@ -910,7 +1200,7 @@ def phase_cli():
     with tempfile.TemporaryDirectory() as d:
         f = {k: os.path.join(d, k) for k in (
             "m.mtx", "ord.txt", "clust.txt", "b.mtx", "sol.txt", "sol2.txt",
-            "factor.mtx", "ck.npz")}
+            "factor.mtx", "ck.npz", "diag.txt")}
         mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
         ordio.write_ordering(f["ord.txt"], o)
         ordio.write_clusters(f["clust.txt"], cl)
@@ -920,7 +1210,8 @@ def phase_cli():
                 f["b.mtx"], "--dtype", "float32", "--device", "cuda"]
         runs = []
         for extra in (["-o", f["sol.txt"], "-m", f["factor.mtx"], "--profile",
-                       "--save-factor", f["ck.npz"], "--bench"],
+                       "--save-factor", f["ck.npz"], "--inv-diag",
+                       f["diag.txt"], "--bench"],
                       ["-o", f["sol2.txt"], "--load-factor", f["ck.npz"]]):
             t = time.perf_counter()
             p = subprocess.run(base + extra, cwd=root, env=env, timeout=600,
@@ -930,6 +1221,7 @@ def phase_cli():
             runs.append((p.stdout, time.perf_counter() - t))
         x = np.loadtxt(f["sol.txt"])
         x2 = np.loadtxt(f["sol2.txt"])
+        inv_d = np.loadtxt(f["diag.txt"])
         with open(f["factor.mtx"]) as fh:
             fh.readline()
             fdim = [int(t) for t in fh.readline().split()]
@@ -959,9 +1251,19 @@ def phase_cli():
     check("Loaded factor:" in out2 and "Done factoring" not in out2,
           "cli: --load-factor factored again")
     check(fdim[:2] == [n, n] and fdim[2] > n, f"cli: factor file {fdim}")
+    (invdiag,) = _tagged(out, "INVDIAG")
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    dofs = np.random.default_rng(SEED + 80).choice(n, 64, replace=False)
+    ref = unit_solves(s, a, dofs, "cli --inv-diag")[dofs, np.arange(64)]
+    inv_err = float((np.abs(inv_d[dofs] - ref) / np.abs(ref)).max())
+    check(inv_d.shape == (n,) and inv_err <= SELINV_F32_TOL,
+          f"cli: the --inv-diag file differs from unit-vector solves by "
+          f"{inv_err}")
     emit({"phase": "cli", "problem": f"{shape[0]}^3 L{levels}", "n": n,
           "kernel_routed_levels": routed, "factor": factor, "solve": solve,
           "resumed_solve": solve2, "rel_err_vs_scipy": err,
+          "invdiag": invdiag, "inv_diag_rel_err_64_dofs": inv_err,
           "factor_file_nnz": fdim[2], "blas": blas,
           "process_wall_s": [wall, wall2]})
 
@@ -988,6 +1290,8 @@ def main() -> int:
         phase_profile(solver, b)
         phase_multi(solver)
         phase_regimes(solver, b)
+        phase_selinv(solver)
+        family = phase_family(solver)
         del solver
         scale = phase_scale()
         ordering_launches = phase_ordering()
@@ -1004,6 +1308,8 @@ def main() -> int:
             "50^3 L8 slice": launches["chol_inv"],
             "140^3 L14 default budget": scale["default"]["launches"],
             "140^3 L14 40 GiB budget": scale["40 GiB"]["launches"],
+            "50^3 L8 family K=8 (2 factorizations)": family[8],
+            "50^3 L8 family K=16 (2 factorizations)": family[16],
             "from_scipy gallery (ordering phase)": ordering_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],

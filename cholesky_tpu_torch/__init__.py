@@ -10,10 +10,13 @@ under one memory budget (two-piece extend-add, bf16 child updates, lazily
 assembled and batch-chunked levels, a bf16 or host-resident factor),
 iterative refinement with a double-float residual for one right-hand side
 or a block, value updates on a fixed pattern, factor export and
-checkpoints, a per-stage profiler and a command-line interface.
+checkpoints, a per-stage profiler and a command-line interface; selected
+inversion (diag and entries of A^-1), gradients with respect to the
+values, sampling and whitening, and same-pattern families factored as one
+folded batch.
 
   api.py                   SparseCholesky (from_files, from_coo, from_matrix,
-                           from_scipy), solve_spd, spsolve
+                           from_scipy), BatchedFactors, solve_spd, spsolve
   cli.py                   python -m cholesky_tpu_torch.cli (flag-compatible
                            with python -m cholesky_tpu.cli)
   convert.py               carry a plan and a factor across from the JAX package
@@ -25,8 +28,10 @@ checkpoints, a per-stage profiler and a command-line interface.
   numeric/regimes.py       the budget and the per-level regime plan
   numeric/devmem.py        the allocator pool of long-lived device state
   numeric/assemble.py      device assembly, eager or level by level
-  numeric/frontal.py       per-level factorization, level loop, solves of
-                           [n] and [n, k], factor extraction
+  numeric/frontal.py       per-level factorization, level loop (one system
+                           or a family), solves of [n], [n, k] and of a
+                           family, L^-T and L^T, factor extraction
+  numeric/selinv.py        selected inversion
   numeric/hopper_kernels.py  chol_inv kernel wrapper, factor_slab
   numeric/refine.py        double-float iterative refinement, single and block
   numeric/profile.py       per-level, per-stage BLAS: timing lines
@@ -35,5 +40,5 @@ checkpoints, a per-stage profiler and a command-line interface.
 
 __version__ = "0.1.0"
 
-from cholesky_tpu_torch.api import (SparseCholesky, solve_spd,  # noqa: E402,F401
-                                    spsolve)
+from cholesky_tpu_torch.api import (BatchedFactors,  # noqa: E402,F401
+                                    SparseCholesky, solve_spd, spsolve)

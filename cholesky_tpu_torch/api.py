@@ -12,7 +12,14 @@ The single-device SPD surface of `cholesky_tpu/api.py`:
     by either package loads in the other);
   * ways out: `solve(b, refine=, tol=, max_iter=)` for one right-hand side
     [n] or a block [n, k], `residual`, `logdet`, `factor_dense`,
-    `factor_coo`, `permuted_dense`, `aslinearoperator`.
+    `factor_coo`, `permuted_dense`, `aslinearoperator`;
+  * what a GMRF or GP user asks of a precision matrix beyond solves:
+    `inv_diag` / `inv_entries` (selected inversion, `numeric/selinv.py`),
+    `logdet_grad` / `solve_grad` / `quadform_grad` (gradients with respect
+    to the values), `sample` / `whiten` (x = L^-T z and its inverse);
+  * `factorize_many`: K matrices of the same pattern factored as one
+    family, folded into the batch axis of every level; `BatchedFactors`
+    solves, refines and takes the logdet of each system.
 
 The device is an explicit argument everywhere; asking for "cuda" without a
 card raises. The port reads no environment variable.
@@ -28,7 +35,11 @@ the same budget beside the factor, and the solve without inverses
 otherwise; a block of right-hand sides refines in one device loop when the
 block residual's temporaries fit that budget too, else in a host loop over
 column chunks. The plan of the last budget is kept: a refactorization
-under the same budget does not search again.
+under the same budget does not search again. Selected inversion and a
+family stay in core, as in the JAX package: `regimes.selinv_bytes` and the
+family's regime plan (at batch K 2^lvl, factor in the compute dtype on the
+device) are held to the budget before anything is allocated, and
+`regimes.BudgetError` says by how much they miss it.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ import torch
 
 from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
-from cholesky_tpu_torch.numeric import devmem, frontal, regimes
+from cholesky_tpu_torch.numeric import devmem, frontal, regimes, selinv
 from cholesky_tpu_torch.numeric import refine as refine_mod
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
@@ -52,13 +63,18 @@ from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
 
 def _resolve_device(device) -> torch.device:
     """torch.device for "cpu" or "cuda[:i]"; raises for CUDA without a
-    card (there is no silent CPU default)."""
+    card (there is no silent CPU default). "cuda" resolves to the current
+    card's index: the solver compares its device with its tensors' (which
+    levels are resident, which are promoted), and torch.device("cuda") is
+    not equal to torch.device("cuda:0")."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but "
                            "torch.cuda.is_available() is False")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -496,14 +512,12 @@ class SparseCholesky:
         budget, else the solve without inverses. A block goes through in
         column chunks whose work vectors fit the budget."""
         use_inv = self._want_inv_pivots()
-        perm, iperm = self._perm_device()
+        _, iperm = self._perm_device()
         b2 = b.reshape(self.plan.n, -1)
         x = np.empty(b2.shape)
         step = self._solve_cols(b2.shape[1])
         for j in range(0, b2.shape[1], step):
-            bp = torch.from_numpy(np.ascontiguousarray(
-                b2[:, j:j + step])).to(self.device)[perm].to(
-                    TORCH_DTYPES[self.dtype])
+            bp = self._permuted_on_device(b2[:, j:j + step], "b")
             if use_inv:
                 xp = frontal._solve_banded(self.fplan, self.panels,
                                            self._inv_pivots(), bp)
@@ -687,6 +701,231 @@ class SparseCholesky:
         return scipy.sparse.linalg.aslinearoperator(self._matrix_csr())
 
     # ------------------------------------------------------------------
+    # Selected inversion, value gradients, sampling (`api.py:820-1128` of
+    # the JAX package)
+
+    def _resident_bytes(self) -> int:
+        """Device bytes the factorization keeps: the device-resident factor
+        levels and the cached pivot inverses."""
+        if self.panels is None:
+            return 0
+        inv = sum(t.numel() * t.element_size() for t in self._inv[1]) \
+            if self._inv is not None else 0
+        return self._factor_bytes() + inv
+
+    def _selinv_guard(self) -> int:
+        """Selected inversion is in-core only: the stored factor and the
+        recursion's working set (`regimes.selinv_bytes`: two adjacent
+        levels of front-inverse blocks and the gathered transients) must
+        fit the budget of the factorization. Raises `regimes.BudgetError`
+        with the bytes and the budget, before any device allocation; a
+        larger `budget=` is the override. `selinv_stats` keeps both
+        numbers. Returns the estimate."""
+        fp = self.fplan
+        dt = selinv.compute_dtype(self.panels)
+        promoted = [p.device != self.device or p.dtype != dt
+                    for p in self.panels]
+        need = regimes.selinv_bytes(fp.F, fp.W, dt, self._resident_bytes(),
+                                    promoted)
+        budget = self._solve_budget()
+        self.selinv_stats = {"estimate": need, "budget": budget}
+        if need > budget:
+            raise regimes.BudgetError(
+                f"selected inversion needs ~{need} bytes (the stored factor "
+                f"and two adjacent levels of front-inverse blocks with their "
+                f"gathers) but the budget is {budget} bytes; it has no "
+                f"streamed path: pass a larger budget= if the device has "
+                f"the room")
+        return need
+
+    def inv_diag(self) -> np.ndarray:
+        """diag(A^-1) in original dof order, by selected inversion on the
+        factor (`numeric/selinv.py`): a top-down batched recursion over the
+        separator tree that never forms A^-1 or solves n right-hand sides.
+        Marginal variances of a GMRF / GP posterior (A the precision
+        matrix), leverage scores, error estimation. Accuracy follows the
+        factor precision (f64 factor ~1e-13 relative; f32 ~kappa(A) 1e-7).
+        In core only: raises `regimes.BudgetError` when it does not fit
+        the budget."""
+        if not self.factored:
+            self.factorize()
+        self._selinv_guard()
+        out = np.empty(self.plan.n)
+        out[self.plan.perm] = selinv.selinv_diag(self.fplan, self.panels,
+                                                 device=self.device)
+        return out
+
+    def inv_entries(self, rows, cols) -> np.ndarray:
+        """Selected entries (A^-1)[rows[k], cols[k]] in original dof order,
+        for entries within the factor pattern (L + L^T + I): covariances
+        between coupled sites of a GMRF, off-diagonal posterior terms. The
+        recursion of inv_diag, stopped at the deepest requested tree level.
+        Entries outside the pattern raise ValueError (solve unit vectors
+        for those)."""
+        if not self.factored:
+            self.factorize()
+        self._selinv_guard()
+        rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
+        cols = np.atleast_1d(np.asarray(cols, dtype=np.int64))
+        return selinv.selinv_entries(
+            self.fplan, self.panels, self.plan.iperm[rows],
+            self.plan.iperm[cols], device=self.device)
+
+    def logdet_grad(self) -> np.ndarray:
+        """d logdet(A) / dv, aligned with coo_pattern(): d logdet =
+        tr(A^-1 dA), and entry v_k stands at (r_k, c_k) and (c_k, r_k), so
+        the gradient is 2 (A^-1)[r_k, c_k] off the diagonal and
+        (A^-1)[r_k, r_k] on it. The inverse entries come from selected
+        inversion (A's pattern lies inside the factor's), so the cost is
+        about one factorization-shaped pass, not n solves; the memory is
+        selected inversion's (in core)."""
+        g = self.inv_entries(self.rows, self.cols)
+        return np.where(self.rows == self.cols, g, 2.0 * g)
+
+    def solve_grad(self, b: np.ndarray, xbar: np.ndarray,
+                   x: Optional[np.ndarray] = None, tol: float = 1e-12):
+        """Adjoint of x = A^-1 b: given the cotangent xbar = df/dx of a
+        scalar f(x), returns (vbar, bbar) with
+
+            bbar   = A^-1 xbar                                 (df/db)
+            vbar_k = -(lam[r_k] x[c_k] + lam[c_k] x[r_k])   off the diagonal
+                     -lam[r_k] x[r_k]                       on it
+
+        (lam = bbar), aligned with coo_pattern(): the implicit-function
+        adjoint dA -> -lam x^T restricted to the symmetric pattern. Pass x
+        if it is already computed (saves one solve)."""
+        b = np.asarray(b, dtype=np.float64).reshape(-1)
+        if x is None:
+            x = self.solve(b, tol=tol)
+        x = np.asarray(x, dtype=np.float64).reshape(-1)
+        lam = np.asarray(self.solve(np.asarray(xbar, dtype=np.float64)
+                                    .reshape(-1), tol=tol))
+        r, c = self.rows, self.cols
+        vbar = -(lam[r] * x[c] + lam[c] * x[r])
+        vbar[r == c] = -(lam[r] * x[r])[r == c]
+        return vbar, lam
+
+    def quadform_grad(self, b: np.ndarray, x: Optional[np.ndarray] = None,
+                      tol: float = 1e-12) -> np.ndarray:
+        """d(b^T A^-1 b) / dv aligned with coo_pattern(): -x_r x_c, doubled
+        off the diagonal (x = A^-1 b). One solve; with logdet_grad, the
+        whole gradient of a GP's evidence."""
+        b = np.asarray(b, dtype=np.float64).reshape(-1)
+        if x is None:
+            x = self.solve(b, tol=tol)
+        x = np.asarray(x, dtype=np.float64).reshape(-1)
+        r, c = self.rows, self.cols
+        g = -2.0 * x[r] * x[c]
+        g[r == c] = -(x[r] * x[r])[r == c]
+        return g
+
+    def _permuted_on_device(self, v: np.ndarray, what: str) -> torch.Tensor:
+        """[n] or [n, k] in original order -> the permuted rows on the
+        device, in the factor's dtype."""
+        v = np.asarray(v, dtype=np.float64)
+        if v.ndim not in (1, 2) or v.shape[0] != self.plan.n:
+            raise ValueError(f"{what} must be [{self.plan.n}] or "
+                             f"[{self.plan.n}, k], got {v.shape}")
+        perm, _ = self._perm_device()
+        return torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device)[perm].to(TORCH_DTYPES[self.dtype])
+
+    def sample(self, z: np.ndarray) -> np.ndarray:
+        """Samples with covariance A^-1 from standard-normal draws: with
+        A_perm = L L^T, x_perm = L^-T z has covariance A_perm^-1 (the
+        sparse Cholesky sampler of GMRF / GP posteriors, A the precision
+        matrix; moments from inv_diag / inv_entries, draws from here). `z`
+        is [n] or [n, k] standard normal; returns f64 samples of the same
+        shape in ORIGINAL dof order. Computed in the factor's dtype (f32:
+        covariance error ~1e-7 relative, far below sampling noise)."""
+        if not self.factored:
+            self.factorize()
+        zp = self._permuted_on_device(z, "z")
+        xp = frontal.frontal_upper_solve(self.fplan, self.panels, zp)
+        _, iperm = self._perm_device()
+        return xp[iperm].to(torch.float64).cpu().numpy()
+
+    def whiten(self, x: np.ndarray) -> np.ndarray:
+        """The inverse transform of sample(): z = L^T P x. For x ~
+        N(0, A^-1) in original dof order the result is standard normal
+        (residual whitening, standardized innovations for model checking).
+        `x` is [n] or [n, k]; whiten(sample(z)) == z coordinate-wise."""
+        if not self.factored:
+            self.factorize()
+        xp = self._permuted_on_device(x, "x")
+        zp = frontal.frontal_upper_matvec(self.fplan, self.panels, xp)
+        _, iperm = self._perm_device()
+        return zp[iperm].to(torch.float64).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Same-pattern families (`api.py:1014-1066` of the JAX package)
+
+    def _family_budget(self) -> int:
+        """What a family may hold: the solver's budget less its own
+        resident factor (the default budget reads the card's free memory
+        now, which that factor has already left)."""
+        if self.budget is None:
+            return self._budget_bytes()
+        return int(self.budget) - self._resident_bytes()
+
+    def _family_plan(self, K: int) -> regimes.RegimePlan:
+        """The regime plan of K systems at batch K 2^lvl, in core: square or
+        two-piece levels, factor stored in the compute dtype on the device,
+        no chunks, no offload. Raises BudgetError naming K when neither it
+        nor the family's factor beside its solve fits the budget."""
+        fp = self.fplan
+        tdt = TORCH_DTYPES[self.dtype]
+        budget = self._family_budget()
+        try:
+            plan = regimes.plan_regimes(
+                fp, self.dtype, budget, family=K, store_dtype=tdt,
+                offload=False, spill=False,
+                chunks=dict.fromkeys(range(fp.levels), 1))
+        except regimes.BudgetError as e:
+            raise regimes.BudgetError(
+                f"factorize_many: a family of K = {K} systems does not fit "
+                f"in core in the budget of {budget} bytes ({e}); split the "
+                f"family into smaller ones") from None
+        sym = np.concatenate([self.rows, self.cols[self.rows != self.cols]])
+        ell_k = min(int(np.bincount(sym, minlength=self.plan.n).max()),
+                    regimes.ELL_MAX_K)
+        need = (regimes.stored_bytes(fp.F, fp.W, plan.levels, K)
+                + regimes.solve_bytes(fp.F, fp.W, tdt, ell_k, k=K,
+                                      promote=False))
+        if need > budget:
+            raise regimes.BudgetError(
+                f"factorize_many: the factors of a family of K = {K} "
+                f"systems and their solve need {need} bytes, over the "
+                f"budget of {budget} bytes; split the family into smaller "
+                f"ones")
+        return plan
+
+    def factorize_many(self, vals_many) -> "BatchedFactors":
+        """Factor K matrices that share THIS solver's sparsity pattern as
+        one family: `vals_many` is [K, nnz] aligned with coo_pattern().
+        The family is folded into the batch axis of every level (level lvl
+        holds K 2^lvl fronts), so one level loop factors all K and the
+        kernel route decides on the folded batch: a family of GP
+        hyperparameter candidates, MCMC proposals or time steps runs wider
+        batches than one system does. Returns a BatchedFactors handle
+        (solve / residual / logdet per system); this solver's own factor
+        state is untouched. In core only: `regimes.BudgetError` (naming K)
+        when the family does not fit the budget."""
+        vals_many = np.asarray(vals_many, dtype=np.float64)
+        if (vals_many.ndim != 2 or vals_many.shape[0] < 1
+                or vals_many.shape[1] != self.vals.shape[0]):
+            raise ValueError(
+                f"vals_many must be [K, {self.vals.shape[0]}] aligned with "
+                f"coo_pattern(); got {vals_many.shape}")
+        K = vals_many.shape[0]
+        plan = self._family_plan(K)
+        asm = self._assembler()
+        fronts = (asm.lazy if plan.lazy else asm)(vals_many, dtype=self.dtype)
+        fp = frontal.FamilyView(self.fplan, K)
+        factors = frontal.factor(fp, fronts, plan)
+        return BatchedFactors(self, fp, factors, vals_many, plan)
+
+    # ------------------------------------------------------------------
     def _factor_fingerprint(self) -> str:
         """Identity of (matrix, ordering, dtype) a saved factor binds to:
         the JAX package's hash over the same fields."""
@@ -783,6 +1022,160 @@ class SparseCholesky:
         b = b.reshape(-1)
         ax = self._matrix_csr() @ x.reshape(-1)
         return float(np.linalg.norm(ax - b) / np.linalg.norm(b))
+
+
+class BatchedFactors:
+    """K same-pattern factorizations (`SparseCholesky.factorize_many`):
+    per-system solve (with mixed-precision refinement of an f32 family),
+    residual and logdet. `factors[lvl]` is the folded [K 2^lvl, F, W]
+    level on the device (system k's fronts at rows [k 2^lvl, (k + 1)
+    2^lvl)); `regimes` the plan it was factored under."""
+
+    def __init__(self, solver: SparseCholesky, fp, factors, vals_many,
+                 plan: regimes.RegimePlan):
+        self._s = solver
+        self.fp = fp                    # frontal.FamilyView of K systems
+        self.factors = factors
+        self.vals_many = vals_many      # [K, nnz] f64, solver's coo_pattern
+        self.k = int(vals_many.shape[0])
+        self.regimes = plan
+        self.last_solve = {}
+        self._csr = None
+        self._ell = None                # device ELL planes, or False
+
+    def _csr_family(self):
+        """One CSR structure shared by the family, and the map from the
+        pattern-aligned values to CSR data order."""
+        if self._csr is None:
+            import scipy.sparse
+
+            s = self._s
+            nnz = s.vals.shape[0]
+            sr, sc, sidx = mmio.symmetrize_coo(
+                s.rows, s.cols, np.arange(nnz, dtype=np.float64))
+            csr = scipy.sparse.coo_matrix(
+                (np.arange(len(sr), dtype=np.float64), (sr, sc)),
+                shape=(s.plan.n, s.plan.n)).tocsr()
+            # csr.data holds the symmetrized entry at each CSR slot; through
+            # sidx, the pattern entry
+            self._csr = (csr, sidx.astype(np.int64)[csr.data.astype(np.int64)])
+        return self._csr
+
+    def _matvec(self, x):
+        """A_k x_k for every system, f64 on the host: [K, n] -> [K, n]."""
+        csr, vmap = self._csr_family()
+        out = np.empty_like(x)
+        for i in range(self.k):
+            csr.data = self.vals_many[i, vmap]
+            out[i] = csr @ x[i]
+        return out
+
+    def _ell_device(self):
+        """The family's double-float ELL planes of the PERMUTED matrices on
+        the device: one index [n, K_ell] (int64) for the pattern, hi / lo
+        value planes [K, n, K_ell]. None when a row is too dense."""
+        if self._ell is None:
+            s = self._s
+            n = s.plan.n
+            r, c, ent = mmio.symmetrize_coo(
+                s.rows, s.cols, np.arange(s.vals.shape[0]))
+            pr, pc = s.plan.iperm[r], s.plan.iperm[c]
+            lay = refine_mod.ell_slots(n, pr, pc)
+            if lay is None:
+                self._ell = False
+            else:
+                idx, slot = lay
+                a64 = np.zeros((self.k,) + idx.shape)
+                a64[:, pr, slot] = self.vals_many[:, ent]
+                hi, lo = refine_mod.split_f64(a64)
+                dev = s.device
+                self._ell = (torch.from_numpy(idx.astype(np.int64)).to(dev),
+                             torch.from_numpy(hi).to(dev),
+                             torch.from_numpy(lo).to(dev))
+        return self._ell or None
+
+    def _solve_once(self, b: np.ndarray) -> np.ndarray:
+        """One solve per system against the family's factors: b [K, n] f64
+        in original order -> x [K, n] f64."""
+        s = self._s
+        perm, iperm = s._perm_device()
+        bp = torch.from_numpy(np.ascontiguousarray(b)).to(
+            s.device)[:, perm].to(TORCH_DTYPES[s.dtype])
+        xp = frontal.solve_many_systems(self.fp, self.factors, bp)
+        return xp[:, iperm].to(torch.float64).cpu().numpy()
+
+    def _rhs(self, b) -> np.ndarray:
+        b = np.asarray(b, dtype=np.float64)
+        if b.ndim == 1:
+            b = np.broadcast_to(b, (self.k, b.shape[0]))
+        if b.shape != (self.k, self._s.plan.n):
+            raise ValueError(f"b must be [{self.k}, {self._s.plan.n}] or "
+                             f"[{self._s.plan.n}], got {b.shape}")
+        return b
+
+    def solve(self, b, refine: str = "auto", tol: float = 1e-10,
+              max_iter: int = 50) -> np.ndarray:
+        """Solve A_k x_k = b_k for every system: `b` is [K, n], or [n]
+        shared by the family; returns [K, n] f64 in original order.
+        Refinement ('auto', as in SparseCholesky.solve) iterates the whole
+        family until every system's relative residual meets tol: an f32
+        family on the device (double-float residuals, the ELL index shared
+        by the family), then, where that does not reach tol or a row is too
+        dense for ELL, a host loop with f64 CSR residuals. `last_solve`
+        records the sweeps of each loop and which loop finished."""
+        if refine not in ("auto", "never", "always"):
+            raise ValueError(f"refine must be 'auto', 'never' or 'always', "
+                             f"got {refine!r}")
+        b = self._rhs(b)
+        s = self._s
+        self.last_solve = {"sweeps": 0, "host_sweeps": 0, "loop": "none"}
+        want_ir = refine == "always" or (
+            refine == "auto" and s.dtype != np.float64)
+        if not want_ir:
+            return self._solve_once(b)
+        x = None
+        ell = self._ell_device() if s.dtype == np.float32 else None
+        if ell is not None:
+            perm, iperm = s._perm_device()
+            xp, sweeps, rn_rel = refine_mod.solve_refined_df_family(
+                self.fp, self.factors,
+                torch.from_numpy(np.ascontiguousarray(b)).to(
+                    s.device)[:, perm], ell, tol=tol / 3.0, max_iter=max_iter)
+            x = xp[:, iperm].cpu().numpy()
+            del xp
+            self.last_solve.update(sweeps=sweeps, rn_rel=rn_rel,
+                                   loop="device")
+            if rn_rel <= tol:
+                return x
+        if x is None:
+            x = self._solve_once(b)
+        self.last_solve["loop"] = "host"
+        bnorm = np.linalg.norm(b, axis=1)
+        for _ in range(max_iter):
+            r = b - self._matvec(x)
+            if np.all(np.linalg.norm(r, axis=1) <= tol * bnorm):
+                break
+            x = x + self._solve_once(r)
+            self.last_solve["host_sweeps"] += 1
+        return x
+
+    def residual(self, b, x) -> np.ndarray:
+        """Per-system relative residuals ||A_k x_k - b_k|| / ||b_k||, [K],
+        f64 on the host."""
+        b = self._rhs(b)
+        r = self._matvec(np.asarray(x, dtype=np.float64)) - b
+        return np.linalg.norm(r, axis=1) / np.linalg.norm(b, axis=1)
+
+    def logdet(self) -> np.ndarray:
+        """log det(A_k) for every system, [K] (padded pivot diagonals are
+        exactly 1 and contribute nothing)."""
+        total = np.zeros(self.k)
+        for lvl, p in enumerate(self.factors):
+            w = int(self.fp.W[lvl])
+            d = torch.diagonal(p[:, :w, :w], dim1=1, dim2=2)
+            d = d.cpu().numpy().astype(np.float64).reshape(self.k, -1)
+            total += np.log(d).sum(axis=1)
+        return 2.0 * total
 
 
 def solve_spd(matrix_file: str, separator_file: str, b: np.ndarray,

@@ -19,9 +19,12 @@ The `FACTOR:` and `SOLVE:` times are synchronized walls: the device is
 synchronized before each clock read. `FACTOR:` covers what `factorize()`
 does: the assembly of the fronts on the device and the factorization.
 
-Flags whose engines the port does not have yet (`--signs`, `--inv-diag`,
-`--devices` > 1, `--slices` > 1, `-d`, `--debug-dumps`) print one line
-naming the flag and exit 2.
+`--inv-diag FILE` writes diag(A^-1) in original dof order, one value per
+line, and prints an `INVDIAG:` line (selected inversion, as the JAX CLI).
+
+Flags whose engines the port does not have yet (`--signs`, `--devices` > 1,
+`--slices` > 1, `-d`, `--debug-dumps`) print one line naming the flag and
+exit 2.
 
 Run: python -m cholesky_tpu_torch.cli -i M.mtx [-s ord.txt -c clust.txt]
      -b B.mtx -o sol.txt [--device cuda|cpu]
@@ -114,7 +117,6 @@ def parse_args(argv):
 def _unported(opts):
     """The first flag given whose engine the port lacks, or None."""
     for flag, given in (("--signs", opts["signs_file"]),
-                        ("--inv-diag", opts["inv_diag_file"]),
                         ("--devices", opts["devices"] > 1),
                         ("--slices", opts["slices"] > 1),
                         ("-d", opts["debug"]),
@@ -134,7 +136,7 @@ def main(argv=None) -> int:
               "[-m factor.mtx] [-p permuted.mtx] [--iterations N] "
               "[--dtype float64|float32] [--device cuda|cpu] "
               "[--budget BYTES] [--profile] [--save-factor ckpt.npz] "
-              "[--load-factor ckpt.npz] [--bench]\n"
+              "[--load-factor ckpt.npz] [--inv-diag diag.txt] [--bench]\n"
               "Without -s, a nested-dissection ordering is computed from the "
               "matrix sparsity graph.")
         return 2
@@ -226,6 +228,18 @@ def main(argv=None) -> int:
             with open(opts["solution_file"], "w") as f:
                 for v in x:
                     f.write(f"{v:.17g}\n")
+
+    if opts["inv_diag_file"]:
+        # selected inversion: diag(A^-1) in original dof order, one value
+        # per line (numeric/selinv.py)
+        t0 = clock()
+        d = solver.inv_diag()
+        print(f"INVDIAG: {{'op': 'inv_diag', "
+              f"'time_s': {clock() - t0:.6f}}}")
+        with open(opts["inv_diag_file"], "w") as f:
+            for v in d:
+                f.write(f"{v:.17g}\n")
+        print(f"Saved diag(A^-1) to: {opts['inv_diag_file']}")
 
     if opts["bench"]:
         if factor_times:

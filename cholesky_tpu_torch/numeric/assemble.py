@@ -13,6 +13,10 @@ package's (slot, remainder) int32 split.
 `FrontAssembler.lazy(vals)` keeps the uploaded values and assembles one level,
 or blocks [c0, c1) of one level, on the device right before the level runs:
 then only the current level's (or chunk's) slab is ever resident.
+
+Values [K, nnz] (a same-pattern family, `api.factorize_many`) assemble into
+folded slabs [K B, F, W], system-major: the same [nnz] scatter indices
+address each system's row of a [K, B F W] slab, so no K-fold index exists.
 """
 
 from __future__ import annotations
@@ -43,12 +47,13 @@ class FrontAssembler:
         self._chunk_idx = {}
 
     def upload(self, vals, dtype) -> torch.Tensor:
-        """The [nnz] values on the device in `dtype` (cast on the host
-        first when that halves the upload)."""
+        """The [nnz] (or a family's [K, nnz]) values on the device in
+        `dtype` (cast on the host first when that halves the upload)."""
         dtype = np.dtype(dtype)
         vals = np.asarray(vals)
-        if vals.ndim != 1:
-            raise ValueError(f"expected [nnz] values, got {vals.shape}")
+        if vals.ndim not in (1, 2):
+            raise ValueError(f"expected [nnz] or [K, nnz] values, got "
+                             f"{vals.shape}")
         if vals.dtype.itemsize > dtype.itemsize:
             vals = vals.astype(dtype)
         return torch.from_numpy(np.ascontiguousarray(vals)).to(self.device)
@@ -56,14 +61,17 @@ class FrontAssembler:
     def _scatter(self, v: torch.Tensor, shape, idx) -> torch.Tensor:
         B, Fl, Wl = shape
         sel, flat, ones = idx
-        slab = torch.zeros(B * Fl * Wl, dtype=v.dtype, device=self.device)
-        slab.index_put_((ones,), torch.ones((), dtype=v.dtype,
-                                            device=self.device))
-        slab.index_put_((flat,), v[sel])
-        return slab.view(B, Fl, Wl)
+        v = v.view(-1, v.shape[-1])                     # [K, nnz]
+        K = v.shape[0]
+        slab = torch.zeros((K, B * Fl * Wl), dtype=v.dtype,
+                           device=self.device)
+        slab[:, ones] = 1
+        slab[:, flat] = v[:, sel]
+        return slab.view(K * B, Fl, Wl)
 
     def level(self, v: torch.Tensor, lvl: int) -> torch.Tensor:
-        """Level lvl's slab [B, F, W] from device values `v`."""
+        """Level lvl's slab [B, F, W] from device values `v` [nnz] (or
+        [K B, F, W] from a family's [K, nnz])."""
         return self._scatter(v, self.shapes[lvl], self.idx[lvl])
 
     def chunk(self, v: torch.Tensor, lvl: int, c0: int, c1: int
@@ -72,6 +80,8 @@ class FrontAssembler:
         values `v`: the level's indices restricted to those blocks and
         shifted to chunk-local positions (memoized per chunk)."""
         _, Fl, Wl = self.shapes[lvl]
+        if v.dim() != 1:
+            raise ValueError("chunked assembly takes one system's values")
         key = (lvl, c0, c1)
         idx = self._chunk_idx.get(key)
         if idx is None:
@@ -85,7 +95,8 @@ class FrontAssembler:
         return self._scatter(v, (c1 - c0, Fl, Wl), idx)
 
     def __call__(self, vals, dtype=np.float32) -> List[torch.Tensor]:
-        """vals [nnz] -> per-level slabs [B, F, W] on the device."""
+        """vals [nnz] -> per-level slabs [B, F, W] on the device (a family's
+        [K, nnz] -> [K B, F, W])."""
         v = self.upload(vals, dtype).to(TORCH_DTYPES[np.dtype(dtype)])
         return [self.level(v, lvl) for lvl in range(len(self.shapes))]
 

@@ -20,6 +20,13 @@ Ported:
     inverses, which also reads bf16 and host-resident levels. Every solve
     takes one right-hand side [n] or a block [n, k]; `solve_multi`
     (`:2431`) is the block's entry point.
+  * `frontal_upper_solve` (`:2203`, x = L^-T z) and `frontal_upper_matvec`
+    (`:2249`, z = L^T x), the sampler's and the whitening's transforms.
+  * Same-pattern families (`factor_many` / `solve_many_systems`,
+    `:2451-2498`): K systems folded into the batch axis (`FamilyView`), so
+    one level loop factors the whole family and the kernel route decides on
+    the folded batch K 2^lvl (the JAX package switches its kernel off under
+    `vmap`).
   * `extract_factor_coo` / `extract_factor_dense` (`:2649-2700`).
 
 Which regime each level takes comes from one memory budget
@@ -55,11 +62,25 @@ def _acc(dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _device_index(fp: FrontalPlan, name: str, lvl, device) -> torch.Tensor:
+def _device_index(fp: FrontalPlan, name: str, lvl, device,
+                  family: int = 1) -> torch.Tensor:
     """int64 device copy of a plan index array, cached on the plan (in the
-    pool of long-lived state, `devmem`)."""
-    key = (name, lvl, str(device))
+    pool of long-lived state, `devmem`). With `family` = K > 1, the K-fold
+    map of a family folded into the batch axis (`FamilyView`), made on the
+    device from the single map: the child maps repeated (their entries are
+    positions inside a front), the row maps `piv_rows` / `bnd_rows` of
+    system k offset by k (n + 1), so that each system has rows of its own
+    and a sentinel row of its own."""
+    key = (name, lvl, str(device), family)
     t = fp.cache.get(key)
+    if t is None and family > 1:
+        one = _device_index(fp, name, lvl, device)
+        with devmem.persistent(device):
+            t = one.repeat(family, 1)
+            if name in ("piv_rows", "bnd_rows"):
+                off = (fp.plan.n + 1) * torch.arange(family, device=device)
+                t += off.repeat_interleave(one.shape[0])[:, None]
+        fp.cache[key] = t
     if t is None:
         _, _, inv_map, pad_of, bnd_pad = _banded_maps(fp)
         if name in ("perm", "iperm"):
@@ -88,17 +109,44 @@ class _BatchView:
     [2 c0, 2 c1) (sibling pairs (2i, 2i + 1) merge into parent i, so a slice
     of a level's blocks is a closed sub-problem)."""
 
-    def __init__(self, fp: FrontalPlan, lvl: int, c0: int, c1: int):
+    def __init__(self, fp, lvl: int, c0: int, c1: int):
         self.base, self.lvl, self.c0, self.c1 = fp, lvl, c0, c1
         self.F, self.W, self.levels = fp.F, fp.W, fp.levels
+
+
+class FamilyView:
+    """The plan of a family of K same-pattern systems folded into the batch
+    axis: level lvl holds K 2^lvl fronts, system-major (front b of system k
+    at k 2^lvl + b). Sibling pairs (2i, 2i + 1) stay adjacent and the parent
+    of front i is i >> 1, as for one system, so the level loop, the
+    extend-add and the kernel route run unchanged on the folded batch; the
+    index maps come K-fold (`_device_index(..., family=K)`)."""
+
+    def __init__(self, fp: FrontalPlan, K: int):
+        self.base, self.K = fp, int(K)
+        self.F, self.W, self.levels = fp.F, fp.W, fp.levels
+
+
+def _unwrap(fp) -> Tuple[FrontalPlan, int]:
+    """(the FrontalPlan, the family size K) under a batch or family view."""
+    if isinstance(fp, _BatchView):
+        fp = fp.base
+    if isinstance(fp, FamilyView):
+        return fp.base, fp.K
+    return fp, 1
+
+
+def _index(fp, name: str, lvl, device) -> torch.Tensor:
+    """`_device_index` of a plan or a family view (K-fold)."""
+    base, K = _unwrap(fp)
+    return _device_index(base, name, lvl, device, K)
 
 
 def _child_maps(fp, child_lvl: int, device):
     """(inv [2b, Fp], fwd [2b, Kc]) int64 device maps of level child_lvl,
     cut to a batch view's rows."""
-    base = fp.base if isinstance(fp, _BatchView) else fp
-    inv = _device_index(base, "inv_child", child_lvl, device)
-    fwd = _device_index(base, "fwd_child", child_lvl, device)
+    inv = _index(fp, "inv_child", child_lvl, device)
+    fwd = _index(fp, "fwd_child", child_lvl, device)
     if isinstance(fp, _BatchView) and fp.lvl == child_lvl - 1:
         inv = inv[2 * fp.c0:2 * fp.c1]
         fwd = fwd[2 * fp.c0:2 * fp.c1]
@@ -415,11 +463,15 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
     `level_hook(lvl, "start" | "end")`, when given, is called around each
     level (instrumentation: per-level device time and memory).
 
+    `fp` may be a `FamilyView` of K systems: B is then K 2^lvl, and `plan`
+    the regime plan of that batch (`plan_regimes(..., family=K)`).
+
     Returns the per-level [B, F, W] factors: device tensors, or CPU tensors
     for offloaded levels."""
     lazy = isinstance(fronts, LazyFronts)
     device = fronts.device if lazy else fronts[0].device
     dtype = plan.dtype
+    K = _unwrap(fp)[1]
     out: List[Optional[torch.Tensor]] = [None] * fp.levels
     pieces = counts = None
     xxt = False                  # pieces hold a leaf's X (deferred X X^T)
@@ -427,7 +479,7 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
         if level_hook is not None:
             level_hook(lvl, "start")
         lp = plan.levels[lvl]
-        B, Fl, Wl = 1 << lvl, fp.F[lvl], fp.W[lvl]
+        B, Fl, Wl = K << lvl, fp.F[lvl], fp.W[lvl]
         nc = lp.chunks
         cb = B // nc
         # the stored factor stays the compute-dtype tensor on the device:
@@ -591,20 +643,24 @@ def _solve_banded(fp: FrontalPlan, factors, inv_pivots,
 
 
 def _tri_apply(pan: torch.Tensor, rhs: torch.Tensor, W: int,
-               transpose: bool) -> torch.Tensor:
+               transpose: bool, solve: bool = True) -> torch.Tensor:
     """x with L x = rhs (or L^T x = rhs) for the pivot blocks L =
-    pan[:, :W, :] and rhs [B, W, k], one batch chunk at a time: each chunk
-    of L is promoted to rhs's dtype on its own (a level-sized promotion of a
-    bf16 level is GiB-scale)."""
+    pan[:, :W, :] and rhs [B, W, k]; with solve=False the product L^T rhs
+    (the lower triangle of L read). One batch chunk at a time: each chunk
+    of L is promoted to rhs's dtype on its own (a level-sized promotion of
+    a bf16 level is GiB-scale)."""
     out = torch.empty_like(rhs)
     bc = regimes.solve_batch(W, W, rhs.element_size(), rhs.shape[2])
     for i in range(0, rhs.shape[0], bc):
         ld = pan[i:i + bc, :W, :].to(rhs.dtype)
         r = rhs[i:i + bc]
-        out[i:i + bc] = (
-            torch.linalg.solve_triangular(ld.transpose(1, 2), r, upper=True)
-            if transpose else
-            torch.linalg.solve_triangular(ld, r, upper=False))
+        if not solve:
+            out[i:i + bc] = torch.tril(ld).transpose(1, 2) @ r
+        elif transpose:
+            out[i:i + bc] = torch.linalg.solve_triangular(
+                ld.transpose(1, 2), r, upper=True)
+        else:
+            out[i:i + bc] = torch.linalg.solve_triangular(ld, r, upper=False)
     return out
 
 
@@ -623,47 +679,120 @@ def _x_apply(pan: torch.Tensor, vec: torch.Tensor, W: int,
     return out
 
 
-def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
-                  ) -> torch.Tensor:
-    """Forward + backward substitution against the per-level factors
-    without pivot inverses, in the permuted basis: per level, a batched
-    triangular solve of the pivot blocks and the boundary product, with a
-    gather of the level's rows from the work vector and a scatter back.
-    `b_perm` [n] or [n, k] (the rhs in PERMUTED order, f32 or f64, on the
-    solve's device) -> x of the same shape. A level held in host memory is
-    moved to the device one level at a time, in each sweep; a level stored
-    narrower than the rhs (bf16) is promoted one batch chunk at a time."""
-    n = fp.plan.n
-    device = b_perm.device
-    vec = b_perm.dim() == 1
-    b2 = b_perm[:, None] if vec else b_perm
-    k = b2.shape[1]
-    bg = torch.cat([b2, b2.new_zeros((1, k))])          # row n: sentinel
-    for lvl in range(fp.levels - 1, -1, -1):
+def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
+            backward: bool = True) -> None:
+    """Forward (L y = b) and / or backward (L^T x = y) substitution, in
+    place on the work array bg [R, k] in the permuted basis: for one system
+    R = n + 1, row n the sentinel; for a family view R = K (n + 1), rows
+    [k (n + 1), (k + 1)(n + 1)) system k's, each with its own sentinel
+    last. Per level, a batched triangular solve of the pivot blocks and the
+    boundary product, with a gather of the level's rows from bg and a
+    scatter back; the sentinels are zeroed after every level. A level held
+    in host memory is moved to the device one level at a time, in each
+    sweep; a level stored narrower than bg (bf16) is promoted one batch
+    chunk at a time."""
+    base, K = _unwrap(fp)
+    n = base.plan.n
+    device = bg.device
+    k = bg.shape[1]
+    sentinels = bg.view(K, n + 1, k)[:, n]
+    for lvl in range(fp.levels - 1, -1, -1) if forward else ():
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         pan = factors[lvl].to(device)
-        piv = _device_index(fp, "piv_rows", lvl, device)
+        piv = _index(fp, "piv_rows", lvl, device)
         y = _tri_apply(pan, bg[piv], Wl, transpose=False)
         bg[piv] = y
         if Fl > Wl:
-            bnd = _device_index(fp, "bnd_rows", lvl, device)
+            bnd = _index(fp, "bnd_rows", lvl, device)
             bg.index_add_(0, bnd.reshape(-1),
                           _x_apply(pan, y, Wl, True).reshape(-1, k),
                           alpha=-1)
-        bg[n] = 0
+        sentinels.zero_()
         del pan
+    for lvl in range(fp.levels) if backward else ():
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        pan = factors[lvl].to(device)
+        piv = _index(fp, "piv_rows", lvl, device)
+        rhs = bg[piv]
+        if Fl > Wl:
+            z = bg[_index(fp, "bnd_rows", lvl, device)]
+            rhs = rhs - _x_apply(pan, z, Wl, False)
+        bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
+        sentinels.zero_()
+        del pan
+
+
+def _with_sentinel(b_perm: torch.Tensor):
+    """(work array [n + 1, k] with a zero sentinel row, whether b_perm was
+    a vector)."""
+    vec = b_perm.dim() == 1
+    b2 = b_perm[:, None] if vec else b_perm
+    return torch.cat([b2, b2.new_zeros((1, b2.shape[1]))]), vec
+
+
+def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
+                  ) -> torch.Tensor:
+    """Forward + backward substitution against the per-level factors
+    without pivot inverses (`_sweeps`), in the permuted basis. `b_perm` [n]
+    or [n, k] (the rhs in PERMUTED order, f32 or f64, on the solve's
+    device) -> x of the same shape."""
+    bg, vec = _with_sentinel(b_perm)
+    _sweeps(fp, factors, bg)
+    n = fp.plan.n
+    return bg[:n, 0] if vec else bg[:n]
+
+
+def frontal_upper_solve(fp: FrontalPlan, factors, z_perm: torch.Tensor
+                        ) -> torch.Tensor:
+    """x = L^-T z in the PERMUTED basis (`frontal.py:2203`): the backward
+    sweep of the solve alone. Since A_perm = L L^T, x has covariance
+    A_perm^-1 when z ~ N(0, I): the sparse Cholesky sampler. `z_perm` [n]
+    or [n, k] -> x of the same shape."""
+    bg, vec = _with_sentinel(z_perm)
+    _sweeps(fp, factors, bg, forward=False)
+    n = fp.plan.n
+    return bg[:n, 0] if vec else bg[:n]
+
+
+def frontal_upper_matvec(fp: FrontalPlan, factors, x_perm: torch.Tensor
+                         ) -> torch.Tensor:
+    """z = L^T x in the PERMUTED basis (`frontal.py:2249`), the whitening
+    transform: for x ~ N(0, A_perm^-1), L^T x ~ N(0, I). No recursion: each
+    separator's rows are z_piv = L_piv^T x_piv + X^T x_bnd, one batched
+    product per level (the pivot block's lower triangle read, as the JAX
+    package's `tril` does). `x_perm` [n] or [n, k] -> z of the same shape;
+    bf16 and host-resident levels are promoted or moved as in the solve."""
+    bg, vec = _with_sentinel(x_perm)
+    out = torch.empty_like(bg)
+    device = bg.device
     for lvl in range(fp.levels):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         pan = factors[lvl].to(device)
         piv = _device_index(fp, "piv_rows", lvl, device)
-        rhs = bg[piv]
+        z = _tri_apply(pan, bg[piv], Wl, transpose=True, solve=False)
         if Fl > Wl:
-            z = bg[_device_index(fp, "bnd_rows", lvl, device)]
-            rhs = rhs - _x_apply(pan, z, Wl, False)
-        bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
-        bg[n] = 0
+            z += _x_apply(pan, bg[_device_index(fp, "bnd_rows", lvl, device)],
+                          Wl, False)
+        out[piv] = z                    # padded pivots land in row n
         del pan
-    return bg[:n, 0] if vec else bg[:n]
+    n = fp.plan.n
+    return out[:n, 0] if vec else out[:n]
+
+
+def solve_many_systems(fp: "FamilyView", factors, b_perm: torch.Tensor
+                       ) -> torch.Tensor:
+    """One solve per system of a family (`frontal.py:2487`): `factors` the
+    folded per-level [K 2^lvl, F, W] factors of `fp`'s K systems, `b_perm`
+    [K, n] (one right-hand side per system, PERMUTED order) -> x [K, n].
+    The K systems share one work array of K (n + 1) rows; each has its own
+    rows and sentinel, so no scatter of one lands in another."""
+    K, n = b_perm.shape
+    if K != fp.K:
+        raise ValueError(f"b_perm has {K} rows for a family of {fp.K}")
+    bg = torch.cat([b_perm, b_perm.new_zeros((K, 1))], dim=1)
+    bg = bg.reshape(K * (n + 1), 1)
+    _sweeps(fp, factors, bg)
+    return bg.view(K, n + 1)[:, :n]
 
 
 def solve_multi(fp: FrontalPlan, factors, b_perm: torch.Tensor

@@ -67,15 +67,16 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
     """Stage-by-stage timing of the multifrontal engine (extend-add, then
     FACTOR_SLAB or POTRF + TRSM, then the Schur complement, per level,
     leaves to root). `fronts` are the assembled per-level pivot slabs
-    [B, F, W] on the device to profile on; they are not modified. Returns
-    the records and emits one `BLAS:` line per stage."""
+    [B, F, W] on the device to profile on; they are not modified (a
+    family's folded slabs with `fp` its `frontal.FamilyView`). Returns the
+    records and emits one `BLAS:` line per stage."""
     records = []
     device = fronts[0].device
     U = None
     for lvl in range(fp.levels - 1, -1, -1):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
-        B = 1 << lvl
         piv = fronts[lvl]
+        B = piv.shape[0]            # 2^lvl, or K 2^lvl for a family view
 
         def padded():
             full = piv.new_zeros((B, Fl + 1, Fl))     # row Fl: sentinel

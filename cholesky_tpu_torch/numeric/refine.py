@@ -5,7 +5,9 @@ the single-RHS loop (`:65-413`) and the block loop (`df_matvec_multi`,
 "banded" (explicit pivot inverses, the level chain in the padded basis) and
 "plain" (no inverses: `frontal.frontal_solve` in the permuted basis,
 `refine.py:316-350`), which also reads bf16 and host-resident factor
-levels.
+levels. A same-pattern family (`solve_refined_df_family`) runs the block
+loop's rule over K systems at once: one ELL index, a value plane per
+system, the family's solve without inverses.
 
 An fp32 factor reaches the 1e-10 residual contract when the residual is
 computed to ~1e-14: every value is an (hi, lo) pair of f32, products use
@@ -16,8 +18,8 @@ column whose x is 0).
 Each Dekker/Knuth step is its own eager tensor op. Do not run these under
 `torch.compile` or any fusing compiler: a fused multiply-add breaks TwoProd.
 
-Each loop is a Python loop with one host read of the residual norm per
-sweep. It stops on the tolerance or on stagnation (a sweep that does not
+Each loop (`_iterate`; the single-RHS, the block and the family loop) is a
+Python loop with one host read of the residual norm per sweep. It stops on the tolerance or on stagnation (a sweep that does not
 halve the residual norm: the double-float floor is reached). The two loops
 differ by design in what the tolerance means: the single-RHS loop takes an
 absolute tol * ||b||; the block loop stops on the worst column's RELATIVE
@@ -107,21 +109,33 @@ def _join_solution(fp: FrontalPlan, x_hi, x_lo, banded: bool, as_numpy: bool):
     return x.cpu().numpy() if as_numpy else x
 
 
-def build_ell(n: int, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
-    """Pack a symmetrized COO matrix into ELL planes for the double-float
-    matvec: (idx [n, K] int32 with sentinel n, a_hi [n, K] f32, a_lo [n, K]
-    f32). Returns None when the max row degree exceeds ELL_MAX_K."""
+def ell_slots(n: int, rows: np.ndarray, cols: np.ndarray):
+    """The ELL layout of a symmetrized COO pattern: (idx [n, K] int32 with
+    sentinel n, the slot of each entry in its row). None when the max row
+    degree exceeds ELL_MAX_K."""
     counts = np.bincount(rows, minlength=n)
     K = int(counts.max()) if len(counts) else 0
     if K > ELL_MAX_K:
         return None
     order = np.argsort(rows, kind="stable")
-    slot = np.arange(len(rows)) - np.concatenate(
+    slot = np.empty(len(rows), dtype=np.int64)
+    slot[order] = np.arange(len(rows)) - np.concatenate(
         [[0], np.cumsum(counts)])[rows[order]]
     idx = np.full((n, K), n, dtype=np.int32)
-    a64 = np.zeros((n, K), dtype=np.float64)
-    idx[rows[order], slot] = cols[order].astype(np.int32)
-    a64[rows[order], slot] = vals[order]
+    idx[rows, slot] = cols.astype(np.int32)
+    return idx, slot
+
+
+def build_ell(n: int, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
+    """Pack a symmetrized COO matrix into ELL planes for the double-float
+    matvec: (idx [n, K] int32 with sentinel n, a_hi [n, K] f32, a_lo [n, K]
+    f32). Returns None when the max row degree exceeds ELL_MAX_K."""
+    lay = ell_slots(n, rows, cols)
+    if lay is None:
+        return None
+    idx, slot = lay
+    a64 = np.zeros(idx.shape, dtype=np.float64)
+    a64[rows, slot] = vals
     a_hi, a_lo = split_f64(a64)
     return idx, a_hi, a_lo
 
@@ -152,23 +166,25 @@ def df_matvec(idx, a_hi, a_lo, x_hi, x_lo):
     """y = A @ x in double-float. One 2-D gather per call fetches all
     [n, K] operands, then the products and the TwoSum accumulation fold are
     elementwise. `idx` is int64; x planes are length n+1 with a trailing
-    zero (the sentinel slot)."""
+    zero (the sentinel slot). A family's K systems go through at once: x
+    planes [K, n + 1] and value planes [K, n, K_ell] (one index shared) give
+    y planes [K, n]."""
     K = idx.shape[1]
     if K == 0:
-        z = x_hi.new_zeros(idx.shape[0])
+        z = x_hi.new_zeros(x_hi.shape[:-1] + idx.shape[:1])
         return z, z
-    xg = torch.stack([x_hi, x_lo], dim=-1)[idx]         # [n, K, 2]
+    xg = torch.stack([x_hi, x_lo], dim=-1)[..., idx, :]  # [(K,) n, K_ell, 2]
     xh = xg[..., 0]
     xl = xg[..., 1]
     p, pe = _two_prod(a_hi, xh)
     # cross terms are O(eps * |a x|); their own rounding is O(eps^2)
     cross = a_hi * xl + a_lo * xh
     e_all = pe + cross
-    s = p[:, 0]
-    c = e_all[:, 0]
+    s = p[..., 0]
+    c = e_all[..., 0]
     for k in range(1, K):
-        s, se = _two_sum(s, p[:, k])
-        c = c + (se + e_all[:, k])
+        s, se = _two_sum(s, p[..., k])
+        c = c + (se + e_all[..., k])
     return s, c
 
 
@@ -186,6 +202,24 @@ def _rnorm(r_hi: torch.Tensor) -> float:
     of a sweep."""
     m = torch.clamp(r_hi.abs().max(), min=1e-30)
     return float(m * torch.linalg.vector_norm(r_hi / m))
+
+
+def _iterate(solve, resid, b_hi, norm, tol: float, max_iter: int):
+    """The refinement loop of every solve here: x = solve(b), then, while
+    norm(r) is above tol and each sweep at least halves it, x += solve(r)
+    with x kept as a double-float pair. Returns (x_hi, x_lo, sweeps, the
+    last norm)."""
+    x0 = solve(b_hi)
+    x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
+    r_hi, _ = resid(x_hi, x_lo)
+    rn, prev, sweeps = norm(r_hi), math.inf, 0
+    while sweeps < max_iter and rn > tol and rn < 0.5 * prev:
+        dx = solve(r_hi)
+        x_hi, x_lo = _df_add(x_hi, x_lo, dx, torch.zeros_like(dx))
+        r_hi, _ = resid(x_hi, x_lo)
+        prev, rn = rn, norm(r_hi)
+        sweeps += 1
+    return x_hi, x_lo, sweeps, rn
 
 
 def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
@@ -225,16 +259,8 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
         y_hi, y_lo = df_matvec(idx, a_hi, a_lo, x_hi, x_lo)
         return _df_add(b_hi, b_lo, -y_hi, -y_lo)
 
-    x0 = solve(b_hi)
-    x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
-    r_hi, _ = resid(x_hi, x_lo)
-    rn, prev, sweeps = _rnorm(r_hi), math.inf, 0
-    while sweeps < max_iter and rn > tol_abs and rn < 0.5 * prev:
-        dx = solve(r_hi)
-        x_hi, x_lo = _df_add(x_hi, x_lo, dx, torch.zeros_like(dx))
-        r_hi, _ = resid(x_hi, x_lo)
-        prev, rn = rn, _rnorm(r_hi)
-        sweeps += 1
+    x_hi, x_lo, sweeps, rn = _iterate(solve, resid, b_hi, _rnorm, tol_abs,
+                                      max_iter)
     return (_join_solution(fp, x_hi, x_lo, banded, as_numpy), sweeps,
             rn / bnorm if bnorm else 0.0)
 
@@ -313,14 +339,45 @@ def solve_refined_df_multi(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     def worst(r_hi):
         return float(_rel_norms(r_hi, bnorms_safe).max())
 
-    x0 = solve(b_hi)
-    x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
-    r_hi, _ = resid(x_hi, x_lo)
-    rn, prev, sweeps = worst(r_hi), math.inf, 0
-    while sweeps < max_iter and rn > tol_rel and rn < 0.5 * prev:
-        dx = solve(r_hi)
-        x_hi, x_lo = _df_add(x_hi, x_lo, dx, torch.zeros_like(dx))
-        r_hi, _ = resid(x_hi, x_lo)
-        prev, rn = rn, worst(r_hi)
-        sweeps += 1
+    x_hi, x_lo, sweeps, rn = _iterate(solve, resid, b_hi, worst, tol_rel,
+                                      max_iter)
     return _join_solution(fp, x_hi, x_lo, banded, as_numpy), sweeps, rn
+
+
+# ---------------------------------------------------------------------------
+# A same-pattern family: one system per row of [K, n], the same loop.
+
+
+def solve_refined_df_family(fp, factors: Sequence[torch.Tensor],
+                            B64: torch.Tensor, ell, tol: float = 1e-12,
+                            max_iter: int = 40):
+    """IR for a family of K systems (`frontal.FamilyView` `fp`, folded
+    factors): `B64` the PERMUTED f64 right-hand sides [K, n] on the
+    device, one per system; `ell` (idx [n, K_ell] int64 shared by the
+    family, a_hi / a_lo [K, n, K_ell] f32 value planes of the permuted
+    matrices). The inner solve is `frontal.solve_many_systems` (no pivot
+    inverses). Sweeps are shared by the family; the loop stops on the
+    worst system's relative residual, or on stagnation, as the block loop
+    does. Returns (X_perm64 [K, n] on the device, sweeps, rn_rel_max)."""
+    idx, a_hi, a_lo = ell
+    K, n = B64.shape
+    bnorms = torch.linalg.vector_norm(B64, dim=1)
+    bnorms_safe = torch.where(bnorms > 0, bnorms,
+                              torch.ones_like(bnorms)).to(torch.float32)
+    b_hi = B64.to(torch.float32)
+    b_lo = (B64 - b_hi.to(torch.float64)).to(torch.float32)
+    tol_rel = float(np.float32(tol))
+    zero = b_hi.new_zeros((K, 1))
+
+    def resid(x_hi, x_lo):
+        y_hi, y_lo = df_matvec(idx, a_hi, a_lo, torch.cat([x_hi, zero], 1),
+                               torch.cat([x_lo, zero], 1))
+        return _df_add(b_hi, b_lo, -y_hi, -y_lo)
+
+    def worst(r_hi):
+        return float(_rel_norms(r_hi.T, bnorms_safe).max())
+
+    x_hi, x_lo, sweeps, rn = _iterate(
+        lambda rhs: frontal.solve_many_systems(fp, factors, rhs), resid,
+        b_hi, worst, tol_rel, max_iter)
+    return x_hi.to(torch.float64) + x_lo.to(torch.float64), sweeps, rn

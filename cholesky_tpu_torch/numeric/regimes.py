@@ -132,6 +132,7 @@ class RegimePlan:
     lazy: bool                  # slabs assembled level by level
     reupload: bool              # offloaded levels come back after factor
     levels: List[LevelPlan]
+    family: int = 1             # systems folded into the batch axis
 
     @property
     def peak_bytes(self) -> int:
@@ -249,21 +250,24 @@ class _State:
     u_cols: int                 # its columns: Kc (arr) or Wc (xxt)
 
 
-def _idx_bytes(F, W, lvl: int) -> int:
+def _idx_bytes(F, W, lvl: int, family: int = 1) -> int:
     """Child maps cached on the plan (int64 inv_child / fwd_child) by the
-    time level lvl runs: those of levels lvl + 1 .. leaves."""
-    return sum(8 * (1 << c) * (F[c - 1] + F[c] - W[c])
-               for c in range(lvl + 1, len(F)))
+    time level lvl runs: those of levels lvl + 1 .. leaves, and for a
+    family of K > 1 systems their K-fold copies too."""
+    one = sum(8 * (1 << c) * (F[c - 1] + F[c] - W[c])
+              for c in range(lvl + 1, len(F)))
+    return one * (1 + family) if family > 1 else one
 
 
 def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
-                lazy: bool, eager_bytes: int):
+                lazy: bool, eager_bytes: int, family: int = 1):
     """(peak bytes, emitted pieces) of level lvl under option lp, by the
     phases of `frontal._factor_level` and the chunk loop of
     `frontal_factor_streamed`. `eager_bytes`: eagerly assembled slabs not
-    consumed yet (this level's included)."""
+    consumed yet (this level's included). `family`: systems folded into
+    the batch axis (B = family 2^lvl)."""
     L = len(F)
-    B, Fl, Wl = 1 << lvl, F[lvl], W[lvl]
+    B, Fl, Wl = family << lvl, F[lvl], W[lvl]
     K = Fl - Wl
     fi = _SIZE[dtype]
     uo = _SIZE[lp.update_dtype]
@@ -281,7 +285,7 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
     if (not keep and lp.store_dtype != dtype) or (nc > 1 and lp.offload):
         store_tmp = b * Fl * Wl * so
     P_work = P if lazy else 0               # eager slabs sit in eager_bytes
-    base = (st.stored_dev + eager_bytes + _idx_bytes(F, W, lvl)
+    base = (st.stored_dev + eager_bytes + _idx_bytes(F, W, lvl, family)
             + SLACK_BYTES)
     if nc > 1 and not lp.offload:
         base += B * Fl * Wl * so            # the level's stored buffer
@@ -391,10 +395,10 @@ def _rungs(dtype) -> List[Dict]:
 
 
 def _options(F, W, lvl: int, st: _State, dtype, force: dict,
-             two_forced) -> List[LevelPlan]:
+             two_forced, family: int = 1) -> List[LevelPlan]:
     """The level's options in order of preference (see the module note)."""
     L = len(F)
-    B = 1 << lvl
+    B = family << lvl
     udts = [dtype]
     if dtype == torch.float32 and lvl > 0 and F[lvl] > W[lvl]:
         udts.append(torch.bfloat16)
@@ -436,12 +440,13 @@ def _two_forced(force, lvl):
     return lvl in tp
 
 
-def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict):
+def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
+                 family: int = 1):
     """Per-level plans on one rung, or (level, smallest bytes) when a level
     fits no option."""
     L = len(F)
     fi = _SIZE[dtype]
-    slab = [(1 << l) * F[l] * W[l] for l in range(L)]
+    slab = [(family << l) * F[l] * W[l] for l in range(L)]
     st = _State(0, [], "none", fi, 0)
     force = dict(force, **rung)
     lazy = rung["lazy"]
@@ -461,10 +466,10 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict):
 
     for lvl in range(L - 1, -1, -1):
         best = None                     # (bytes, level) of the nearest miss
-        for lp in _options(F, W, lvl, st, dtype, force, _two_forced(force,
-                                                                    lvl)):
+        for lp in _options(F, W, lvl, st, dtype, force,
+                           _two_forced(force, lvl), family):
             peak, emitted = _level_peak(F, W, lvl, lp, st, dtype, lazy,
-                                        eager(lvl))
+                                        eager(lvl), family)
             if peak > budget:
                 best = min(best or (peak, lvl), (peak, lvl))
                 continue
@@ -473,9 +478,9 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict):
                 # the parent needs one option that fits: stop at the first
                 parent = None
                 for q in _options(F, W, lvl - 1, nxt, dtype, force,
-                                  _two_forced(force, lvl - 1)):
+                                  _two_forced(force, lvl - 1), family):
                     need = _level_peak(F, W, lvl - 1, q, nxt, dtype, lazy,
-                                       eager(lvl - 1))[0]
+                                       eager(lvl - 1), family)[0]
                     if need <= budget:
                         break
                     parent = need if parent is None else min(parent, need)
@@ -487,7 +492,7 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict):
                 sq = dataclasses.replace(lp, two_piece=False, xxt_tier=False,
                                          chunks=1, spill=False)
                 lp.square_bytes = _level_peak(F, W, lvl, sq, st, dtype, lazy,
-                                              eager(lvl))[0]
+                                              eager(lvl), family)[0]
             plans[lvl] = lp
             st = nxt
             break
@@ -496,8 +501,8 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict):
     return plans
 
 
-def stored_bytes(F, W, levels: List[LevelPlan]) -> int:
-    return sum((1 << l) * F[l] * W[l] * _SIZE[lp.store_dtype]
+def stored_bytes(F, W, levels: List[LevelPlan], family: int = 1) -> int:
+    return sum((family << l) * F[l] * W[l] * _SIZE[lp.store_dtype]
                for l, lp in enumerate(levels))
 
 
@@ -516,27 +521,86 @@ def solve_vector_bytes(W, dtype) -> int:
 
 
 def solve_bytes(F, W, dtype, ell_k: int = ELL_MAX_K,
-                host_level: int = 0, k: int = 1) -> int:
+                host_level: int = 0, k: int = 1,
+                promote: bool = True) -> int:
     """Device bytes a refined solve of k right-hand sides holds beside the
     stored factor: the ELL planes and the double-float matvec's
     temporaries (~40 bytes per row, ELL slot and column; the [n, K, k]
     operands of the block residual are within it), the work vectors per
-    column, one chunk of promoted factor, and the largest host level moved
-    to the device."""
+    column, one chunk of promoted factor (unless `promote` is False: a
+    factor stored in the compute dtype on the device, as a family's is),
+    and the largest host level moved to the device. For a family of k
+    systems the ELL value planes are per system, which the per-column
+    term covers."""
     n_pad = sum((1 << l) * W[l] for l in range(len(F)))
     return ((40 * (n_pad + 1) * ell_k + solve_vector_bytes(W, dtype)) * k
-            + 3 * CHUNK_BYTES + host_level + SLACK_BYTES)
+            + (3 * CHUNK_BYTES if promote else 0) + host_level
+            + SLACK_BYTES)
+
+
+def selinv_bytes(F, W, dtype, resident: int = 0,
+                 promoted: Optional[List[bool]] = None) -> int:
+    """Peak device bytes of a selected inversion (`numeric/selinv.py`),
+    step by step as its code allocates: per level l (B = 2^l fronts,
+    bnd = F - W boundary rows, compute size c: 8 for f64, else 4)
+
+      * the level's factor promoted or moved to the device, where
+        `promoted[l]` (stored bf16 or in host memory): B F W c;
+      * inv(L) and the triangular solve's two working copies, then
+        S = inv(L)^T inv(L), [B, W, W] each, beside the parent's P;
+      * X = L_Ss inv(L) [B, bnd, W] (and a copy of the strip the product
+        may make), still beside the parent's P;
+      * the parent restriction: the gathered rows [B, bnd, F_{l-1}], their
+        index vectors, and Pp [B, bnd, bnd];
+      * PX = Pp X [B, bnd, W]; then, above the leaves, the new
+        P [B, F, F] beside Phi_ss, PX and Pp;
+
+    plus `resident` (the stored factor and whatever else stays on the
+    device), the index maps the recursion reads (piv_rows, fwd_child), the
+    [n + 1] diagonal and SLACK_BYTES. Both inv_diag and inv_entries stay
+    within it (the terminal step of inv_entries assembles no P)."""
+    c = 8 if torch_dtype(dtype) == torch.float64 else 4
+    L = len(F)
+    promoted = promoted or [False] * L
+    n_pad = sum((1 << l) * W[l] for l in range(L))
+    idx = 8 * sum((1 << l) * F[l] for l in range(L))
+    peak = P_prev = 0
+    for l in range(L):
+        B, Fl, Wl = 1 << l, F[l], W[l]
+        bnd = Fl - Wl
+        copy = B * Fl * Wl * c if promoted[l] else 0
+        sq = B * Wl * Wl * c
+        P = B * Fl * Fl * c
+        if l == 0:
+            phases = [copy + 3 * sq, copy + 2 * sq]
+        else:
+            X = B * bnd * Wl * c
+            R = B * bnd * F[l - 1] * c
+            Pp = B * bnd * bnd * c
+            itmp = 3 * 8 * B * bnd + 2 * B * bnd
+            phases = [P_prev + copy + 3 * sq,
+                      P_prev + copy + 2 * sq + 2 * X,
+                      P_prev + sq + X + R + itmp + Pp,
+                      sq + X + Pp + X]
+            if l < L - 1:
+                phases.append(sq + Pp + X + P)
+        peak = max(peak, *phases)
+        P_prev = P if l < L - 1 else 0
+    return resident + idx + (n_pad + 1) * c + peak + SLACK_BYTES
 
 
 def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
                  update_dtype=None, chunks: Optional[dict] = None,
                  store_dtype=None, offload: Optional[bool] = None,
                  spill: Optional[bool] = None, lazy: Optional[bool] = None,
-                 reupload: Optional[bool] = None) -> RegimePlan:
+                 reupload: Optional[bool] = None,
+                 family: int = 1) -> RegimePlan:
     """The regime plan of a factorization (see the module note). `fp` needs
     only F and W (per-level front and pivot widths). Forcing: two_piece
     (bool, or the set of levels that take it), update_dtype, chunks
-    ({lvl: nc}), store_dtype, offload, spill, lazy, reupload."""
+    ({lvl: nc}), store_dtype, offload, spill, lazy, reupload. `family`: K
+    same-pattern systems factored at once, folded into the batch axis
+    (level lvl holds K 2^lvl fronts)."""
     F, W = tuple(int(f) for f in fp.F), tuple(int(w) for w in fp.W)
     dtype = torch_dtype(dtype)
     force = {"two_piece": two_piece, "chunks": chunks,
@@ -552,7 +616,7 @@ def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
             rungs.append(r)
     fail = None
     for rung in rungs:
-        res = _plan_levels(F, W, dtype, int(budget), rung, force)
+        res = _plan_levels(F, W, dtype, int(budget), rung, force, family)
         if isinstance(res, list):
             levels = res
             break
@@ -561,11 +625,11 @@ def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
         lvl, need = fail
         raise BudgetError(
             f"no regime fits the budget of {int(budget)} bytes: level {lvl} "
-            f"(B = {1 << lvl}, F = {F[lvl]}, W = {W[lvl]}) needs at least "
-            f"{need} bytes")
+            f"(B = {family << lvl}, F = {F[lvl]}, W = {W[lvl]}) needs at "
+            f"least {need} bytes")
     offloaded = any(lp.offload for lp in levels)
     if reupload is None:
         reupload = (stored_bytes(F, W, levels) + solve_bytes(F, W, dtype)
                     <= int(budget))
     return RegimePlan(dtype, int(budget), rung["lazy"],
-                      bool(reupload and offloaded), levels)
+                      bool(reupload and offloaded), levels, family)

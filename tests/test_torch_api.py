@@ -110,8 +110,8 @@ def test_cuda_device_is_never_a_silent_cpu(port_fixtures):
 
 def test_port_never_imports_jax():
     """The port's entry points (from_coo, from_scipy, spsolve, block solve,
-    update_values, checkpoint, profiler) load neither jax nor any module
-    of the JAX package."""
+    update_values, checkpoint, profiler, inv_diag, sample, factorize_many)
+    load neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -123,6 +123,10 @@ def test_port_never_imports_jax():
         "    n, r, c, v, o, cl, dtype=np.float32, device='cpu')\n"
         "x = s.solve(b)\n"
         "assert s.residual(b, x) <= 1e-10\n"
+        "assert np.all(s.inv_diag() > 0)\n"
+        "assert s.sample(np.ones((n, 2))).shape == (n, 2)\n"
+        "f = s.factorize_many(np.stack([s.vals, 2.0 * s.vals]))\n"
+        "assert np.all(f.residual(b, f.solve(b)) <= 1e-10)\n"
         "import os, tempfile, scipy.sparse as sp\n"
         "from cholesky_tpu_torch.numeric import profile\n"
         "from cholesky_tpu_torch.utils import problems\n"

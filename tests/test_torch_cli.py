@@ -146,7 +146,6 @@ def test_cli_profile_emits_the_jax_profilers_ops(port_fixtures):
 
 @pytest.mark.parametrize("flag,args", [
     ("--signs", ["--signs", "signs.txt"]),
-    ("--inv-diag", ["--inv-diag", "d.txt"]),
     ("--devices", ["--devices", "4"]),
     ("--slices", ["--slices", "2"]),
     ("-d", ["-d", "dbg"]),
@@ -159,6 +158,25 @@ def test_cli_unported_flags_exit_2_naming_the_flag(flag, args, capsys,
     assert cli.main([*_files(p), *args, "--device", "cpu"]) == 2
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1 and f" {flag} " in lines[0]
+
+
+def test_cli_inv_diag_matches_the_jax_cli(tmp_path, port_fixtures):
+    """`--inv-diag FILE`: the INVDIAG line and diag(A^-1) in original dof
+    order, one value per line, within 1e-10 of the JAX CLI's file (f64)."""
+    p = port_fixtures("lapl_400x400")
+    out = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        d = str(tmp_path / f"{tag}_diag.txt")
+        r = run_cli([*_files(p), "-b", p["b"], "--inv-diag", d], module)
+        assert r.returncode == 0, r.stderr[-2000:]
+        (line,) = _lines(r.stdout, "INVDIAG")
+        assert line["op"] == "inv_diag" and line["time_s"] > 0
+        assert f"Saved diag(A^-1) to: {d}" in r.stdout
+        out[tag] = np.loadtxt(d)
+    assert out["t"].shape == (400,)
+    assert np.abs(out["t"] - out["j"]).max() <= FILE_TOL * np.abs(
+        out["j"]).max()
 
 
 def test_cli_usage_and_device_default(port_fixtures):
