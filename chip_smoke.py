@@ -86,6 +86,30 @@ Phases, each printing one JSON line:
              right-hand sides and of one shared one with per-system f64
              SciPy residuals, and each system's logdet against the single
              solver's after update_values.
+ 14. qd:     the quasi-definite LDL^T path at 50^3 L8, f32: the grid's
+             matrix with a seeded 40% of its diagonal signs flipped (|diag|
+             + 0.5), from_coo with signs=: factor walls cold and warm beside
+             the SPD slice's warm factor in the same run, per-level
+             CUDA-event ms and peak beside the qd plan's estimate, the
+             factor's kernel launches and idle share under torch.profiler,
+             chol_inv launches (must be 0), three solves and a [n, 16] block
+             with sweeps and f64 SciPy residuals, slogdet's sign and
+             inertia against the signature, log|det| against the port's
+             own f64 signed factor on the CPU; then a KKT system [[H, B^T],
+             [B, -C]] (H the 24^3 grid Laplacian, B a seeded constraint
+             block coupling grid neighbours, C diagonal; 17,280 dofs)
+             through from_scipy: ordering seconds, factor wall, residuals,
+             inertia (n1, n2, 0);
+ 15. companions: on the slice's 50^3 f32 factor: schur_complement,
+             condense_rhs -> a dense NumPy solve -> expand_solution against
+             a refined solve; solve_updated with 16 seeded unit columns
+             (residual against A + U U^T) and logdet_updated against a
+             second solver's logdet after update_values; solve_perturbed
+             (PCG iterations, residual) beside update_values + factorize +
+             solve; eigsh smallest (k = 6) and largest (k = 1) against the
+             exact Dirichlet spectrum 4 sum sin^2(i pi / 102); condest by
+             Lanczos against the exact lambda_max / lambda_min and by power
+             iteration; synchronized walls of each.
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
 Exits nonzero, without the last line, when there is no CUDA device, when
@@ -135,6 +159,13 @@ FAMILY_K = (8, 16)
 # and level 2 (5 more) at K = 16
 FAMILY_LAUNCHES = {8: 19, 16: 24}
 FAMILY_LOGDET_TOL = 1e-6           # a family system's f32 logdet vs single
+QD_NEG_FRAC = 0.4                  # diagonal signs flipped in the qd phase
+QD_BLOCK_K = 16
+KKT_GRID = 24                      # H: the KKT_GRID^3 grid Laplacian
+SCHUR_REL_TOL = 1e-4               # condensed round trip vs a refined solve
+EIG_REL_TOL = 1e-8                 # eigenvalues vs the exact spectrum
+COND_REL_TOL = 1e-6                # condest(lanczos) vs the exact kappa
+WOODBURY_K = 16
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
@@ -1177,6 +1208,269 @@ def phase_ordering():
     return total
 
 
+def qd_problem(shape, levels, seed):
+    """The grid Laplacian with a seeded QD_NEG_FRAC of its diagonal signs
+    flipped and |diag| + 0.5, so that both sign blocks stay strictly
+    diagonally dominant (tests/test_ldlt.py's construction): (n, rows,
+    cols, vals, ordering, clusters, b, signs)."""
+    import numpy as np
+
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    n, r, c, v, o, cl, b = generate_problem(shape, levels, seed=SEED)
+    s = np.where(np.random.default_rng(seed).random(n) < QD_NEG_FRAC,
+                 -1.0, 1.0)
+    vq = v.copy()
+    d = r == c
+    vq[d] = s[r[d]] * (v[d] + 0.5)
+    return n, r, c, vq, o, cl, b, s
+
+
+def kkt_system(m: int, seed: int):
+    """[[H, B^T], [B, -C]]: H the m^3 grid Laplacian (n1 dofs), B an
+    [n1 / 4, n1] constraint block, each row coupling a seeded grid node
+    and its +x neighbour with weights of opposite signs, C a seeded
+    diagonal in [1, 2]. Returns (CSR matrix, signs, n1, n2)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cholesky_tpu_torch.utils.laplacian import grid_laplacian
+
+    n1, r, c, v = grid_laplacian((m, m, m))
+    H = _scipy_matrix(n1, r, c, v)
+    rng = np.random.default_rng(seed)
+    n2 = n1 // 4
+    p = rng.choice(np.arange(n1).reshape(m, m, m)[:, :, :-1].ravel(), n2,
+                   replace=False)
+    w = rng.uniform(0.5, 1.5, (n2, 2)) * np.array([1.0, -1.0])
+    B = sp.csr_matrix((w.ravel(), (np.repeat(np.arange(n2), 2),
+                                   np.stack([p, p + 1], 1).ravel())),
+                      shape=(n2, n1))
+    C = sp.diags(rng.uniform(1.0, 2.0, n2))
+    K = sp.bmat([[H, B.T], [B, -C]]).tocsr()
+    return K, np.concatenate([np.ones(n1), -np.ones(n2)]), n1, n2
+
+
+def timed_sync(fn):
+    """(fn(), synchronized wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_qd(spd):
+    """The quasi-definite LDL^T path at 50^3 L8, f32, then a KKT system
+    through from_scipy. `spd` is the slice's SPD solver (timed beside)."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    n, r, c, vq, o, cl, b0, sg = qd_problem((50, 50, 50), 8, SEED + 90)
+    s = SparseCholesky.from_coo(n, r, c, vq, o, cl, dtype=np.float32,
+                                device="cuda", signs=sg)
+    fp = s.fplan
+    plan_s = time.perf_counter() - t0
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    hook, read = level_probe(s, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for i in range(3):                  # cold, then warm (the last probed)
+        _, wall = timed_sync(lambda: s.factorize(
+            check=i == 0, level_hook=hook if i == 2 else None))
+        walls.append(wall)
+    per_level = read()
+    launches = dict(hk.LAUNCHES)
+    check(launches["chol_inv"] == 0, f"qd: {launches['chol_inv']} chol_inv "
+          "launches in the signed factorizations")
+    table = regime_table(fp, s.regimes, per_level)
+    over = [x["lvl"] for x in table if x["peak_bytes"] > x["est_peak_bytes"]]
+    check(not over, f"qd: measured peak over the estimate at levels {over}")
+    spd_walls = [timed_sync(spd.factorize)[1] for _ in range(2)]
+    prof = profiled(s.factorize)
+    check(prof["chol_inv_count"] == 0, "qd: chol_inv in the profiled factor")
+    emit({"phase": "qd", "problem": "50^3 L8", "n": n,
+          "negative": int((sg < 0).sum()), "host_plan_s": plan_s,
+          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
+          "spd_slice_factor_warm_s": spd_walls,
+          "warm_over_spd": min(walls[1:]) / min(spd_walls),
+          "plan_peak_bytes": s.regimes.peak_bytes, "levels": table,
+          "chol_inv_launches": launches["chol_inv"],
+          "factorizations": len(walls)})
+    emit({"phase": "qd", "what": "warm factor under torch.profiler", **prof})
+
+    a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+    solves = []
+    for i in range(3):
+        b = b0 if i == 0 else np.random.default_rng(SEED + 90 + i).integers(
+            1, 11, size=n).astype(np.float64)
+        x, wall = timed_sync(lambda: s.solve(b, tol=TOL))
+        res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+        check(bool(np.all(np.isfinite(x))) and x.shape == (n,),
+              "qd: solution not finite or of the wrong shape")
+        check(res <= TOL, f"qd solve {i}: residual {res} > {TOL}")
+        solves.append({"wall_s": wall, "residual": res, **s.last_solve})
+    block = block_solve(s, a, QD_BLOCK_K, SEED + 93, "qd 50^3")
+    neg = int((sg < 0).sum())
+    sign, logabs = s.slogdet()
+    check(sign == (-1) ** neg and s.inertia() == (n - neg, neg, 0),
+          f"qd: slogdet sign {sign} / inertia {s.inertia()} vs the "
+          f"signature ({n - neg}, {neg})")
+    ref = SparseCholesky(s.plan, s.rows, s.cols, s.vals, dtype=np.float64,
+                         device="cpu", signs=sg)
+    ref._fplan = fp
+    (ref_sign, ref_logabs), ref_s = timed_sync(ref.slogdet)
+    rel = abs(logabs - ref_logabs) / abs(ref_logabs)
+    check(ref_sign == sign and rel <= LOGDET_REL_TOL,
+          f"qd: log|det| {logabs} vs the f64 CPU factor's {ref_logabs}")
+    del ref
+    emit({"phase": "qd", "problem": "50^3 L8", "solves": solves,
+          "block_solve": block, "slogdet": [sign, logabs],
+          "logabsdet_f64_cpu": ref_logabs, "logabsdet_rel_diff": rel,
+          "tol": LOGDET_REL_TOL, "f64_cpu_factor_s": ref_s,
+          "inertia": list(s.inertia())})
+    del s
+
+    K, ksg, n1, n2 = kkt_system(KKT_GRID, SEED + 94)
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    ks = SparseCholesky.from_scipy(K, dtype=np.float32, device="cuda",
+                                   signs=ksg)
+    kfp = ks.fplan
+    build_s = time.perf_counter() - t0
+    kwalls = [timed_sync(lambda: ks.factorize(check=True))[1]
+              for _ in range(2)]
+    rows = []
+    for i in range(2):
+        b = np.random.default_rng(SEED + 95 + i).standard_normal(n1 + n2)
+        x, wall = timed_sync(lambda: ks.solve(b, tol=TOL))
+        res = float(np.linalg.norm(K @ x - b) / np.linalg.norm(b))
+        check(res <= TOL, f"qd KKT: residual {res} > {TOL}")
+        rows.append({"wall_s": wall, "residual": res, **ks.last_solve})
+    check(ks.inertia() == (n1, n2, 0) and ks.slogdet()[0] == (-1) ** n2,
+          f"qd KKT: inertia {ks.inertia()} != ({n1}, {n2}, 0)")
+    check(hk.LAUNCHES["chol_inv"] == 0, "qd KKT: chol_inv launched")
+    emit({"phase": "qd", "problem": f"KKT {KKT_GRID}^3 + {n2}", "n": n1 + n2,
+          "n1": n1, "n2": n2, "nnz": int(K.nnz),
+          "ordering": ks.ordering_info, "build_s": build_s,
+          "levels": [{"lvl": l, "B": 1 << l, "F": kfp.F[l], "W": kfp.W[l]}
+                     for l in range(kfp.levels)],
+          "factor_wall_s": kwalls[0], "factor_wall_warm_s": kwalls[1],
+          "solves": rows, "inertia": list(ks.inertia())})
+    return launches["chol_inv"]
+
+
+def phase_companions(s, b0):
+    """The factor's companions on the slice's 50^3 L8 f32 factor."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cholesky_tpu_torch import SparseCholesky
+
+    check(s.factored, "the slice's factor is gone")
+    n = s.plan.n
+    a = _scipy_matrix(n, s.rows, s.cols, s.vals)
+    S, schur_s = timed_sync(s.schur_complement)
+    bh, cond_s = timed_sync(lambda: s.condense_rhs(b0))
+    t = time.perf_counter()
+    xr = np.linalg.solve(S, bh)
+    dense_s = time.perf_counter() - t
+    x, expand_s = timed_sync(lambda: s.expand_solution(b0, xr))
+    x_ref = s.solve(b0, tol=TOL)
+    err = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+    check(S.shape == (len(s.schur_dofs()),) * 2 and err <= SCHUR_REL_TOL,
+          f"schur round trip differs from a refined solve by {err}")
+    emit({"phase": "companions", "what": "schur", "problem": "50^3 L8",
+          "schur_shape": list(S.shape), "root_W": s.fplan.W[0],
+          "schur_complement_s": schur_s, "condense_rhs_s": cond_s,
+          "numpy_dense_solve_s": dense_s, "expand_solution_s": expand_s,
+          "rel_err_vs_refined_solve": err, "tol": SCHUR_REL_TOL})
+
+    rng = np.random.default_rng(SEED + 100)
+    dofs = rng.choice(n, WOODBURY_K, replace=False)
+    U = np.zeros((n, WOODBURY_K))
+    U[dofs, np.arange(WOODBURY_K)] = 1.0
+    x, upd_s = timed_sync(lambda: s.solve_updated(b0, U, 1.0))
+    a_up = a + sp.csr_matrix((np.ones(WOODBURY_K), (dofs, dofs)),
+                             shape=(n, n))
+    res = float(np.linalg.norm(a_up @ x - b0) / np.linalg.norm(b0))
+    check(res <= TOL, f"solve_updated: residual {res} > {TOL}")
+    ldu, ldu_s = timed_sync(lambda: s.logdet_updated(U, 1.0))
+    vals2 = s.vals.copy()
+    vals2[(s.rows == s.cols) & np.isin(s.rows, dofs)] += 1.0
+    s2 = SparseCholesky(s.plan, s.rows, s.cols, vals2, dtype=np.float32,
+                        device="cuda")
+    s2._fplan = s.fplan
+    s2.factorize()
+    ld2 = s2.logdet()
+    ld_rel = abs(ldu - ld2) / abs(ld2)
+    check(ld_rel <= LOGDET_REL_TOL, f"logdet_updated {ldu} vs the updated "
+          f"solver's logdet {ld2}")
+    emit({"phase": "companions", "what": "woodbury", "k": WOODBURY_K,
+          "solve_updated_s": upd_s, "residual": res,
+          "logdet_updated_s": ldu_s, "logdet_updated": ldu,
+          "logdet_after_update_values": ld2, "rel_diff": ld_rel,
+          "tol": LOGDET_REL_TOL})
+
+    new = spd_perturbation(s.rows, s.cols, s.vals, SEED + 101)
+    xp, pert_s = timed_sync(lambda: s.solve_perturbed(
+        b0, s.rows, s.cols, new - s.vals, tol=TOL))
+    a_new = _scipy_matrix(n, s.rows, s.cols, new)
+    res = float(np.linalg.norm(a_new @ xp - b0) / np.linalg.norm(b0))
+    check(res <= TOL, f"solve_perturbed: residual {res} > {TOL}")
+
+    def refactor():
+        s2.update_values(new)
+        s2.factorize()
+        return s2.solve(b0, tol=TOL)
+
+    x2, refac_s = timed_sync(refactor)
+    res2 = float(np.linalg.norm(a_new @ x2 - b0) / np.linalg.norm(b0))
+    del s2
+    emit({"phase": "companions", "what": "solve_perturbed",
+          "wall_s": pert_s, "iterations": s.last_perturbed["iterations"],
+          "residual": res, "update_factorize_solve_s": refac_s,
+          "update_factorize_solve_residual": res2})
+
+    side = round(n ** (1 / 3))                 # the slice's N^3 grid
+    i = np.arange(1, side + 1)
+    l1 = 4.0 * np.sin(i * np.pi / (2 * (side + 1))) ** 2
+    exact = np.sort((l1[:, None, None] + l1[None, :, None]
+                     + l1[None, None, :]).ravel())
+    anorm = float(np.abs(a).sum(axis=1).max())
+    rows = []
+    for which, k, m in (("smallest", 6, None), ("largest", 1, 256)):
+        (w, V), wall = timed_sync(lambda: s.eigsh(k=k, which=which, m=m))
+        rel = [float(np.min(np.abs(exact - x)) / x) for x in w]
+        res = np.linalg.norm(a @ V - V * w, axis=0)
+        check(max(rel) <= EIG_REL_TOL and float(res.max()) <= 1e-9 * anorm,
+              f"eigsh({which}): {w} off the exact spectrum by {max(rel)}, "
+              f"residual {res.max()}")
+        rows.append({"which": which, "k": k, "m": m, "wall_s": wall,
+                     "eigenvalues": w.tolist(), "rel_err_max": max(rel),
+                     "residual_max": float(res.max()),
+                     "gate": 1e-9 * anorm})
+    kappa = float(exact[-1] / exact[0])
+    kl, kl_s = timed_sync(lambda: s.condest(method="lanczos"))
+    kp, kp_s = timed_sync(s.condest)
+    k_rel = abs(kl - kappa) / kappa
+    check(k_rel <= COND_REL_TOL, f"condest(lanczos) {kl} vs exact {kappa}")
+    emit({"phase": "companions", "what": "spectra", "eigsh": rows,
+          "exact_kappa": kappa, "condest_lanczos": kl,
+          "condest_lanczos_s": kl_s, "condest_lanczos_rel_err": k_rel,
+          "condest_power": kp, "condest_power_s": kp_s,
+          "tol": COND_REL_TOL})
+
+
 def _tagged(stdout: str, tag: str):
     return [ast.literal_eval(ln.split(": ", 1)[1])
             for ln in stdout.splitlines() if ln.startswith(tag + ": ")]
@@ -1292,6 +1586,8 @@ def main() -> int:
         phase_regimes(solver, b)
         phase_selinv(solver)
         family = phase_family(solver)
+        qd = phase_qd(solver)
+        phase_companions(solver, b)
         del solver
         scale = phase_scale()
         ordering_launches = phase_ordering()
@@ -1310,6 +1606,7 @@ def main() -> int:
             "140^3 L14 40 GiB budget": scale["40 GiB"]["launches"],
             "50^3 L8 family K=8 (2 factorizations)": family[8],
             "50^3 L8 family K=16 (2 factorizations)": family[16],
+            "50^3 L8 quasi-definite": qd,
             "from_scipy gallery (ordering phase)": ordering_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],

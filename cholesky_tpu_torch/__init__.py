@@ -13,7 +13,10 @@ or a block, value updates on a fixed pattern, factor export and
 checkpoints, a per-stage profiler and a command-line interface; selected
 inversion (diag and entries of A^-1), gradients with respect to the
 values, sampling and whitening, and same-pattern families factored as one
-folded batch.
+folded batch; symmetric quasi-definite (KKT) matrices by a signed LDL^T
+(`signs=`, `slogdet`, `inertia`); the Schur complement onto the root
+separator, Woodbury updates, factor-preconditioned CG for perturbed
+matrices, and Lanczos eigenpairs and condition numbers.
 
   api.py                   SparseCholesky (from_files, from_coo, from_matrix,
                            from_scipy), BatchedFactors, solve_spd, spsolve
@@ -32,6 +35,8 @@ folded batch.
                            or a family), solves of [n], [n, k] and of a
                            family, L^-T and L^T, factor extraction
   numeric/selinv.py        selected inversion
+  numeric/ldlt.py          quasi-definite signed LDL^T: factor, solve, slogdet
+  numeric/eigs.py          Lanczos eigenpairs and kappa_2 (host NumPy)
   numeric/hopper_kernels.py  chol_inv kernel wrapper, factor_slab
   numeric/refine.py        double-float iterative refinement, single and block
   numeric/profile.py       per-level, per-stage BLAS: timing lines

@@ -19,7 +19,18 @@ The single-device SPD surface of `cholesky_tpu/api.py`:
     to the values), `sample` / `whiten` (x = L^-T z and its inverse);
   * `factorize_many`: K matrices of the same pattern factored as one
     family, folded into the batch axis of every level; `BatchedFactors`
-    solves, refines and takes the logdet of each system.
+    solves, refines and takes the logdet of each system;
+  * symmetric quasi-definite matrices (KKT / saddle-point systems): every
+    constructor takes `signs=` (+1 / -1 per dof), `factorize()` then runs
+    the signed LDL^T of `numeric/ldlt.py`, `solve` refines through the
+    signed solve, and `slogdet` / `inertia` read the factor; the methods
+    that need a Cholesky factor raise NotImplementedError on such a solver;
+  * the factor's companions: the Schur complement onto the root separator
+    (`schur_dofs`, `schur_complement`, `condense_rhs`, `expand_solution`),
+    low-rank updates by Woodbury (`solve_updated`, `logdet_updated`), a
+    general perturbation by preconditioned CG (`solve_perturbed`), and
+    Lanczos eigenpairs and condition numbers (`eigsh`, `condest`,
+    `numeric/eigs.py`).
 
 The device is an explicit argument everywhere; asking for "cuda" without a
 card raises. The port reads no environment variable.
@@ -39,7 +50,9 @@ under the same budget does not search again. Selected inversion and a
 family stay in core, as in the JAX package: `regimes.selinv_bytes` and the
 family's regime plan (at batch K 2^lvl, factor in the compute dtype on the
 device) are held to the budget before anything is allocated, and
-`regimes.BudgetError` says by how much they miss it.
+`regimes.BudgetError` (a MemoryError, as the JAX package raises) says by
+how much they miss it. A quasi-definite factorization is in core and square
+(`regimes.plan_qd`), under the same guard.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ import torch
 
 from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
-from cholesky_tpu_torch.numeric import devmem, frontal, regimes, selinv
+from cholesky_tpu_torch.numeric import devmem, frontal, ldlt, regimes, selinv
 from cholesky_tpu_torch.numeric import refine as refine_mod
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
@@ -93,11 +106,22 @@ class SparseCholesky:
 
     def __init__(self, plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
                  vals: np.ndarray, dtype=np.float64, device="cuda",
-                 budget: Optional[int] = None):
+                 budget: Optional[int] = None, signs=None):
         """`budget`: device bytes the factorization may hold at once (None:
         regimes.BUDGET_FRACTION of the card's free memory when factorize()
-        starts; unbounded on the CPU)."""
+        starts; unbounded on the CPU). `signs`: [n] of +1 / -1 in original
+        dof order, the signature of a symmetric quasi-definite matrix
+        (factored as L~ S L~^T, `numeric/ldlt.py`); an all-positive
+        signature is the SPD path (`signs` None)."""
         self.device = _resolve_device(device)
+        self.signs = None
+        if signs is not None:
+            signs = np.asarray(signs, dtype=np.float64).reshape(-1)
+            if signs.shape[0] != plan.n or not np.all(np.abs(signs) == 1.0):
+                raise ValueError("signs must be [n] of +1/-1")
+            if not np.all(signs == 1.0):
+                self.signs = signs
+        self._sig = None            # the signature on the device
         self.budget = budget
         self.regimes: Optional[regimes.RegimePlan] = None  # last plan
         self._plans = None          # (budget, its plan)
@@ -130,7 +154,8 @@ class SparseCholesky:
     def from_files(cls, matrix_file: str, separator_file: str,
                    clusters_file: Optional[str] = None, dtype=np.float64,
                    pad_to: int = 8, device="cuda",
-                   budget: Optional[int] = None) -> "SparseCholesky":
+                   budget: Optional[int] = None, signs=None
+                   ) -> "SparseCholesky":
         ordng = ordio.parse_ordering(separator_file)
         clusters = ordio.parse_clusters(clusters_file) if clusters_file else None
         plan = build_plan(ordng, clusters, pad_to=pad_to)
@@ -140,15 +165,16 @@ class SparseCholesky:
                 f"matrix dim {banner.rows} != ordering dof count {plan.n}")
         r2, c2, v2 = mmio.dedup_lower(r, c, v)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget)
+                   budget=budget, signs=signs)
 
     @classmethod
     def from_matrix(cls, n: int, rows, cols, vals, levels=None,
                     dtype=np.float64, device="cuda",
                     budget: Optional[int] = None, md_max: int = 131072,
-                    md_small: int = 16384, _canonical: bool = False
-                    ) -> "SparseCholesky":
-        """Solve an arbitrary SPD matrix with NO precomputed ordering: a
+                    md_small: int = 16384, signs=None,
+                    _canonical: bool = False) -> "SparseCholesky":
+        """Solve an arbitrary SPD (or, with `signs`, symmetric
+        quasi-definite) matrix with NO precomputed ordering: a
         nested-dissection ordering is computed from the sparsity graph
         (`symbolic/nd.py`; `md_max` / `md_small` gate its minimum-degree
         candidate). `ordering_info` keeps what it decided and its host
@@ -170,7 +196,7 @@ class SparseCholesky:
         info["seconds"] = time.perf_counter() - t0
         solver = cls.from_coo(n, rows, cols, vals, ordng, clusters,
                               dtype=dtype, device=device, budget=budget,
-                              _canonical=_canonical)
+                              signs=signs, _canonical=_canonical)
         solver.ordering_info = info
         return solver
 
@@ -242,7 +268,7 @@ class SparseCholesky:
     @classmethod
     def from_coo(cls, n: int, rows, cols, vals, ordng: ordio.Ordering,
                  clusters=None, dtype=np.float64, pad_to: int = 8,
-                 device="cuda", budget: Optional[int] = None,
+                 device="cuda", budget: Optional[int] = None, signs=None,
                  _canonical: bool = False) -> "SparseCholesky":
         plan = build_plan(ordng, clusters, pad_to=pad_to)
         if plan.n != n:
@@ -254,7 +280,7 @@ class SparseCholesky:
         else:
             r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget)
+                   budget=budget, signs=signs)
 
     # ------------------------------------------------------------------
     @property
@@ -342,11 +368,17 @@ class SparseCholesky:
         bytes allocated on the device when the factorization began (after
         the previous factor was dropped).
 
+        With `signs`, the quasi-definite factorization `ldlt.factor_qd`
+        runs instead, under `regimes.plan_qd` (in core, square, slabs
+        assembled up front; BudgetError before anything is allocated when
+        it does not fit).
+
         With `check=True`, every pivot is verified finite and positive
         afterwards and ArithmeticError names the first bad separator (the
-        LAPACK `info`-style diagnosis). Off by default: the check reads
-        each level's diagonals back to the host."""
-        asm = self._assembler()
+        LAPACK `info`-style diagnosis; a signed factor's pivots are
+        sqrt(s_j d_j), NaN where the signature does not fit). Off by
+        default: the check reads each level's diagonals back to the
+        host."""
         pre = self.panels if (self.panels is not None
                               and not self.factored) else None
         # drop the previous factor and its inverses before the budget is
@@ -359,6 +391,10 @@ class SparseCholesky:
         reused = plan is kept
         self.regimes = plan
         plan_s = time.perf_counter() - t0
+        # long-lived state, built once the plan fits, before the baseline
+        asm = self._assembler()
+        if self.signs is not None:
+            self._signature()
         # A factorization that does not fit in the driver's free memory runs
         # in the segments its predecessor left cached. Its slabs, factors
         # and updates are then carved out of them at other places than the
@@ -384,8 +420,13 @@ class SparseCholesky:
         else:
             fronts = asm(self.vals, dtype=self.dtype)
         del pre                 # the level loop consumes the slabs
-        self.panels = frontal.factor(self.fplan, fronts, plan,
-                                     level_hook=level_hook)
+        if self.signs is not None:
+            self.panels = ldlt.factor_qd(self.fplan, fronts,
+                                         self._signature(),
+                                         level_hook=level_hook)
+        else:
+            self.panels = frontal.factor(self.fplan, fronts, plan,
+                                         level_hook=level_hook)
         self.factored = True
         if check:
             self._check_pivots()
@@ -410,11 +451,31 @@ class SparseCholesky:
             bad = ~(np.isfinite(d) & (d > 0))
             if bad.any():
                 slot, idx = np.argwhere(bad)[0]
+                what = ("not quasi-definite with the given signature"
+                        if self.signs is not None else
+                        "not positive definite")
                 raise ArithmeticError(
                     f"factorization failed: non-positive/non-finite pivot at "
                     f"tree level {lvl}, separator slot {slot}, local dof "
-                    f"{idx} — input matrix is not positive definite (or lost "
+                    f"{idx} — input matrix is {what} (or lost "
                     f"definiteness in {np.dtype(self.dtype).name})")
+
+    def _signature(self) -> ldlt.DeviceSigns:
+        """The quasi-definite signature on the device, built once per
+        solver (it outlives update_values: the signature is the
+        pattern's)."""
+        if self._sig is None:
+            with devmem.persistent(self.device):
+                self._sig = ldlt.DeviceSigns(self.fplan, self.signs,
+                                             self.device,
+                                             TORCH_DTYPES[self.dtype])
+        return self._sig
+
+    def _require_spd(self, what: str) -> None:
+        if self.signs is not None:
+            raise NotImplementedError(
+                f"{what} requires an SPD (Cholesky) factorization — this "
+                f"solver holds a quasi-definite LDL^T factor")
 
     def _plan(self, budget: int) -> regimes.RegimePlan:
         """The regime plan of `budget`, searched once per budget. The
@@ -425,6 +486,11 @@ class SparseCholesky:
         it: every option it passed over fits a smaller budget no better,
         and every level it chose still fits. (Not when the plan re-uploads
         offloaded levels: that choice reads the budget itself.)"""
+        if self.signs is not None:
+            if self._plans is None or self._plans[0] != budget:
+                self._plans = (budget, regimes.plan_qd(self.fplan, self.dtype,
+                                                       budget))
+            return self._plans[1]
         if self._plans is not None:
             kept_budget, kept = self._plans
             if budget == kept_budget or (
@@ -518,9 +584,13 @@ class SparseCholesky:
         step = self._solve_cols(b2.shape[1])
         for j in range(0, b2.shape[1], step):
             bp = self._permuted_on_device(b2[:, j:j + step], "b")
+            sig = self._signature() if self.signs is not None else None
             if use_inv:
-                xp = frontal._solve_banded(self.fplan, self.panels,
-                                           self._inv_pivots(), bp)
+                xp = frontal._solve_banded(
+                    self.fplan, self.panels, self._inv_pivots(), bp,
+                    None if sig is None else sig.padded)
+            elif sig is not None:
+                xp = ldlt.solve_qd(self.fplan, self.panels, sig, bp)
             else:
                 xp = frontal.frontal_solve(self.fplan, self.panels, bp)
             x[:, j:j + step] = xp[iperm].cpu().numpy()
@@ -577,7 +647,9 @@ class SparseCholesky:
         residual and block device solves continues. `last_solve` records
         the sweeps of each loop, the inner engine ("banded" with pivot
         inverses, "plain" without), the block width and which loop
-        finished ("device", "host", or "none" without refinement)."""
+        finished ("device", "host", or "none" without refinement). A
+        quasi-definite solver refines the same way through its signed
+        solve."""
         if refine not in ("auto", "never", "always"):
             raise ValueError(f"refine must be 'auto', 'never' or 'always', "
                              f"got {refine!r}")
@@ -615,7 +687,8 @@ class SparseCholesky:
                 self.fplan, self.panels,
                 self._inv_pivots() if use_inv else None,
                 torch.from_numpy(b).to(self.device)[perm], ell,
-                tol=tol / 3.0, max_iter=max_iter)
+                tol=tol / 3.0, max_iter=max_iter,
+                signs=self._signature() if self.signs is not None else None)
             x = x_perm[iperm].cpu().numpy()
             del x_perm
             self.last_solve.update(sweeps=sweeps, rn_rel=rn_rel,
@@ -648,11 +721,35 @@ class SparseCholesky:
     def logdet(self) -> float:
         """log det(A) = 2 sum log diag(L), read off the factor's per-level
         pivot blocks (bf16 and host-resident levels included). Padded
-        diagonal entries are exactly 1 and contribute nothing."""
+        diagonal entries are exactly 1 and contribute nothing. A
+        quasi-definite solver raises ValueError (its det may be negative:
+        `slogdet`)."""
+        if self.signs is not None:
+            raise ValueError(
+                "quasi-definite matrix: det may be negative — use slogdet()")
         if not self.factored:
             self.factorize()
         return 2.0 * sum(float(np.log(d).sum())
                          for _, d in self._level_diagonals())
+
+    def slogdet(self):
+        """(sign, log|det A|), like numpy.linalg.slogdet, read off the
+        factor: SPD gives (1, logdet()); a quasi-definite factorization
+        gives sign = (-1)^(negatives in the signature) (the signature IS
+        the inertia, Sylvester's law through L~ S L~^T)."""
+        if self.signs is None:
+            return 1, self.logdet()
+        if not self.factored:
+            self.factorize()
+        return ldlt.logdet_qd(self.fplan, self.panels, self.signs)
+
+    def inertia(self):
+        """(n+, n-, n0) of the factored matrix: the quasi-definite
+        signature for LDL^T, (n, 0, 0) for SPD. Interior-point methods use
+        it to verify a KKT system's expected inertia."""
+        if self.signs is None:
+            return int(self.plan.n), 0, 0
+        return ldlt.inertia(self.signs)
 
     def factor_dense(self) -> np.ndarray:
         """The factor L as a dense lower-triangular array in permuted
@@ -747,6 +844,7 @@ class SparseCholesky:
         factor precision (f64 factor ~1e-13 relative; f32 ~kappa(A) 1e-7).
         In core only: raises `regimes.BudgetError` when it does not fit
         the budget."""
+        self._require_spd("selected inversion")
         if not self.factored:
             self.factorize()
         self._selinv_guard()
@@ -762,6 +860,7 @@ class SparseCholesky:
         recursion of inv_diag, stopped at the deepest requested tree level.
         Entries outside the pattern raise ValueError (solve unit vectors
         for those)."""
+        self._require_spd("selected inversion")
         if not self.factored:
             self.factorize()
         self._selinv_guard()
@@ -779,6 +878,7 @@ class SparseCholesky:
         inversion (A's pattern lies inside the factor's), so the cost is
         about one factorization-shaped pass, not n solves; the memory is
         selected inversion's (in core)."""
+        self._require_spd("logdet_grad")
         g = self.inv_entries(self.rows, self.cols)
         return np.where(self.rows == self.cols, g, 2.0 * g)
 
@@ -810,6 +910,7 @@ class SparseCholesky:
         """d(b^T A^-1 b) / dv aligned with coo_pattern(): -x_r x_c, doubled
         off the diagonal (x = A^-1 b). One solve; with logdet_grad, the
         whole gradient of a GP's evidence."""
+        self._require_spd("quadform_grad")
         b = np.asarray(b, dtype=np.float64).reshape(-1)
         if x is None:
             x = self.solve(b, tol=tol)
@@ -838,6 +939,7 @@ class SparseCholesky:
         is [n] or [n, k] standard normal; returns f64 samples of the same
         shape in ORIGINAL dof order. Computed in the factor's dtype (f32:
         covariance error ~1e-7 relative, far below sampling noise)."""
+        self._require_spd("sample")
         if not self.factored:
             self.factorize()
         zp = self._permuted_on_device(z, "z")
@@ -850,12 +952,283 @@ class SparseCholesky:
         N(0, A^-1) in original dof order the result is standard normal
         (residual whitening, standardized innovations for model checking).
         `x` is [n] or [n, k]; whiten(sample(z)) == z coordinate-wise."""
+        self._require_spd("whiten")
         if not self.factored:
             self.factorize()
         xp = self._permuted_on_device(x, "x")
         zp = frontal.frontal_upper_matvec(self.fplan, self.panels, xp)
         _, iperm = self._perm_device()
         return zp[iperm].to(torch.float64).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Static condensation (`api.py:888-968` of the JAX package): the Schur
+    # complement of A onto the ROOT separator dofs. The caller chooses the
+    # interface by making it the root separator of the ordering (from_coo
+    # with an Ordering of one's own puts any dof set there).
+
+    def _root_extent(self):
+        root = self.plan.tree.sep_at(0, 0)
+        return int(self.plan.sep_offset[root]), int(self.plan.sep_sizes[root])
+
+    def schur_dofs(self) -> np.ndarray:
+        """Original dof ids of the root separator: the index set of the
+        schur_complement() / condense_rhs() entries, in their row order."""
+        off, sz = self._root_extent()
+        return self.plan.perm[off:off + sz]
+
+    def schur_complement(self) -> np.ndarray:
+        """Dense Schur complement S = A_rr - A_ro A_oo^-1 A_or of A onto
+        the root separator dofs (rows / cols ordered as schur_dofs()). The
+        fully assembled root front IS this Schur complement and the factor
+        stores its Cholesky L_S, so S = L_S L_S^T costs one product, no
+        refactorization: the root's pivot block is promoted to f64 on the
+        device (from bf16 or host memory too) before it. Accuracy follows
+        the factor (f64 to roundoff, f32 ~1e-7 relative)."""
+        self._require_spd("schur_complement")
+        if not self.factored:
+            self.factorize()
+        _, sz = self._root_extent()
+        ld = self.panels[0][0, :sz, :sz].to(self.device, torch.float64)
+        ld = ld.tril()
+        return (ld @ ld.T).cpu().numpy()
+
+    def condense_rhs(self, b: np.ndarray) -> np.ndarray:
+        """Condensed right-hand side b_hat = b_r - A_ro A_oo^-1 b_o of the
+        interface system S x_r = b_hat (forward substitution over the
+        interior levels, `frontal.forward_partial`). `b` is the FULL rhs
+        [n] in original dof order; the result is ordered as
+        schur_dofs()."""
+        self._require_spd("condense_rhs")
+        if not self.factored:
+            self.factorize()
+        bg = frontal.forward_partial(
+            self.fplan, self.panels,
+            self._permuted_on_device(np.asarray(b).reshape(-1), "b"))
+        off, sz = self._root_extent()
+        return bg[off:off + sz].to(torch.float64).cpu().numpy()
+
+    def expand_solution(self, b: np.ndarray, x_root: np.ndarray
+                        ) -> np.ndarray:
+        """The full solution from an interface solution: given x_r solving
+        S x_r = condense_rhs(b) (by any external solver), back-substitute
+        the interior, x_o = A_oo^-1 (b_o - A_or x_r). Returns x in original
+        dof order. The (b, x_root) pair must be consistent: the interior
+        recovery reuses the partial forward pass of b."""
+        self._require_spd("expand_solution")
+        if not self.factored:
+            self.factorize()
+        _, sz = self._root_extent()
+        x_root = np.asarray(x_root, dtype=np.float64).reshape(-1)
+        if x_root.shape[0] != sz:
+            raise ValueError(
+                f"x_root has {x_root.shape[0]} entries; root separator "
+                f"has {sz}")
+        bg = frontal.forward_partial(
+            self.fplan, self.panels,
+            self._permuted_on_device(np.asarray(b).reshape(-1), "b"))
+        xr = bg.new_zeros(self.fplan.W[0])
+        xr[:sz] = torch.from_numpy(x_root).to(xr.device, xr.dtype)
+        xp = frontal.backward_partial(self.fplan, self.panels, bg, xr)
+        _, iperm = self._perm_device()
+        return xp[iperm].to(torch.float64).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Low-rank updates and perturbations reusing the factor (`api.py:
+    # 1131-1264` of the JAX package)
+
+    @staticmethod
+    def _update_weights(u, w):
+        u = np.asarray(u, dtype=np.float64)
+        if u.ndim == 1:
+            u = u[:, None]
+        k = u.shape[1]
+        w = np.broadcast_to(np.asarray(1.0 if w is None else w,
+                                       dtype=np.float64), (k,))
+        if np.any(w == 0.0):
+            raise ValueError("update weights must be nonzero")
+        return u, w
+
+    def solve_updated(self, b: np.ndarray, u: np.ndarray, w=None,
+                      tol: float = 1e-12) -> np.ndarray:
+        """Solve (A + U diag(w) U^T) x = b by the Woodbury identity, reusing
+        the factorization of A (no refactorization for low-rank changes:
+        observation insertion / deletion, regularizer or boundary-condition
+        tweaks, GP inducing-point updates):
+
+            M^-1 b = A^-1 b - A^-1 U (diag(w)^-1 + U^T A^-1 U)^-1 U^T A^-1 b
+
+        U is [n, k] (or [n] for k = 1) in original dof order; w a scalar or
+        [k] of weights (negative entries down-date; A + U diag(w) U^T must
+        stay nonsingular: a singular capacitance matrix raises LinAlgError).
+        b is [n] or [n, m]. Cost: one k-column block solve, one solve of b
+        and an O(k^3) dense solve. Runs on a quasi-definite solver too."""
+        u, w = self._update_weights(u, w)
+        k = u.shape[1]
+        # solve() squeezes a [n, 1] block to [n]; restore the column axis
+        ainv_u = np.asarray(self.solve(u, tol=tol)).reshape(self.plan.n, k)
+        x = self.solve(b, tol=tol)
+        cap = np.diag(1.0 / w) + u.T @ ainv_u            # [k, k] capacitance
+        return x - ainv_u @ np.linalg.solve(cap, u.T @ x)
+
+    def logdet_updated(self, u: np.ndarray, w=None, tol: float = 1e-12
+                       ) -> float:
+        """log det(A + U diag(w) U^T) by the matrix determinant lemma,
+        reusing the factor (the companion of solve_updated, e.g. GP evidence
+        under observation updates):
+
+            log det M = log det A + sum log w
+                        + log det(diag(w)^-1 + U^T A^-1 U)
+
+        Raises ArithmeticError when the update makes the matrix lose
+        positive definiteness (a negative determinant sign)."""
+        self._require_spd("logdet_updated")
+        u, w = self._update_weights(u, w)
+        ainv_u = np.asarray(self.solve(u, tol=tol)).reshape(self.plan.n,
+                                                            u.shape[1])
+        sign, logabs = np.linalg.slogdet(np.diag(1.0 / w) + u.T @ ainv_u)
+        if sign * float(np.prod(np.sign(w))) <= 0:
+            raise ArithmeticError(
+                "A + U diag(w) U^T is not positive definite")
+        return float(self.logdet() + np.log(np.abs(w)).sum() + logabs)
+
+    def solve_perturbed(self, b: np.ndarray, rows: np.ndarray,
+                        cols: np.ndarray, vals: np.ndarray,
+                        tol: float = 1e-10, max_iter: int = 200
+                        ) -> np.ndarray:
+        """Solve (A + dA) x = b for a GENERAL symmetric perturbation dA
+        without refactorizing: conjugate gradients preconditioned by this
+        factor (one sparse f64 matvec and one solve through the factor an
+        iteration). The complement of solve_updated's low-rank path, for
+        coefficients that drift everywhere but stay close enough that the
+        old factor keeps the preconditioned spectrum clustered; when the
+        iteration counts grow, refactor with update_values.
+
+        dA is COO in the input's lower-triangle convention (rows >= cols;
+        off-diagonal entries imply their transposes); A + dA must stay SPD.
+        b is [n] or [n, k] in original dof order. The flexible
+        (Polak-Ribiere) update keeps an f32 preconditioner from stalling.
+        Converges to ||(A + dA) x - b|| / ||b|| <= tol or raises
+        RuntimeError. `last_perturbed` keeps the iterations of each
+        column."""
+        self._require_spd("solve_perturbed")
+        if not self.factored:
+            self.factorize()
+        import scipy.sparse
+
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals, dtype=np.float64)
+        if np.any(rows < cols):
+            raise ValueError(
+                "perturbation must be lower-triangle COO (rows >= cols), "
+                "matching the input matrix convention")
+        dr, dc, dv = mmio.symmetrize_coo(rows, cols, vals)
+        a_pert = self._matrix_csr() + scipy.sparse.csr_matrix(
+            (dv, (dr, dc)), shape=(self.plan.n, self.plan.n))
+        b = np.asarray(b, dtype=np.float64)
+        cols_b = b.reshape(self.plan.n, -1)
+        x = np.empty_like(cols_b)
+        self.last_perturbed = {"iterations": []}
+        for j in range(cols_b.shape[1]):
+            x[:, j] = self._pcg(a_pert, cols_b[:, j], tol, max_iter)
+        return x.reshape(b.shape)
+
+    def _pcg(self, a, b: np.ndarray, tol: float, max_iter: int) -> np.ndarray:
+        """Flexible PCG for a x = b with this factor as the preconditioner
+        (`api.py:1203-1234` of the JAX package)."""
+        bnorm = float(np.linalg.norm(b))
+        if bnorm == 0.0:
+            self.last_perturbed["iterations"].append(0)
+            return np.zeros_like(b)
+        x = np.zeros_like(b)
+        r = b.copy()
+        z = self._solve_once(r)
+        p = z.copy()
+        rz = float(r @ z)
+        for it in range(max_iter):
+            ap = a @ p
+            pap = float(p @ ap)
+            if pap <= 0.0:
+                raise RuntimeError(
+                    "CG direction with non-positive curvature — the "
+                    "perturbed matrix is not positive definite")
+            alpha = rz / pap
+            x += alpha * p
+            r_new = r - alpha * ap
+            if np.linalg.norm(r_new) <= tol * bnorm:
+                self.last_perturbed["iterations"].append(it + 1)
+                return x
+            z_new = self._solve_once(r_new)
+            # flexible (Polak-Ribiere) beta: robust to the inexact,
+            # slightly nonsymmetric f32 preconditioner solve
+            beta = float(z_new @ (r_new - r)) / rz
+            rz = float(r_new @ z_new)
+            p = z_new + beta * p
+            r = r_new
+        raise RuntimeError(
+            f"solve_perturbed did not reach tol={tol:g} in {max_iter} "
+            f"iterations (relative residual "
+            f"{np.linalg.norm(r) / bnorm:.3e}) — the perturbation is too "
+            f"large for this factor; refactor with update_values")
+
+    # ------------------------------------------------------------------
+    # Spectra through the factor (`api.py:1320-1389`; `numeric/eigs.py`)
+
+    def eigsh(self, k: int = 6, which: str = "smallest", tol: float = 1e-9,
+              m: Optional[int] = None, seed: int = 0, M=None):
+        """k extremal eigenpairs of A (eigenvalues ascending, orthonormal
+        eigenvectors [n, k]), converged to ||A v - lambda v|| <= tol
+        ||A||_1. which='smallest' runs shift-invert Lanczos at sigma = 0,
+        one refined solve through the factor a step (SPD only);
+        which='largest' needs only sparse matvecs (quasi-definite solvers
+        too). M (scipy sparse or dense, symmetric positive definite): the
+        generalized pencil A x = lambda M x (the FEM modal problem), with
+        M-inner-product Lanczos and mass-normalized eigenvectors."""
+        from cholesky_tpu_torch.numeric import eigs
+
+        if which == "smallest":
+            self._require_spd("eigsh(which='smallest') (shift-invert)")
+            if not self.factored:
+                self.factorize()
+        return eigs.eigsh(self, k=k, which=which, tol=tol, m=m, seed=seed,
+                          M=M)
+
+    def condest(self, iters: int = 12, seed: int = 0,
+                method: str = "power") -> float:
+        """2-norm condition-number estimate kappa_2(A) ~ lambda_max /
+        lambda_min by power iteration: lambda_max on A (sparse matvecs),
+        1 / lambda_min on A^-1 (solves through the factor), `iters` of each.
+        method='lanczos' converges both ends with Lanczos instead
+        (`numeric/eigs.cond2`; SPD only), tighter where either end
+        clusters."""
+        if not self.factored:
+            self.factorize()
+        if method == "lanczos":
+            from cholesky_tpu_torch.numeric import eigs
+
+            self._require_spd("condest(method='lanczos')")
+            return eigs.cond2(self, seed=seed)
+        a = self._matrix_csr()
+        rng = np.random.default_rng(seed)
+        v = rng.standard_normal(self.plan.n)
+        v /= np.linalg.norm(v)
+        lam_max = 0.0
+        for _ in range(iters):
+            w = a @ v
+            lam_max = float(np.linalg.norm(w))
+            if lam_max == 0.0:
+                break
+            v = w / lam_max
+        v = rng.standard_normal(self.plan.n)
+        v /= np.linalg.norm(v)
+        inv_max = 0.0
+        for _ in range(iters):
+            w = self._solve_once(v)
+            inv_max = float(np.linalg.norm(w))
+            if not np.isfinite(inv_max) or inv_max == 0.0:
+                return float("inf")
+            v = w / inv_max
+        return lam_max * inv_max
 
     # ------------------------------------------------------------------
     # Same-pattern families (`api.py:1014-1066` of the JAX package)
@@ -911,6 +1284,7 @@ class SparseCholesky:
         (solve / residual / logdet per system); this solver's own factor
         state is untouched. In core only: `regimes.BudgetError` (naming K)
         when the family does not fit the budget."""
+        self._require_spd("factorize_many")
         vals_many = np.asarray(vals_many, dtype=np.float64)
         if (vals_many.ndim != 2 or vals_many.shape[0] < 1
                 or vals_many.shape[1] != self.vals.shape[0]):
@@ -953,6 +1327,7 @@ class SparseCholesky:
         2), so either package loads it. Levels held in host memory are
         saved from there. bf16 levels are stored as their bit patterns
         (uint16). Returns the written path."""
+        self._require_spd("save_factor/load_factor")
         if not self.factored:
             self.factorize()
         arrays, dtypes = {}, []
@@ -985,6 +1360,7 @@ class SparseCholesky:
         solve the wrong system). Each level keeps its stored dtype and goes
         where the regime plan of this solver's budget puts it: on the
         device, or in host memory for levels the plan offloads."""
+        self._require_spd("save_factor/load_factor")
         with np.load(self._npz_path(path)) as data:
             meta = json.loads(bytes(data["meta"].tobytes()).decode())
             if meta.get("fingerprint") != self._factor_fingerprint():

@@ -22,7 +22,11 @@ does: the assembly of the fronts on the device and the factorization.
 `--inv-diag FILE` writes diag(A^-1) in original dof order, one value per
 line, and prints an `INVDIAG:` line (selected inversion, as the JAX CLI).
 
-Flags whose engines the port does not have yet (`--signs`, `--devices` > 1,
+`--signs FILE` (one +1 / -1 per dof, read with `np.loadtxt`) solves a
+symmetric quasi-definite matrix by the signed LDL^T (`numeric/ldlt.py`) and
+prints the JAX CLI's `signature:` line.
+
+Flags whose engines the port does not have yet (`--devices` > 1,
 `--slices` > 1, `-d`, `--debug-dumps`) print one line naming the flag and
 exit 2.
 
@@ -116,8 +120,7 @@ def parse_args(argv):
 
 def _unported(opts):
     """The first flag given whose engine the port lacks, or None."""
-    for flag, given in (("--signs", opts["signs_file"]),
-                        ("--devices", opts["devices"] > 1),
+    for flag, given in (("--devices", opts["devices"] > 1),
                         ("--slices", opts["slices"] > 1),
                         ("-d", opts["debug"]),
                         ("--debug-dumps", opts["debug_dumps"])):
@@ -136,7 +139,8 @@ def main(argv=None) -> int:
               "[-m factor.mtx] [-p permuted.mtx] [--iterations N] "
               "[--dtype float64|float32] [--device cuda|cpu] "
               "[--budget BYTES] [--profile] [--save-factor ckpt.npz] "
-              "[--load-factor ckpt.npz] [--inv-diag diag.txt] [--bench]\n"
+              "[--load-factor ckpt.npz] [--inv-diag diag.txt] "
+              "[--signs signs.txt] [--bench]\n"
               "Without -s, a nested-dissection ordering is computed from the "
               "matrix sparsity graph.")
         return 2
@@ -162,7 +166,14 @@ def main(argv=None) -> int:
           f"typecode: {banner.typecode}")
 
     dtype = np.dtype(opts["dtype"])
-    common = dict(dtype=dtype, device=opts["device"], budget=opts["budget"])
+    signs = None
+    if opts["signs_file"]:
+        # one +1/-1 per dof: symmetric quasi-definite LDL^T (numeric/ldlt)
+        signs = np.loadtxt(opts["signs_file"], dtype=np.float64).reshape(-1)
+        print(f"signature: {int((signs > 0).sum())} positive, "
+              f"{int((signs < 0).sum())} negative (quasi-definite LDL^T)")
+    common = dict(dtype=dtype, device=opts["device"], budget=opts["budget"],
+                  signs=signs)
     if opts["separator_file"]:
         solver = SparseCholesky.from_files(
             opts["matrix_file"], opts["separator_file"],

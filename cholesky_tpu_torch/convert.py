@@ -8,7 +8,9 @@ factored port solver: its `SolvePlan` (converted by `plan_from_jax`; it
 holds `perm`), its frontal plan
 arrays (`W`, `F`, `front_rows`, `inv_child`, `fwd_child`) and its per-level
 factors, read as NumPy with `np.asarray`. The port then solves against the
-JAX factor. A level the JAX package stored bfloat16 stays bfloat16, and a
+JAX factor; a quasi-definite (LDL^T) JAX solver's signature comes along, so
+its signed factor solves and gives `slogdet` / `inertia` in the port too.
+A level the JAX package stored bfloat16 stays bfloat16, and a
 level it kept in host memory (a NumPy array in its `panels`: the offloaded
 regimes) stays in host memory; the port's solve reads both. The other way
 needs no code: the port's per-level [B, F, W] factors, read with
@@ -50,7 +52,8 @@ def plan_from_jax(jplan) -> SolvePlan:
 
 
 def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
-    """A factored port solver holding the JAX solver's plan and factor."""
+    """A factored port solver holding the JAX solver's plan, factor and
+    signature (`signs`, None for a Cholesky factor)."""
     if not jax_solver.factored:
         raise ValueError("factorize the JAX solver first")
     jfp = jax_solver.fplan
@@ -66,7 +69,8 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
         raise ValueError(f"solver dtype {dtype}; the port takes float32 or "
                          "float64 factorizations")
     solver = SparseCholesky(plan, jax_solver.rows, jax_solver.cols,
-                            jax_solver.vals, dtype=dtype, device=device)
+                            jax_solver.vals, dtype=dtype, device=device,
+                            signs=getattr(jax_solver, "signs", None))
     solver._fplan = fp
     solver.panels = tuple(
         _level(p, "cpu" if isinstance(p, np.ndarray) else solver.device)

@@ -16,12 +16,16 @@ Ported:
     of finished levels to host memory and the spill of emitted update pieces.
     `factor` (`:2552`) runs it.
   * `invert_pivots` (`:2340`), `_solve_banded_core` / `_solve_banded`
-    (`:1983-2040`), and `frontal_solve` (`:2043`), the solve without pivot
-    inverses, which also reads bf16 and host-resident levels. Every solve
-    takes one right-hand side [n] or a block [n, k]; `solve_multi`
-    (`:2431`) is the block's entry point.
+    (`:1983-2040`; with a sign vector, the quasi-definite solve of a signed
+    factor, `numeric/ldlt.py`), and `frontal_solve` (`:2043`), the solve
+    without pivot inverses, which also reads bf16 and host-resident
+    levels. Every solve takes one right-hand side [n] or a block [n, k];
+    `solve_multi` (`:2431`) is the block's entry point.
   * `frontal_upper_solve` (`:2203`, x = L^-T z) and `frontal_upper_matvec`
     (`:2249`, z = L^T x), the sampler's and the whitening's transforms.
+  * `forward_partial` / `backward_partial` (`:2146-2200`), the sweeps of
+    static condensation: `_sweeps` stopped before the root, and the
+    backward sweep from level 1 with the root rows given.
   * Same-pattern families (`factor_many` / `solve_many_systems`,
     `:2451-2498`): K systems folded into the batch axis (`FamilyView`), so
     one level loop factors the whole family and the kernel route decides on
@@ -584,7 +588,7 @@ def invert_pivots(fp: FrontalPlan, factors, device=None
 
 
 def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
-                       g: torch.Tensor) -> torch.Tensor:
+                       g: torch.Tensor, signs=None) -> torch.Tensor:
     """Forward + backward substitution in the level-major padded basis (see
     `_banded_maps`). `g` is the PADDED rhs [n_pad + 1], or a block of k of
     them [n_pad + 1, k] (columns the minor axis, so that a level's band
@@ -594,7 +598,11 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
     level share ancestor rows, so it accumulates; with atomics, so sums
     over shared rows come in no fixed order); the backward step a boundary
     gather + 2 products + a slice write. A level stored narrower than g
-    (bf16) or in host memory is promoted / moved for its products."""
+    (bf16) or in host memory is promoted / moved for its products.
+
+    `signs` ([n_pad + 1] in the padded basis, `ldlt.DeviceSigns.padded`)
+    makes it the quasi-definite solve of a signed factor: the forward
+    results ys are scaled by S between the two loops."""
     levels = fp.levels
     _, offs, _, _, _ = _banded_maps(fp)
     vec = g.dim() == 1
@@ -613,6 +621,9 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
             del X
             g.index_add_(0, _device_index(fp, "bnd_pad", lvl, g.device)
                          .reshape(-1), contrib, alpha=-1)
+        if signs is not None:                                  # w = S z
+            y *= signs[offs[lvl]:offs[lvl] + B * Wl].view(B, Wl, 1).to(
+                y.dtype)
     xg = torch.zeros_like(g)
     for lvl in range(levels):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
@@ -629,16 +640,16 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
 
 
 def _solve_banded(fp: FrontalPlan, factors, inv_pivots,
-                  b_perm: torch.Tensor) -> torch.Tensor:
-    """Permuted-basis wrapper around `_solve_banded_core`: one entry gather
-    into the padded basis, one exit gather back. `b_perm` [n] or [n, k] ->
-    x of the same shape."""
+                  b_perm: torch.Tensor, signs=None) -> torch.Tensor:
+    """Permuted-basis wrapper around `_solve_banded_core` (`signs` as
+    there): one entry gather into the padded basis, one exit gather back.
+    `b_perm` [n] or [n, k] -> x of the same shape."""
     device = b_perm.device
     zero = b_perm.new_zeros((1,) + tuple(b_perm.shape[1:]))
     b_ext = torch.cat([b_perm, zero])
     g = torch.cat([b_ext[_device_index(fp, "inv_map", None, device)],
                    zero])                                # [n_pad + 1(, k)]
-    xg = _solve_banded_core(fp, factors, inv_pivots, g)
+    xg = _solve_banded_core(fp, factors, inv_pivots, g, signs)
     return xg[_device_index(fp, "pad_of", None, device)]
 
 
@@ -680,7 +691,7 @@ def _x_apply(pan: torch.Tensor, vec: torch.Tensor, W: int,
 
 
 def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
-            backward: bool = True) -> None:
+            backward: bool = True, top: int = 0) -> None:
     """Forward (L y = b) and / or backward (L^T x = y) substitution, in
     place on the work array bg [R, k] in the permuted basis: for one system
     R = n + 1, row n the sentinel; for a family view R = K (n + 1), rows
@@ -690,13 +701,15 @@ def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
     scatter back; the sentinels are zeroed after every level. A level held
     in host memory is moved to the device one level at a time, in each
     sweep; a level stored narrower than bg (bf16) is promoted one batch
-    chunk at a time."""
+    chunk at a time. `top` = 1 leaves out the root level: the forward sweep
+    stops before it and the backward sweep starts below it (the partial
+    sweeps of static condensation)."""
     base, K = _unwrap(fp)
     n = base.plan.n
     device = bg.device
     k = bg.shape[1]
     sentinels = bg.view(K, n + 1, k)[:, n]
-    for lvl in range(fp.levels - 1, -1, -1) if forward else ():
+    for lvl in range(fp.levels - 1, top - 1, -1) if forward else ():
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         pan = factors[lvl].to(device)
         piv = _index(fp, "piv_rows", lvl, device)
@@ -709,7 +722,7 @@ def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
                           alpha=-1)
         sentinels.zero_()
         del pan
-    for lvl in range(fp.levels) if backward else ():
+    for lvl in range(top, fp.levels) if backward else ():
         Wl, Fl = fp.W[lvl], fp.F[lvl]
         pan = factors[lvl].to(device)
         piv = _index(fp, "piv_rows", lvl, device)
@@ -739,6 +752,38 @@ def frontal_solve(fp: FrontalPlan, factors, b_perm: torch.Tensor
     bg, vec = _with_sentinel(b_perm)
     _sweeps(fp, factors, bg)
     n = fp.plan.n
+    return bg[:n, 0] if vec else bg[:n]
+
+
+def forward_partial(fp: FrontalPlan, factors, b_perm: torch.Tensor
+                    ) -> torch.Tensor:
+    """Forward substitution over levels levels-1 .. 1 only, the interior
+    of the tree below the root separator (`frontal_forward_partial`,
+    `frontal.py:2146`). Returns the work array [n + 1] (or [n + 1, k]),
+    sentinel last: at the root separator's pivot rows the CONDENSED
+    right-hand side b_hat = b_r - A_ro A_oo^-1 b_o of the Schur-complement
+    system S x_r = b_hat, at interior pivot rows y = L_oo^-1 b_o, which
+    `backward_partial` reads."""
+    bg, vec = _with_sentinel(b_perm)
+    _sweeps(fp, factors, bg, backward=False, top=1)
+    return bg[:, 0] if vec else bg
+
+
+def backward_partial(fp: FrontalPlan, factors, bg: torch.Tensor,
+                     x_root: torch.Tensor) -> torch.Tensor:
+    """Backward substitution over levels 1 .. levels-1 given the interface
+    solution `x_root` ([W0] or [W0, k], zero past the root separator's
+    size) and the work array of `forward_partial` (`frontal_backward_
+    partial`, `frontal.py:2177`): recovers the interior, x_o = A_oo^-1 (b_o
+    - A_or x_r). Returns x in PERMUTED order, [n] or [n, k] (root rows =
+    x_root)."""
+    vec = bg.dim() == 1
+    bg = (bg[:, None] if vec else bg).clone()
+    xr = x_root[:, None] if x_root.dim() == 1 else x_root
+    bg[_device_index(fp, "piv_rows", 0, bg.device)[0]] = xr.to(bg.dtype)
+    n = fp.plan.n
+    bg[n] = 0                           # padded root rows land on it
+    _sweeps(fp, factors, bg, forward=False, top=1)
     return bg[:n, 0] if vec else bg[:n]
 
 

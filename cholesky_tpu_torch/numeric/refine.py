@@ -5,7 +5,9 @@ the single-RHS loop (`:65-413`) and the block loop (`df_matvec_multi`,
 "banded" (explicit pivot inverses, the level chain in the padded basis) and
 "plain" (no inverses: `frontal.frontal_solve` in the permuted basis,
 `refine.py:316-350`), which also reads bf16 and host-resident factor
-levels. A same-pattern family (`solve_refined_df_family`) runs the block
+levels. Both loops refine a quasi-definite signed factor too (`signs`:
+the inner solve applies S between its substitutions, `numeric/ldlt.py`).
+A same-pattern family (`solve_refined_df_family`) runs the block
 loop's rule over K systems at once: one ELL index, a value plane per
 system, the family's solve without inverses.
 
@@ -36,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cholesky_tpu_torch.numeric import frontal, regimes
+from cholesky_tpu_torch.numeric import frontal, ldlt, regimes
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 
 _SPLIT = 4097.0                    # Dekker split constant for f32: 2^12 + 1
@@ -222,10 +224,25 @@ def _iterate(solve, resid, b_hi, norm, tol: float, max_iter: int):
     return x_hi, x_lo, sweeps, rn
 
 
+def _inner_solve(fp: FrontalPlan, factors, inv_pivots, signs):
+    """The solve a refinement loop applies: the banded chain with pivot
+    inverses (in the padded basis) or the sweeps without them (in the
+    permuted basis); with `signs` (an `ldlt.DeviceSigns`) the quasi-
+    definite solve of a signed factor, S applied between the two
+    substitutions."""
+    if inv_pivots is not None:
+        pad = None if signs is None else signs.padded
+        return lambda rhs: frontal._solve_banded_core(fp, factors,
+                                                      inv_pivots, rhs, pad)
+    if signs is not None:
+        return lambda rhs: ldlt.solve_qd(fp, factors, signs, rhs)
+    return lambda rhs: frontal.frontal_solve(fp, factors, rhs)
+
+
 def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
                      inv_pivots: Optional[Sequence[torch.Tensor]],
                      b64: np.ndarray, ell, tol: float = 1e-12,
-                     max_iter: int = 40):
+                     max_iter: int = 40, signs=None):
     """IR with f32 solves and double-float residuals. `b64` is the PERMUTED
     f64 RHS [n]: a NumPy array, or a tensor (then everything but the norms
     read per sweep stays on the device, the result too). With `inv_pivots`
@@ -233,9 +250,10 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     `pad_ell` planes; with inv_pivots=None the inner solve is
     `frontal.frontal_solve` in the permuted basis and `ell` is the
     `build_ell` planes of the permuted matrix. Either way `ell` lies on the
-    solve's device (idx as int64). Returns (x_perm64, sweeps, rn_rel): the
-    f64 solution in permuted order, the sweep count, and the loop's own
-    (double-float) estimate of the final RELATIVE residual."""
+    solve's device (idx as int64). `signs` (an `ldlt.DeviceSigns`): the
+    factor is a quasi-definite signed one. Returns (x_perm64, sweeps,
+    rn_rel): the f64 solution in permuted order, the sweep count, and the
+    loop's own (double-float) estimate of the final RELATIVE residual."""
     idx, a_hi, a_lo = ell
     device = idx.device
     b64, as_numpy = _rhs_on_device(b64, device)
@@ -244,10 +262,7 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     b_hi, b_lo = _split_rhs(fp, b64, banded)
     tol_abs = float(np.float32(tol * bnorm))
 
-    def solve(rhs):
-        if banded:
-            return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
-        return frontal.frontal_solve(fp, factors, rhs)
+    solve = _inner_solve(fp, factors, inv_pivots, signs)
 
     def resid(x_hi, x_lo):
         # banded: the state vectors carry their zero sentinel slot inline
@@ -303,11 +318,11 @@ def _rel_norms(r_hi: torch.Tensor, bnorms: torch.Tensor) -> torch.Tensor:
 def solve_refined_df_multi(fp: FrontalPlan, factors: Sequence[torch.Tensor],
                            inv_pivots: Optional[Sequence[torch.Tensor]],
                            B64: np.ndarray, ell, tol: float = 1e-12,
-                           max_iter: int = 40):
+                           max_iter: int = 40, signs=None):
     """IR for a block of right-hand sides: `B64` is the PERMUTED f64 [n, k]
-    block (NumPy or tensor, as in `solve_refined_df`); engines and `ell` as
-    there. Sweeps are shared across columns (every column gets the
-    correction each round); the loop stops on the worst column's relative
+    block (NumPy or tensor, as in `solve_refined_df`); engines, `ell` and
+    `signs` as there. Sweeps are shared across columns (every column gets
+    the correction each round); the loop stops on the worst column's relative
     residual, with a zero column guarded by a unit norm. The block is split,
     normed and joined on the device: the host sees one upload, one read
     per sweep and one download. Returns (X_perm64 [n, k], sweeps,
@@ -324,10 +339,7 @@ def solve_refined_df_multi(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     del B64
     tol_rel = float(np.float32(tol))
 
-    def solve(rhs):
-        if banded:
-            return frontal._solve_banded_core(fp, factors, inv_pivots, rhs)
-        return frontal.frontal_solve(fp, factors, rhs)
+    solve = _inner_solve(fp, factors, inv_pivots, signs)
 
     def resid(x_hi, x_lo):
         if not banded:

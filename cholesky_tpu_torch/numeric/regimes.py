@@ -80,8 +80,10 @@ ELL_MAX_K = 96
 _SIZE = {torch.float64: 8, torch.float32: 4, torch.bfloat16: 2}
 
 
-class BudgetError(RuntimeError):
-    """No regime plan fits the memory budget."""
+class BudgetError(MemoryError, RuntimeError):
+    """No regime plan fits the memory budget. A MemoryError, as the JAX
+    package's in-core guards raise (selected inversion, families), and a
+    RuntimeError."""
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -587,6 +589,57 @@ def selinv_bytes(F, W, dtype, resident: int = 0,
         peak = max(peak, *phases)
         P_prev = P if l < L - 1 else 0
     return resident + idx + (n_pad + 1) * c + peak + SLACK_BYTES
+
+
+def plan_qd(fp, dtype, budget: int) -> RegimePlan:
+    """The regime plan of a quasi-definite (LDL^T) factorization,
+    `ldlt.factor_qd`: in core and square, slabs assembled eagerly, updates
+    and the stored factor in the compute dtype on the device, no chunks (the
+    JAX package's qd path is in core too). Per level the estimate follows
+    `ldlt._factor_level_qd`: beside the stored factors of the levels below,
+    the slabs not consumed yet, the child maps, the signature and
+    SLACK_BYTES, the largest of its phases, each on top of the square front
+    [B, F + 1, F] (not at the leaves): the children's update and one chunk
+    of its extend-add; the signed Cholesky's working copy of the pivot
+    block, its trailing-update temporary and two panels; that copy beside
+    the new factor; the factor and the boundary solve with its copy; the
+    factor, the solve and the update it emits [B, K, K]. Raises BudgetError
+    naming the first level (leaves to root) that does not fit, before
+    anything is allocated."""
+    F, W = tuple(int(f) for f in fp.F), tuple(int(w) for w in fp.W)
+    dtype = torch_dtype(dtype)
+    fi = _SIZE[dtype]
+    L = len(F)
+    slab = [(1 << l) * F[l] * W[l] * fi for l in range(L)]
+    n_pad = sum((1 << l) * W[l] for l in range(L))
+    sig = 3 * (n_pad + 1) * fi              # slabs, permuted, padded
+    stored, levels = 0, [None] * L
+    for lvl in range(L - 1, -1, -1):
+        B, Fl, Wl = 1 << lvl, F[lvl], W[lvl]
+        K = Fl - Wl
+        leaf = lvl == L - 1
+        sq = 0 if leaf else B * (Fl + 1) * Fl * fi
+        Kc = 0 if leaf else F[lvl + 1] - W[lvl + 1]
+        U = 2 * B * Kc * Kc * fi
+        ext = _fused_chunk(2 * B, Kc, Fl, fi, fi) if Kc else 0
+        ww = B * Wl * Wl * fi
+        chol = 2 * ww + 2 * B * Wl * min(64, Wl) * fi
+        X = B * K * Wl * fi
+        U2 = B * K * K * fi if lvl > 0 else 0
+        fac = slab[lvl]
+        work = max(U + ext, chol, ww + fac, fac + 2 * X, fac + X + U2)
+        peak = (stored + sum(slab[:lvl + 1]) + _idx_bytes(F, W, lvl) + sig
+                + SLACK_BYTES + sq + work)
+        if peak > budget:
+            raise BudgetError(
+                f"the quasi-definite (LDL^T) factorization runs in core and "
+                f"square only: level {lvl} (B = {B}, F = {Fl}, W = {Wl}) "
+                f"needs {peak} bytes, over the budget of {int(budget)} "
+                f"bytes")
+        levels[lvl] = LevelPlan(False, False, dtype, 1, dtype, False, False,
+                                peak_bytes=peak, square_bytes=peak)
+        stored += fac
+    return RegimePlan(dtype, int(budget), False, False, levels)
 
 
 def plan_regimes(fp, dtype, budget: int, *, two_piece=None,

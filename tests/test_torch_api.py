@@ -110,8 +110,9 @@ def test_cuda_device_is_never_a_silent_cpu(port_fixtures):
 
 def test_port_never_imports_jax():
     """The port's entry points (from_coo, from_scipy, spsolve, block solve,
-    update_values, checkpoint, profiler, inv_diag, sample, factorize_many)
-    load neither jax nor any module of the JAX package."""
+    update_values, checkpoint, profiler, inv_diag, sample, factorize_many,
+    the quasi-definite path, the Schur set, Woodbury updates, eigsh,
+    condest) load neither jax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -145,6 +146,20 @@ def test_port_never_imports_jax():
         "                        emit=lambda line: None)\n"
         "x = cholesky_tpu_torch.spsolve(a, np.ones(n), device='cpu')\n"
         "assert np.linalg.norm(t._matrix_csr() @ x / 2 - 1) <= 1e-8\n"
+        "n, r, c, v, o, cl, b = generate_problem((6, 6), 2)\n"
+        "sg = np.where(np.arange(n) % 3 == 0, -1.0, 1.0)\n"
+        "vq = np.where(r == c, sg[r] * (v + 0.5), v)\n"
+        "q = cholesky_tpu_torch.SparseCholesky.from_coo(\n"
+        "    n, r, c, vq, o, cl, signs=sg, device='cpu')\n"
+        "assert q.residual(b, q.solve(b)) <= 1e-10\n"
+        "assert q.inertia() == (24, 12, 0) and q.slogdet()[0] == 1\n"
+        "p = cholesky_tpu_torch.SparseCholesky.from_coo(\n"
+        "    n, r, c, v, o, cl, device='cpu')\n"
+        "xr = np.linalg.solve(p.schur_complement(), p.condense_rhs(b))\n"
+        "assert p.residual(b, p.expand_solution(b, xr)) <= 1e-10\n"
+        "assert p.eigsh(k=2)[0].shape == (2,)\n"
+        "assert p.condest(method='lanczos') > 1\n"
+        "assert np.all(np.isfinite(p.solve_updated(b, np.ones(n))))\n"
         "print('jax' in sys.modules)\n"
         "print(sorted(m for m in sys.modules if m == 'cholesky_tpu'\n"
         "             or m.startswith('cholesky_tpu.')))\n")
@@ -172,6 +187,8 @@ def _port_sources():
 def test_port_sources_never_name_the_jax_package_in_an_import():
     paths = _port_sources()
     assert len(paths) > 10
+    for new in ("numeric/ldlt.py", "numeric/eigs.py"):
+        assert os.path.join(REPO, "cholesky_tpu_torch", new) in paths
     bad = []
     for path in paths:
         with open(path) as f:

@@ -145,7 +145,6 @@ def test_cli_profile_emits_the_jax_profilers_ops(port_fixtures):
 
 
 @pytest.mark.parametrize("flag,args", [
-    ("--signs", ["--signs", "signs.txt"]),
     ("--devices", ["--devices", "4"]),
     ("--slices", ["--slices", "2"]),
     ("-d", ["-d", "dbg"]),
@@ -158,6 +157,40 @@ def test_cli_unported_flags_exit_2_naming_the_flag(flag, args, capsys,
     assert cli.main([*_files(p), *args, "--device", "cpu"]) == 2
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1 and f" {flag} " in lines[0]
+
+
+def test_cli_signs_matches_the_jax_cli(tmp_path, port_fixtures):
+    """`--signs FILE`: a quasi-definite matrix made from the 9x9 fixture
+    (seeded diagonal signs flipped, |diag| + 0.5) and its signature file
+    through both CLIs: the same `signature:` line, SOLVE residuals at the
+    contract, solution files within FILE_TOL (f64)."""
+    p = port_fixtures("lapl_9x9")
+    banner, r, c, v = mmio.read_coo(p["mat"])
+    n = banner.rows
+    s = np.where(np.random.default_rng(5).random(n) < 0.4, -1.0, 1.0)
+    d = r == c
+    v = v.copy()
+    v[d] = s[r[d]] * (np.abs(v[d]) + 0.5)
+    mat, sig = str(tmp_path / "qd.mtx"), str(tmp_path / "signs.txt")
+    mmio.write_coo(mat, r, c, v, (n, n), symmetry=banner.symmetry)
+    np.savetxt(sig, s)
+    out = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        sol = str(tmp_path / f"{tag}_sol.txt")
+        r_ = run_cli(["-i", mat, "-s", p["separators"], "-c", p["clusters"],
+                      "-b", p["b"], "-o", sol, "--signs", sig], module)
+        assert r_.returncode == 0, r_.stderr[-2000:]
+        line = [ln for ln in r_.stdout.splitlines()
+                if ln.startswith("signature: ")]
+        (solve,) = _lines(r_.stdout, "SOLVE")
+        assert solve["residual"] <= 1e-10
+        out[tag] = (line, np.genfromtxt(sol))
+    assert out["t"][0] == out["j"][0] == [
+        f"signature: {int((s > 0).sum())} positive, {int((s < 0).sum())} "
+        "negative (quasi-definite LDL^T)"]
+    x, xj = out["t"][1], out["j"][1]
+    assert np.abs(x - xj).max() <= FILE_TOL * np.abs(xj).max()
 
 
 def test_cli_inv_diag_matches_the_jax_cli(tmp_path, port_fixtures):
@@ -182,8 +215,8 @@ def test_cli_inv_diag_matches_the_jax_cli(tmp_path, port_fixtures):
 def test_cli_usage_and_device_default(port_fixtures):
     assert run_cli([]).returncode == 2
     p = port_fixtures("lapl_9x9")
-    r = run_cli([*_files(p), "--signs", "signs.txt"])
-    assert r.returncode == 2 and "--signs" in r.stdout
+    r = run_cli([*_files(p), "--devices", "4"])
+    assert r.returncode == 2 and "--devices" in r.stdout
     import torch
 
     if not torch.cuda.is_available():

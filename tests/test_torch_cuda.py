@@ -375,3 +375,84 @@ def test_solver_device_is_its_tensors_device():
     assert all(p.device == s.device for p in s.panels)
     assert s._factor_bytes() == sum(p.numel() * 4 for p in s.panels) > 0
     assert s._promote_bytes() == 0
+
+
+def _qd_problem(shape, levels, seed=5):
+    """A quasi-definite matrix on the grid pattern (a seeded 40% of the
+    diagonal signs flipped, |diag| + 0.5) and its signature."""
+    n, r, c, v, o, cl, b = generate_problem(shape, levels)
+    s = np.where(np.random.default_rng(seed).random(n) < 0.4, -1.0, 1.0)
+    vq = v.copy()
+    d = r == c
+    vq[d] = s[r[d]] * (v[d] + 0.5)
+    return n, r, c, vq, o, cl, b, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_qd_factor_and_solve_on_card_match_cpu(dtype):
+    """The signed factor on the card against the CPU port's (per level),
+    solves of [n] and [n, 3] at the contract, slogdet and inertia."""
+    _require_cuda()
+    n, r, c, vq, o, cl, b, s = _qd_problem((12, 12, 12), 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = SparseCholesky.from_coo(n, r, c, vq, o, cl, dtype=dtype,
+                                    device=dev, signs=s)
+        t.factorize(check=True)
+        B = np.random.default_rng(1).standard_normal((n, 3))
+        x, X = t.solve(b), t.solve(B)
+        assert t.residual(b, x) <= TOL and t.residual(B, X) <= TOL
+        out[dev] = ([p.cpu() for p in t.panels], x, t.slogdet(),
+                    t.inertia())
+    tol = 1e-10 if dtype == np.float64 else 1e-4
+    assert all(_rel(g, w) <= tol for g, w in zip(out["cuda"][0],
+                                                 out["cpu"][0]))
+    assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= 1e-8 * np.abs(
+        out["cpu"][1]).max()
+    assert out["cuda"][2][0] == out["cpu"][2][0]
+    assert abs(out["cuda"][2][1] - out["cpu"][2][1]) <= 1e-6 * abs(
+        out["cpu"][2][1])
+    assert out["cuda"][3] == out["cpu"][3] == (int((s > 0).sum()),
+                                               int((s < 0).sum()), 0)
+
+
+@pytest.mark.cuda
+def test_qd_factorization_launches_no_chol_inv():
+    """The signed factorization never takes the SPD kernel route, even on
+    levels the routing rule would send there; the SPD factorization of the
+    same pattern still does."""
+    _require_cuda()
+    n, r, c, vq, o, cl, b, s = _qd_problem((20, 20, 20), 6)
+    rule = (hk.MIN_B, hk.W_PER_B)
+    hk.MIN_B, hk.W_PER_B = 1, 1 << 20       # every W >= 128 level eligible
+    try:
+        t = SparseCholesky.from_coo(n, r, c, vq, o, cl, dtype=np.float32,
+                                    signs=s)
+        before = hk.LAUNCHES["chol_inv"]
+        t.factorize()
+        assert hk.LAUNCHES["chol_inv"] == before
+        assert t.residual(b, t.solve(b)) <= TOL
+        spd = SparseCholesky.from_coo(n, r, c, np.abs(vq), o, cl,
+                                      dtype=np.float32)
+        spd.factorize()
+        assert hk.LAUNCHES["chol_inv"] > before
+    finally:
+        hk.MIN_B, hk.W_PER_B = rule
+
+
+@pytest.mark.cuda
+def test_schur_complement_on_card_matches_cpu():
+    _require_cuda()
+    n, r, c, v, o, cl, b = generate_problem((14, 14, 14), 5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float64,
+                                    device=dev)
+        S = t.schur_complement()
+        bh = t.condense_rhs(b)
+        x = t.expand_solution(b, np.linalg.solve(S, bh))
+        assert t.residual(b, x) <= TOL
+        out[dev] = (S, bh, x)
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert np.abs(g - w).max() <= 1e-10 * np.abs(w).max()
