@@ -7,7 +7,9 @@ GPU.
 Phases, each printing one JSON line:
   1. device: the card (and `nvidia-smi` name + power limit on its own line);
   2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
-             csrc` with nvcc, build seconds and the `-Xptxas -v` report;
+             csrc` with nvcc, build seconds and the `-Xptxas -v` report; the
+             native host core (`cholesky_tpu_torch/native/src/mndio.cc`)
+             built with g++: seconds, cached or not, `g++ --version`;
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
              blocks (errors against an f64 reference), then at each shape
              the main paths launch it with, [128|64|32, 128, 128] (50^3),
@@ -59,14 +61,26 @@ Phases, each printing one JSON line:
              block solve, f64 residuals; then update_values with a seeded
              SPD-preserving perturbation -> factorize (the regime plan is
              reused) -> solve against the new matrix, and logdet against
-             the port's own f64 factor on the CPU;
+             the port's own f64 factor on the CPU. Every ordering must run
+             on the native host core (`ordering_info["engine"]`), its
+             seconds printed beside the Python engine's on the same
+             matrices; then circuit at scale 1 ordered by both engines
+             (identical dofs and clusters), `nd_order` of the aniso3d graph
+             at 1 thread and at the default (identical), and the 140^3
+             pattern ordered alone at 14 levels (seconds, symbolic FLOPs
+             of its permutation beside the geometric ordering's) and at
+             the automatic depth;
  11. cli:    a 30^3 problem written to files and run through
              `python -m cholesky_tpu_torch.cli` as a subprocess on the card
-             (-o, -m, --profile, --save-factor, --inv-diag; then
+             (-o, -m, --profile, --save-factor, --inv-diag, -d; then
              --load-factor): exit codes, the SOLVE residual, the solution
              file against SciPy, FACTOR_SLAB lines exactly on the
              kernel-routed levels, the diag(A^-1) file against refined
-             solves of unit vectors;
+             solves of unit vectors, the -d log's op lines against the
+             schedule computed in process, both process walls beside the
+             Python engine's; in process, read_coo of the matrix and
+             write_coo of the factor file, native beside Python (the same
+             bytes);
  12. selinv: selected inversion, gradients and sampling on the slice's
              50^3 f32 factor: inv_diag wall (cold, warm) and peak memory
              beside the `regimes.selinv_bytes` estimate; inv_diag at 64
@@ -110,6 +124,14 @@ Phases, each printing one JSON line:
              exact Dirichlet spectrum 4 sum sin^2(i pi / 102); condest by
              Lanczos against the exact lambda_max / lambda_min and by power
              iteration; synchronized walls of each.
+ 16. debug:  the 20^2 L5 problem (the reference's lapl_400x400 shape)
+             through the CLI on the card with `--dtype float64 -d DIR
+             --debug-dumps -m factored.mtx -b B.mtx`, then
+             `verify.replay.debug_factor` at 1e-10 over its log, dumps and
+             factor file: dumps, seconds. Then the native core's call
+             counts: every ordering, fill analysis and matrix file read or
+             written in this process ran natively.
+Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
 Exits nonzero, without the last line, when there is no CUDA device, when
@@ -166,12 +188,26 @@ SCHUR_REL_TOL = 1e-4               # condensed round trip vs a refined solve
 EIG_REL_TOL = 1e-8                 # eigenvalues vs the exact spectrum
 COND_REL_TOL = 1e-6                # condest(lanczos) vs the exact kappa
 WOODBURY_K = 16
+# the port's Python ordering engine on the ordering phase's matrices and
+# the CLI phase's process walls with it, measured by this script on an
+# NVIDIA H100 80GB HBM3 host at 700 W before the native core was wired in
+PYTHON_ORDERING_S = {"aniso3d": 13.8, "elasticity": 91.8, "circuit": 33.2}
+PYTHON_CLI_WALL_S = (41.6, 18.1)
+ENGINE_PARITY = ("circuit", 1)     # ordered by both engines
+SCALE_ORDER_LEVELS = 14            # the 140^3 pattern ordered alone
+DEBUG_PROBLEM = ((20, 20), 5)      # the reference's lapl_400x400 shape
+DEBUG_TOL = 1e-10                  # debug_factor's rtol / atol (f64)
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
 
 
+CARD = None                        # nvidia-smi's name, power limit
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "card": CARD}
     print(json.dumps(obj), flush=True)
 
 
@@ -227,7 +263,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
@@ -248,7 +286,27 @@ def phase_build():
                              build.BUILD_INFO[name]["ptxas"].splitlines()
                              if "Used" in ln or "spill" in ln]}
             for name in build.KERNELS}
-    emit({"phase": "build", "seconds": round(seconds, 3), "kernels": info})
+    emit({"phase": "build", "seconds": round(seconds, 3), "kernels": info,
+          "native": native_build()})
+
+
+def native_build() -> dict:
+    """Build the native host core with g++ (nothing has loaded it yet);
+    fails when it cannot be built."""
+    from cholesky_tpu_torch.native import build, ext
+
+    t0 = time.perf_counter()
+    check(ext.available(), f"the native host core did not build: "
+          f"{ext.build_error()}")
+    gxx = subprocess.run([build.compiler(), "--version"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return {"seconds": time.perf_counter() - t0,
+            "gxx_s": build.BUILD_INFO["seconds"],
+            "cached": build.BUILD_INFO["cached"],
+            "library": os.path.relpath(build.BUILD_INFO["path"],
+                                       os.path.dirname(os.path.abspath(
+                                           __file__))),
+            "gxx": gxx.stdout.splitlines()[0]}
 
 
 def check_chol_inv(x):
@@ -1144,6 +1202,10 @@ def phase_ordering():
         t0 = time.perf_counter()
         s = SparseCholesky.from_scipy(lower, dtype=np.float32, device="cuda")
         build_s = time.perf_counter() - t0
+        check(s.ordering_info["engine"] == "native",
+              f"{name}: ordered by the {s.ordering_info['engine']} engine")
+        if name == "aniso3d":
+            graph = (f"{name} x{scale}", n, r, c, s.plan.levels)
         fp = s.fplan
         levels = level_routes(fp)
         walls = []
@@ -1160,6 +1222,8 @@ def phase_ordering():
         emit({"phase": "ordering", "problem": problem, "n": n,
               "nnz_lower": int(len(s.vals)),
               "ordering": s.ordering_info, "build_s": build_s,
+              "order_s": s.ordering_info["order_s"],
+              "python_engine_order_s": PYTHON_ORDERING_S[name],
               "levels": levels, "factor_wall_s": walls[0],
               "factor_wall_warm_s": walls[1], "solves": solves,
               "chol_inv_launches_per_factorization": want})
@@ -1205,7 +1269,94 @@ def phase_ordering():
         total += launches["chol_inv"]
         del s, ref
     check(total > 0, "the ordering path launched no chol_inv kernel")
+    ordering_engines(graph)
+    ordering_scale()
     return total
+
+
+def _same_ordering(a, b) -> bool:
+    import numpy as np
+
+    (oa, ca), (ob, cb) = a, b
+    return ((oa.levels, sorted(oa.dofs)) == (ob.levels, sorted(ob.dofs))
+            and all(np.array_equal(oa.dofs[s], ob.dofs[s]) for s in oa.dofs)
+            and sorted(ca.intervals) == sorted(cb.intervals)
+            and all(len(ca.intervals[s]) == len(cb.intervals[s])
+                    and all(np.array_equal(x, y) for x, y in zip(
+                        ca.intervals[s], cb.intervals[s]))
+                    for s in ca.intervals))
+
+
+def ordering_engines(graph):
+    """The native core against the Python engine on this host: a gallery
+    matrix at scale 1 ordered by both (identical dofs and clusters), and
+    nd_order of the aniso3d graph at 1 thread and at the default
+    (identical)."""
+    import numpy as np
+
+    from cholesky_tpu_torch.native import ext
+    from cholesky_tpu_torch.symbolic.nd import nested_dissection_graph
+    from cholesky_tpu_torch.utils import problems
+
+    name, scale = ENGINE_PARITY
+    n, r, c, _ = problems.make_gallery(scale)[name]()
+    infos, orders = {}, {}
+    for engine in ("native", "python"):
+        infos[engine] = {}
+        orders[engine] = nested_dissection_graph(
+            n, r, c, info=infos[engine], native=engine == "native")
+        check(infos[engine]["engine"] == engine,
+              f"{name}: asked {engine}, ran {infos[engine]['engine']}")
+    check(_same_ordering(orders["native"], orders["python"]),
+          f"{name} x{scale}: the engines' orderings differ")
+    problem, gn, gr, gc, levels = graph
+    walls, sep_of = {}, {}
+    for threads in (1, None):
+        t = time.perf_counter()
+        sep_of[threads] = ext.nd_order(gn, gr, gc, levels, threads=threads)
+        walls[threads] = time.perf_counter() - t
+    check(np.array_equal(sep_of[1], sep_of[None]),
+          f"{problem}: nd_order differs between 1 thread and the default")
+    emit({"phase": "ordering", "what": "engines", "problem":
+          f"{name} x{scale}", "n": n, "identical": True,
+          "native": infos["native"], "python": infos["python"],
+          "nd_order": {"problem": problem, "n": gn, "levels": levels,
+                       "threads_default": min(os.cpu_count() or 1, 8),
+                       "threads_1_s": walls[1],
+                       "threads_default_s": walls[None],
+                       "identical": True}})
+
+
+def ordering_scale():
+    """The 140^3 pattern (2.74M dofs) ordered alone, not factored: native
+    nested dissection at SCALE_ORDER_LEVELS levels with its seconds and the
+    symbolic FLOPs and nnz(L) of its permutation (native col_counts) beside
+    those of generate_problem's geometric ordering; then the automatic
+    depth (levels=None)."""
+    from cholesky_tpu_torch.symbolic.nd import nested_dissection_graph
+    from cholesky_tpu_torch.symbolic.plan import build_plan
+    from cholesky_tpu_torch.symbolic.quality import permuted_cost
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    shape, levels = SCALE
+    n, r, c, _, o, cl, _ = generate_problem(shape, levels, seed=SEED)
+    info, auto = {}, {}
+    ordng, _ = nested_dissection_graph(n, r, c, levels=SCALE_ORDER_LEVELS,
+                                       info=info)
+    check(info["engine"] == "native", "140^3: ordered by the Python engine")
+    t = time.perf_counter()
+    nd_cost = permuted_cost(n, r, c, build_plan(ordng).perm)
+    geo_cost = permuted_cost(n, r, c, build_plan(o, cl).perm)
+    cost_s = time.perf_counter() - t
+    nested_dissection_graph(n, r, c, info=auto)
+    check(auto["engine"] == "native", "140^3: auto depth ran in Python")
+    emit({"phase": "ordering", "what": "ordering only", "problem":
+          f"{shape[0]}^3", "n": n, "levels": SCALE_ORDER_LEVELS,
+          "order_s": info["order_s"], "ordering": info,
+          "graph_nd": {"flops": nd_cost[0], "nnz_L": nd_cost[1]},
+          "geometric": {"flops": geo_cost[0], "nnz_L": geo_cost[1]},
+          "flops_ratio": nd_cost[0] / geo_cost[0],
+          "two_costs_s": cost_s, "auto_depth": auto})
 
 
 def qd_problem(shape, levels, seed):
@@ -1356,6 +1507,8 @@ def phase_qd(spd):
         res = float(np.linalg.norm(K @ x - b) / np.linalg.norm(b))
         check(res <= TOL, f"qd KKT: residual {res} > {TOL}")
         rows.append({"wall_s": wall, "residual": res, **ks.last_solve})
+    check(ks.ordering_info["engine"] == "native",
+          "qd KKT: ordered by the Python engine")
     check(ks.inertia() == (n1, n2, 0) and ks.slogdet()[0] == (-1) ** n2,
           f"qd KKT: inertia {ks.inertia()} != ({n1}, {n2}, 0)")
     check(hk.LAUNCHES["chol_inv"] == 0, "qd KKT: chol_inv launched")
@@ -1484,8 +1637,10 @@ def phase_cli():
     from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.io import mmio, ordering as ordio
     from cholesky_tpu_torch.numeric.frontal_plan import build_frontal_plan
+    from cholesky_tpu_torch.symbolic import fill
     from cholesky_tpu_torch.symbolic.plan import build_plan
     from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.verify import schedule
 
     shape, levels = CLI_PROBLEM
     n, r, c, v, o, cl, b = generate_problem(shape, levels, seed=SEED)
@@ -1494,7 +1649,7 @@ def phase_cli():
     with tempfile.TemporaryDirectory() as d:
         f = {k: os.path.join(d, k) for k in (
             "m.mtx", "ord.txt", "clust.txt", "b.mtx", "sol.txt", "sol2.txt",
-            "factor.mtx", "ck.npz", "diag.txt")}
+            "factor.mtx", "ck.npz", "diag.txt", "dbg")}
         mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
         ordio.write_ordering(f["ord.txt"], o)
         ordio.write_clusters(f["clust.txt"], cl)
@@ -1505,14 +1660,29 @@ def phase_cli():
         runs = []
         for extra in (["-o", f["sol.txt"], "-m", f["factor.mtx"], "--profile",
                        "--save-factor", f["ck.npz"], "--inv-diag",
-                       f["diag.txt"], "--bench"],
+                       f["diag.txt"], "--bench", "-d", f["dbg"]],
                       ["-o", f["sol2.txt"], "--load-factor", f["ck.npz"]]):
             t = time.perf_counter()
             p = subprocess.run(base + extra, cwd=root, env=env, timeout=600,
                                capture_output=True, text=True)
             check(p.returncode == 0, f"cli exited {p.returncode}: "
                   f"{p.stderr[-2000:]}")
+            check("RuntimeWarning" not in p.stderr,
+                  f"cli warned: {p.stderr[-2000:]}")
             runs.append((p.stdout, time.perf_counter() - t))
+        log = os.path.join(f["dbg"], "output")
+        check(os.path.isfile(log), "cli: -d wrote no log")
+        with open(log) as fh:
+            log_ops = sum(ln.startswith(("POTRF:", "TRSM:", "GEMM:"))
+                          for ln in fh)
+        fa = fill.analyze_fill(build_plan(o, cl), *mmio.dedup_lower(r, c, v))
+        check(fa.engine == "native", "cli: the fill analysis ran in Python")
+        n_ops = len(schedule.generate_schedule(fa))
+        check(log_ops == n_ops, f"cli: the -d log has {log_ops} op lines, "
+              f"the schedule {n_ops}")
+        check("fill engine: native" in runs[0][0], "cli: -d's fill analysis "
+              "did not run natively")
+        io_s = file_io(f["m.mtx"], f["factor.mtx"], d)
         x = np.loadtxt(f["sol.txt"])
         x2 = np.loadtxt(f["sol2.txt"])
         inv_d = np.loadtxt(f["diag.txt"])
@@ -1559,7 +1729,102 @@ def phase_cli():
           "resumed_solve": solve2, "rel_err_vs_scipy": err,
           "invdiag": invdiag, "inv_diag_rel_err_64_dofs": inv_err,
           "factor_file_nnz": fdim[2], "blas": blas,
-          "process_wall_s": [wall, wall2]})
+          "process_wall_s": [wall, wall2],
+          "python_engine_process_wall_s": list(PYTHON_CLI_WALL_S),
+          "debug_log_op_lines": log_ops, "file_io_s": io_s})
+
+
+def file_io(matrix, factor, d) -> dict:
+    """Seconds of mmio.read_coo of the matrix file and mmio.write_coo of
+    the factor file's entries, native beside Python; both writers must
+    write the same bytes."""
+    import filecmp
+
+    from cholesky_tpu_torch.io import mmio
+
+    out = {}
+    for native in (True, False):
+        t = time.perf_counter()
+        mmio.read_coo(matrix, native=native)
+        out[f"read_coo_matrix_{'native' if native else 'python'}"] = (
+            time.perf_counter() - t)
+    banner, fr, fc, fv = mmio.read_coo(factor)
+    paths = {}
+    for native in (True, False):
+        tag = "native" if native else "python"
+        paths[tag] = os.path.join(d, f"rewrite_{tag}.mtx")
+        t = time.perf_counter()
+        mmio.write_coo(paths[tag], fr, fc, fv, (banner.rows, banner.cols),
+                       symmetry=banner.symmetry, native=native)
+        out[f"write_coo_factor_{tag}"] = time.perf_counter() - t
+    check(filecmp.cmp(paths["native"], paths["python"], shallow=False),
+          "the native and Python writers wrote different files")
+    check(filecmp.cmp(paths["native"], factor, shallow=False),
+          "the rewritten factor file differs from the CLI's")
+    for path in paths.values():
+        os.remove(path)
+    out["factor_entries"] = int(banner.nnz)
+    return out
+
+
+def phase_debug():
+    """The CLI's -d / --debug-dumps on the card at the reference's
+    lapl_400x400 shape, checked by the replay oracle."""
+    from cholesky_tpu_torch.io import mmio, ordering as ordio
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.verify import replay
+
+    shape, levels = DEBUG_PROBLEM
+    n, r, c, v, o, cl, b = generate_problem(shape, levels, seed=SEED)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory() as d:
+        f = {k: os.path.join(d, k) for k in (
+            "m.mtx", "ord.txt", "clust.txt", "B.mtx", "factored.mtx", "dbg")}
+        mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
+        ordio.write_ordering(f["ord.txt"], o)
+        ordio.write_clusters(f["clust.txt"], cl)
+        mmio.write_array(f["B.mtx"], b)
+        cmd = [sys.executable, "-m", "cholesky_tpu_torch.cli", "-i",
+               f["m.mtx"], "-s", f["ord.txt"], "-c", f["clust.txt"], "-b",
+               f["B.mtx"], "-m", f["factored.mtx"], "--dtype", "float64",
+               "-d", f["dbg"], "--debug-dumps", "--device", "cuda"]
+        t = time.perf_counter()
+        p = subprocess.run(cmd, cwd=root, env=env, timeout=600,
+                           capture_output=True, text=True)
+        wall = time.perf_counter() - t
+        check(p.returncode == 0, f"debug: cli exited {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+        check("fill engine: native" in p.stdout
+              and "RuntimeWarning" not in p.stderr,
+              "debug: the fill analysis did not run natively")
+        (solve,) = _tagged(p.stdout, "SOLVE")
+        check(solve["residual"] <= TOL, f"debug: residual {solve}")
+        dumps = [x for x in os.listdir(f["dbg"]) if x.endswith(".mtx")]
+        check(len(dumps) > 0, "debug: --debug-dumps wrote no dump")
+        t = time.perf_counter()
+        ok = replay.debug_factor(f["m.mtx"], f["ord.txt"], f["factored.mtx"],
+                                 os.path.join(f["dbg"], "output"),
+                                 directory=f["dbg"], rtol=DEBUG_TOL,
+                                 atol=DEBUG_TOL)
+        oracle_s = time.perf_counter() - t
+        check(ok, "debug: debug_factor rejected the card's factor")
+    emit({"phase": "debug", "problem": f"{shape[0]}^2 L{levels}", "n": n,
+          "dumps": len(dumps), "process_wall_s": wall,
+          "debug_factor": ok, "debug_factor_s": oracle_s, "tol": DEBUG_TOL,
+          "solve": solve})
+
+
+def phase_native():
+    """Every ordering, fill analysis and matrix file read or written in
+    this process ran on the native host core: the count of each."""
+    from cholesky_tpu_torch.native import ext
+
+    calls = dict(ext.CALLS)
+    for name in ("nd_order", "md_order", "col_counts", "fill_initial",
+                 "fill_analyze", "read_coo_body", "write_coo"):
+        check(calls.get(name, 0) > 0, f"the native {name} never ran")
+    emit({"phase": "native", "calls": calls})
 
 
 def main() -> int:
@@ -1592,6 +1857,8 @@ def main() -> int:
         scale = phase_scale()
         ordering_launches = phase_ordering()
         phase_cli()
+        phase_debug()
+        phase_native()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1

@@ -24,8 +24,14 @@ matrices, and Lanczos eigenpairs and condition numbers.
                            with python -m cholesky_tpu.cli)
   convert.py               carry a plan and a factor across from the JAX package
   io/                      MatrixMarket and ordering readers and writers
+  native/                  the C++ host core (a copy of the JAX package's):
+                           ordering, MatrixMarket I/O, fill analysis; g++
+                           at first use, ctypes
   symbolic/                SolvePlan; nd.py, mdtree.py, quality.py: the
-                           ordering of a matrix that comes without one
+                           ordering of a matrix that comes without one;
+                           fill.py: the cluster fill analysis of -d
+  verify/                  the -d structure log, the op schedule and its
+                           replay oracle (NumPy, SciPy)
   utils/                   problem generators (grid Laplacians, the gallery)
   numeric/frontal_plan.py  host frontal analysis (NumPy)
   numeric/regimes.py       the budget and the per-level regime plan

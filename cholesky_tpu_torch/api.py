@@ -172,13 +172,17 @@ class SparseCholesky:
                     dtype=np.float64, device="cuda",
                     budget: Optional[int] = None, md_max: int = 131072,
                     md_small: int = 16384, signs=None,
+                    native: Optional[bool] = None,
+                    threads: Optional[int] = None,
                     _canonical: bool = False) -> "SparseCholesky":
         """Solve an arbitrary SPD (or, with `signs`, symmetric
         quasi-definite) matrix with NO precomputed ordering: a
         nested-dissection ordering is computed from the sparsity graph
         (`symbolic/nd.py`; `md_max` / `md_small` gate its minimum-degree
-        candidate). `ordering_info` keeps what it decided and its host
-        seconds.
+        candidate; `native` / `threads` choose its engine, the native
+        library by default when it is available). `ordering_info` keeps
+        what it decided, the engine that ran (`engine`: "native" or
+        "python") and its host seconds (`order_s`).
 
         `_canonical=True` asserts the COO is already lower-triangle with
         unique coordinates (from_scipy's fold guarantees this), skipping a
@@ -189,11 +193,9 @@ class SparseCholesky:
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         info = {}
-        t0 = time.perf_counter()
         ordng, clusters = nested_dissection_graph(
             n, rows, cols, levels, md_max=md_max, md_small=md_small,
-            info=info)
-        info["seconds"] = time.perf_counter() - t0
+            info=info, native=native, threads=threads)
         solver = cls.from_coo(n, rows, cols, vals, ordng, clusters,
                               dtype=dtype, device=device, budget=budget,
                               signs=signs, _canonical=_canonical)

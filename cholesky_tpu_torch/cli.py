@@ -26,12 +26,24 @@ line, and prints an `INVDIAG:` line (selected inversion, as the JAX CLI).
 symmetric quasi-definite matrix by the signed LDL^T (`numeric/ldlt.py`) and
 prints the JAX CLI's `signature:` line.
 
+`-d DIR` writes the reference-format structure log `DIR/output` (Block,
+Cluster and Fill lines, then the POTRF / TRSM / GEMM schedule of the
+cluster fill analysis, `symbolic/fill.py`, `verify/`) and prints `debug
+log: ...`; with `--debug-dumps` it also replays that schedule on the
+permuted matrix in f64 on the host and writes the matrix after each op
+group under the reference's dump names, for `verify/replay.debug_factor`.
+The log and the dumps are the JAX CLI's, byte for byte; `--debug-dumps`
+without `-d` does nothing, as there.
+
+The native host core (`native/`) reads and writes the matrix files, orders
+and analyses fill when it can be built; the CLI prints `ordering engine:
+native|python` when it orders and `fill engine: native|python` with `-d`.
+
 Flags whose engines the port does not have yet (`--devices` > 1,
-`--slices` > 1, `-d`, `--debug-dumps`) print one line naming the flag and
-exit 2.
+`--slices` > 1) print one line naming the flag and exit 2.
 
 Run: python -m cholesky_tpu_torch.cli -i M.mtx [-s ord.txt -c clust.txt]
-     -b B.mtx -o sol.txt [--device cuda|cpu]
+     -b B.mtx -o sol.txt [-d DIR [--debug-dumps]] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -121,9 +133,7 @@ def parse_args(argv):
 def _unported(opts):
     """The first flag given whose engine the port lacks, or None."""
     for flag, given in (("--devices", opts["devices"] > 1),
-                        ("--slices", opts["slices"] > 1),
-                        ("-d", opts["debug"]),
-                        ("--debug-dumps", opts["debug_dumps"])):
+                        ("--slices", opts["slices"] > 1)):
         if given:
             return flag
     return None
@@ -136,7 +146,8 @@ def main(argv=None) -> int:
     if not opts["matrix_file"]:
         print("usage: python -m cholesky_tpu_torch.cli -i matrix.mtx "
               "[-s ord.txt] [-c clust.txt] [-b B.mtx] [-o solution.txt] "
-              "[-m factor.mtx] [-p permuted.mtx] [--iterations N] "
+              "[-m factor.mtx] [-p permuted.mtx] [-d debug_dir] "
+              "[--debug-dumps] [--iterations N] "
               "[--dtype float64|float32] [--device cuda|cpu] "
               "[--budget BYTES] [--profile] [--save-factor ckpt.npz] "
               "[--load-factor ckpt.npz] [--inv-diag diag.txt] "
@@ -184,10 +195,30 @@ def main(argv=None) -> int:
         print("No separator file; computing nested-dissection ordering.")
         _, r, c_, v = mmio.read_coo(opts["matrix_file"])
         solver = SparseCholesky.from_matrix(banner.rows, r, c_, v, **common)
+        print(f"ordering engine: {solver.ordering_info['engine']}")
     device = solver.device
     plan = solver.plan
     print(f"levels: {plan.levels}")
     print(f"separators: {plan.num_separators}")
+
+    if opts["debug"]:
+        from cholesky_tpu_torch.symbolic import fill as fillmod
+        from cholesky_tpu_torch.verify import debuglog, schedule
+
+        fa = fillmod.analyze_fill(plan, solver.rows, solver.cols, solver.vals)
+        print(f"fill engine: {fa.engine}")
+        ops = schedule.generate_schedule(fa)
+        log_path = debuglog.write_structure_log(
+            plan, opts["debug_path"], fa, ops)
+        print(f"debug log: {log_path}")
+        if opts["debug_dumps"]:
+            # per-op matrix snapshots for the bisecting oracle
+            # (write_blocks parity, mmat.rg:174-218)
+            from cholesky_tpu_torch.verify import replay as replaymod
+
+            replaymod.replay_schedule(solver.permuted_dense(), ops,
+                                      dump_dir=opts["debug_path"])
+            print(f"debug dumps: {opts['debug_path']}/")
 
     if opts["permuted_matrix_file"]:
         pmat = solver.permuted_dense()

@@ -2,11 +2,11 @@
 
 The port's copy of `cholesky_tpu/io/mmio.py` (`read_banner`, `read_coo`,
 `read_array`, `read_dense`, `symmetrize_coo`, `dedup_lower`, and the writers
-`write_array`, `write_coo`, `write_dense_coo`), line for line apart from one
-thing: `read_coo` and `write_coo` always take the NumPy path (the JAX
-package's optional C++ fast path in `cholesky_tpu.native` is not used), so
-the files written are those of the JAX package's NumPy writer, byte for
-byte.
+`write_array`, `write_coo`, `write_dense_coo`), line for line. As in the
+JAX package, `read_coo` parses the body of a non-pattern file and
+`write_coo` writes with the native library (`native/`: `read_coo_body`,
+`write_coo`) when it is available; `native=False` takes the NumPy paths,
+whose output is the same, byte for byte.
 
 Reference: the vendored NIST mmio library (mmio.c:96 `mm_read_banner`,
 mmio.c:189 `mm_read_mtx_crd_size`, typecode macros mmio.h:33-75).
@@ -15,6 +15,7 @@ mmio.c:189 `mm_read_mtx_crd_size`, typecode macros mmio.h:33-75).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -65,19 +66,28 @@ def read_banner(path: str) -> MMBanner:
         return MMBanner(rows, cols, nnz, obj.lower(), fmt.lower(), field.lower(), sym.lower())
 
 
-def read_coo(path: str):
+def read_coo(path: str, native: Optional[bool] = None):
     """Read a coordinate MatrixMarket file.
 
     Returns (banner, row_idx[int64], col_idx[int64], vals[float64]); indices are
     0-based. Symmetric/hermitian files are returned as stored (lower triangle),
-    NOT expanded — expansion is the caller's choice.
+    NOT expanded — expansion is the caller's choice. `native`: None takes the
+    native body parser when the library is available, True requires it,
+    False parses with NumPy.
     """
     banner = read_banner(path)
     if banner.format != "coordinate":
         raise MMIOError(f"{path}: expected coordinate format, got {banner.format}")
     if banner.field == "complex":
-        # 4-column bodies: the 3-column parser would silently mis-read them
+        # 4-column bodies: the 3-column parsers would silently mis-read them
         raise MMIOError(f"{path}: complex matrices are not supported")
+    if banner.field != "pattern":      # native fscanf path needs 3 columns
+        from cholesky_tpu_torch.native import ext
+
+        if ext.use_native(native):
+            rows, cols, vals = ext.read_coo_body(path, banner.nnz)
+            return banner, rows, cols, vals
+    # NumPy path
     with open(path, "r") as f:
         lines = f.read().split("\n")
     # skip banner/comments/size line
@@ -182,12 +192,27 @@ def write_array(path: str, arr: np.ndarray, field: str = "real") -> None:
 
 
 def write_coo(path: str, rows, cols, vals, shape, symmetry: str = "hermitian",
-              field: str = "real", precision: int = 17) -> None:
+              field: str = "real", precision: int = 17,
+              native: Optional[bool] = None) -> None:
     """Write a coordinate MatrixMarket file with 1-based indices
-    (reference: write_matrix, mmat.rg:103-147 — banner, nnz count, then entries)."""
+    (reference: write_matrix, mmat.rg:103-147 — banner, nnz count, then entries).
+    `native`: None takes the native writer when the library is available,
+    True requires it, False writes with Python. The native writer prints 17
+    significant digits; another `precision` takes the Python writer."""
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     vals = np.asarray(vals)
+    if precision == 17:
+        from cholesky_tpu_torch.native import ext
+
+        if ext.use_native(native):
+            ext.write_coo(path,
+                          f"%%MatrixMarket matrix coordinate {field} {symmetry}",
+                          shape[0], shape[1],
+                          np.ascontiguousarray(rows, dtype=np.int64),
+                          np.ascontiguousarray(cols, dtype=np.int64),
+                          np.ascontiguousarray(vals, dtype=np.float64))
+            return
     with open(path, "w") as f:
         f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n")
         f.write(f"{shape[0]} {shape[1]} {len(vals)}\n")

@@ -3,7 +3,9 @@
 
 The port's copy of `cholesky_tpu/io/ordering.py` (`Ordering`,
 `ClusterHierarchy`, `parse_ordering`, `parse_clusters`, `write_ordering`,
-`write_clusters`); the helpers the port does not call are not copied.
+`write_clusters`, and the cluster maps of the fill analysis,
+`num_clusters` and `cluster_dof_ranges`); the helpers the port does not
+call are not copied.
 
 TPU-native equivalents of the reference's Legion-region readers
 (reference: read_separators mnd.c:22-69, read_clusters mnd.c:71-150), producing
@@ -66,6 +68,22 @@ class ClusterHierarchy:
     levels: int
     num_separators: int
     intervals: Dict[int, List[np.ndarray]]
+
+    def num_clusters(self, sep: int, interval: int) -> int:
+        ivs = self.intervals.get(sep, [])
+        if interval >= len(ivs):
+            return 0
+        return max(len(ivs[interval]) - 1, 0)
+
+    def cluster_dof_ranges(self, sep: int, interval: int) -> np.ndarray:
+        """Resolve interval-`interval` cluster boundaries down to dof indices
+        within the separator (the reference's chain-chasing in
+        partition_separator, mmat.rg:405-422). Returns the boundary array in
+        dof units, shape [n_clusters+1]."""
+        b = self.intervals[sep][interval]
+        for i in range(interval - 1, -1, -1):
+            b = self.intervals[sep][i][b]
+        return b
 
 
 def parse_ordering(path: str) -> Ordering:

@@ -1,8 +1,8 @@
 """Minimum-degree ordering and separator trees built from it.
 
-The port's copy of `cholesky_tpu/symbolic/mdtree.py`, Python path only: the
-JAX package's native mirror of `min_degree_perm` (identical output) is not
-carried.
+The port's copy of `cholesky_tpu/symbolic/mdtree.py`. `min_degree_perm`
+runs in the port's native library (`native/`, `md_order`, identical output)
+when it is available and `exact=False`.
 
 The reference consumes professional offline orderings (mnd.c:22 reads
 them); the rebuild's standalone generator (symbolic/nd.py) matches or
@@ -41,13 +41,14 @@ get minimum-degree quality through the same engine.
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 
 def min_degree_perm(n: int, rows: np.ndarray, cols: np.ndarray,
-                    exact: bool = False) -> np.ndarray:
+                    exact: bool = False,
+                    native: Optional[bool] = None) -> np.ndarray:
     """Minimum-degree ordering of the symmetric pattern (quotient graph:
     variables + elements, aggressive element absorption, edge pruning
     under element coverage, lazy heap). Degrees use the Amestoy-Davis-
@@ -60,7 +61,18 @@ def min_degree_perm(n: int, rows: np.ndarray, cols: np.ndarray,
     exact-degree recomputation). Once the minimum degree reaches
     remaining-1 the residual graph is (about to be) a clique and the
     tail is ordered by current degree — identical fill. Returns perm
-    with perm[k] = original dof eliminated k-th."""
+    with perm[k] = original dof eliminated k-th.
+
+    The default approximate-degree mode runs in the native library
+    (`md_order`, a statement-level mirror with IDENTICAL output: the lazy
+    (deg, v) heap makes the pop order container-independent) when `native`
+    is None and the library is available, or when `native=True`;
+    `native=False` runs the Python path here."""
+    if not exact:
+        from cholesky_tpu_torch.native import ext
+
+        if ext.use_native(native):
+            return ext.md_order(n, rows, cols)
     adj: List[set] = [set() for _ in range(n)]
     for r, c in zip(np.asarray(rows), np.asarray(cols)):
         if r != c:

@@ -25,16 +25,17 @@ unchanged. Quality is heuristic (minimal separators are not guaranteed), but
 the separator property (removing S disconnects A from B) is, which is what
 correctness requires; fill quality only affects speed.
 
-The port's copy of `cholesky_tpu/symbolic/nd.py`, Python path only: the JAX
-package's native core is a statement-level mirror with identical output, so
-both packages compute identical orderings and the port pays host time only.
-The JAX package's environment knobs are keyword arguments here (`md_max`,
-`md_small`).
+The port's copy of `cholesky_tpu/symbolic/nd.py`. The planning core runs in
+the port's native library (`native/`, `nd_order`) when it is available: a
+statement-level mirror of the Python path here with identical output, so
+the engine changes host time only. The JAX package's environment knobs are
+keyword arguments here (`native`, `threads`, `md_max`, `md_small`).
 """
 
 from __future__ import annotations
 
 import heapq
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -455,7 +456,9 @@ def nested_dissection_graph(n: int, rows: np.ndarray, cols: np.ndarray,
                             method: str = "auto",
                             md_max: int = 131072,
                             md_small: int = 16384,
-                            info: Optional[dict] = None
+                            info: Optional[dict] = None,
+                            native: Optional[bool] = None,
+                            threads: Optional[int] = None
                             ) -> Tuple[Ordering, ClusterHierarchy]:
     """Compute a fill-reducing Ordering for an arbitrary symmetric
     sparsity structure. `levels=None` picks depth so leaves are around
@@ -471,18 +474,38 @@ def nested_dissection_graph(n: int, rows: np.ndarray, cols: np.ndarray,
     clusters) get minimum-degree quality through the same engine.
     "nd" / "md" force a single candidate.
 
+    The planning core, the minimum-degree candidate and the FLOP counts
+    run in the native library (`native/ext.py`: `nd_order` on `threads`
+    threads, default min(cpus, 8), with output identical for every count;
+    `md_order`; `col_counts`) when `native` is None and the library is
+    available, or when `native=True` (which raises without it);
+    `native=False` runs the Python paths, the parity oracle.
+
     `info`, when given, is filled with what was decided: the heuristic
     depth, the depth after the collapse, whether the minimum-degree
-    candidate ran, each candidate's symbolic FLOPs and the one chosen."""
+    candidate ran, each candidate's symbolic FLOPs and the one chosen, the
+    engine that ran ("native" or "python") and the host seconds
+    (`order_s`)."""
+    from cholesky_tpu_torch.native import ext
+
+    t0 = time.perf_counter()
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
+    native = ext.use_native(native)
     auto_depth = levels is None
     if levels is None:
         levels = max(1, int(np.ceil(np.log2(max(n / leaf_target, 1)))) + 1)
     nsep = (1 << levels) - 1
 
-    indptr, indices = _build_adjacency(n, rows, cols)
-    dofs = _nd_dofs_python(n, indptr, indices, levels)
+    if native:
+        sep_of = ext.nd_order(n, rows, cols, levels, threads)
+        order = np.argsort(sep_of, kind="stable")   # dofs ascending per h
+        bounds = np.searchsorted(sep_of[order], np.arange(1, nsep + 2))
+        dofs = {h: order[(bounds[h - 1] if h > 1 else 0):bounds[h]]
+                for h in range(1, nsep + 1)}
+    else:
+        indptr, indices = _build_adjacency(n, rows, cols)
+        dofs = _nd_dofs_python(n, indptr, indices, levels)
 
     heur_levels = levels               # pre-collapse heuristic depth
     collapsed = False
@@ -528,7 +551,7 @@ def nested_dissection_graph(n: int, rows: np.ndarray, cols: np.ndarray,
 
         md_levels = levels if method == "md" else max(heur_levels, 2)
         md_nsep = (1 << md_levels) - 1
-        md_perm = mdtree.min_degree_perm(n, rows, cols)
+        md_perm = mdtree.min_degree_perm(n, rows, cols, native=native)
         md_dofs = mdtree.tree_from_elimination(n, rows, cols, md_perm,
                                                md_levels)
 
@@ -538,8 +561,10 @@ def nested_dissection_graph(n: int, rows: np.ndarray, cols: np.ndarray,
         take_md = method == "md"
         if not take_md:
             md_cost = permuted_cost(n, rows, cols,
-                                    perm_of(md_dofs, md_nsep))[0]
-            nd_cost = permuted_cost(n, rows, cols, perm_of(dofs, nsep))[0]
+                                    perm_of(md_dofs, md_nsep),
+                                    native=native)[0]
+            nd_cost = permuted_cost(n, rows, cols, perm_of(dofs, nsep),
+                                    native=native)[0]
             take_md = md_cost < nd_cost
             if info is not None:
                 info.update(md_flops=md_cost, nd_flops=nd_cost)
@@ -552,4 +577,7 @@ def nested_dissection_graph(n: int, rows: np.ndarray, cols: np.ndarray,
         levels=levels, num_separators=nsep,
         dofs={nsep - h + 1: dofs[h] for h in range(1, nsep + 1)})
     clusters = make_clusters(ordering, None)
+    if info is not None:
+        info.update(engine="native" if native else "python",
+                    order_s=time.perf_counter() - t0)
     return ordering, clusters

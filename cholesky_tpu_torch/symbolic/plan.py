@@ -1,9 +1,9 @@
 """The static solve plan — the central symbolic artifact.
 
 The port's copy of `cholesky_tpu/symbolic/plan.py` (`SolvePlan`,
-`build_plan`), kept line for line so that both packages build identical
-plans; the helpers the port does not call (`panel_shape`, `block_bounds`,
-`permute_matrix_dense`) are not copied.
+`build_plan`, `block_bounds`, `permute_matrix_dense`), kept line for line
+so that both packages build identical plans; `panel_shape`, which the port
+does not call, is not copied.
 
 The reference computes this information dynamically inside Legion tasks
 (partition_matrix mmat.rg:300-362 for block bounds, build_separator_tree
@@ -40,7 +40,7 @@ top-left, which is also verify.py:170-188's convention.)
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -75,6 +75,16 @@ class SolvePlan:
     @property
     def num_separators(self) -> int:
         return self.tree.num_separators
+
+    def block_bounds(self, row_sep: int, col_sep: int) -> Tuple[int, int, int, int]:
+        """Global (lo_r, lo_c, hi_r, hi_c) inclusive bounds of block
+        (row_sep, col_sep) in the permuted matrix — parity with the
+        reference's BlockBounds (partition_matrix, mmat.rg:331-358)."""
+        lo_r = int(self.sep_offset[row_sep])
+        lo_c = int(self.sep_offset[col_sep])
+        hi_r = lo_r + int(self.sep_sizes[row_sep]) - 1
+        hi_c = lo_c + int(self.sep_sizes[col_sep]) - 1
+        return (lo_r, lo_c, hi_r, hi_c)
 
 
 def build_plan(ordering: Ordering, clusters: Optional[ClusterHierarchy] = None,
@@ -134,3 +144,24 @@ def build_plan(ordering: Ordering, clusters: Optional[ClusterHierarchy] = None,
         S=S, H=H, row_off=row_off, u_off=u_off, clusters=clusters,
     )
 
+
+def permute_matrix_dense(plan: SolvePlan, a_dense: np.ndarray) -> np.ndarray:
+    """Reference implementation of the permuted lower-triangular matrix
+    (parity with verify.py:127-213 permute_matrix): diagonal blocks keep only
+    their lower triangle; off-diagonal ancestor blocks are dense; all
+    non-ancestor blocks are structurally zero."""
+    p = plan.perm
+    pmat = a_dense[np.ix_(p, p)]
+    out = np.tril(pmat)
+    # zero non-ancestor-pair blocks (they are zero for a valid ND ordering,
+    # but enforce the structure as verify.py does by construction)
+    mask = np.zeros_like(out, dtype=bool)
+    t = plan.tree
+    for s in range(1, t.num_separators + 1):
+        lo_r, lo_c, hi_r, hi_c = plan.block_bounds(s, s)
+        mask[lo_r:hi_r + 1, lo_c:hi_c + 1] = True
+        for a in t.ancestors(s):
+            lo_r, lo_c, hi_r, hi_c = plan.block_bounds(a, s)
+            mask[lo_r:hi_r + 1, lo_c:hi_c + 1] = True
+    out[~mask] = 0.0
+    return out

@@ -71,7 +71,7 @@ def test_from_scipy_stores_give_the_same_solver(store):
                  (ts.plan.perm, js.plan.perm)):
         assert np.array_equal(x, y)
     assert np.allclose(ts.vals, js.vals, rtol=1e-15, atol=0)
-    assert len(ts.vals) == len(v) and ts.ordering_info["seconds"] > 0
+    assert len(ts.vals) == len(v) and ts.ordering_info["order_s"] > 0
     b = np.random.default_rng(1).standard_normal(n)
     x = ts.solve(b)
     assert ts.residual(b, x) <= 1e-13

@@ -1,7 +1,8 @@
 """`python -m cholesky_tpu_torch.cli --device cpu` against the reference
 harness contract (check_matrix + check_solution against SciPy, 1e-4, as
 tests/test_cli.py) and against the JAX package's CLI on the same files
-(solution and factor files within 1e-10), plus the port's own flags."""
+(solution and factor files within 1e-10; the `-d` log and `--debug-dumps`
+files byte for byte), plus the port's own flags."""
 
 import ast
 import json
@@ -146,9 +147,7 @@ def test_cli_profile_emits_the_jax_profilers_ops(port_fixtures):
 
 @pytest.mark.parametrize("flag,args", [
     ("--devices", ["--devices", "4"]),
-    ("--slices", ["--slices", "2"]),
-    ("-d", ["-d", "dbg"]),
-    ("--debug-dumps", ["--debug-dumps"])])
+    ("--slices", ["--slices", "2"])])
 def test_cli_unported_flags_exit_2_naming_the_flag(flag, args, capsys,
                                                    port_fixtures):
     from cholesky_tpu_torch import cli
@@ -240,3 +239,76 @@ def test_cli_never_loads_jax(port_fixtures):
     bad = [m for m in mods if m == "jax" or m.startswith("jax.")
            or m == "cholesky_tpu" or m.startswith("cholesky_tpu.")]
     assert not bad, bad
+
+
+def _dump_names(d):
+    return sorted(f for f in os.listdir(d) if f.endswith(".mtx"))
+
+
+def test_cli_debug_log_and_dumps_match_the_jax_cli(tmp_path, port_fixtures):
+    """`-d DIR --debug-dumps`: the structure log and the per-op dumps are
+    the JAX CLI's, byte for byte, and each package's debug_factor accepts
+    the other's log, dumps and factor file at 1e-10 (f64)."""
+    from cholesky_tpu.verify import replay as jreplay
+    from cholesky_tpu_torch import cli
+    from cholesky_tpu_torch.verify import replay
+
+    p = port_fixtures("lapl_400x400")
+    out = {}
+    for tag in ("t", "j"):
+        dbg, fac = str(tmp_path / f"{tag}_dbg"), str(tmp_path / f"{tag}.mtx")
+        args = [*_files(p), "-b", p["b"], "-m", fac, "-d", dbg,
+                "--debug-dumps"]
+        if tag == "t":
+            assert cli.main(args + ["--device", "cpu"]) == 0
+        else:
+            r = run_cli(args, "cholesky_tpu.cli")
+            assert r.returncode == 0, r.stderr[-2000:]
+        out[tag] = (dbg, fac)
+    (tdbg, tfac), (jdbg, jfac) = out["t"], out["j"]
+    names = _dump_names(tdbg)
+    assert len(names) > 10 and names == _dump_names(jdbg)
+    for f in ["output", *names]:
+        assert open(os.path.join(tdbg, f), "rb").read() == open(
+            os.path.join(jdbg, f), "rb").read(), f
+    kw = dict(rtol=FILE_TOL, atol=FILE_TOL)
+    assert jreplay.debug_factor(p["mat"], p["separators"], tfac,
+                                os.path.join(tdbg, "output"),
+                                directory=tdbg, **kw)
+    assert replay.debug_factor(p["mat"], p["separators"], jfac,
+                               os.path.join(jdbg, "output"),
+                               directory=jdbg, **kw)
+
+
+def test_cli_debug_log_without_an_ordering_file(tmp_path, port_fixtures):
+    """`-d` without `-s`: the log of the plan from_matrix computed, the
+    JAX CLI's byte for byte; the engines are printed; no dumps."""
+    p = port_fixtures("lapl_25x25")
+    out = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        dbg = str(tmp_path / f"{tag}_dbg")
+        r = run_cli(["-i", p["mat"], "-b", p["b"], "-d", dbg], module)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert f"debug log: {dbg}/output" in r.stdout
+        assert _lines(r.stdout, "SOLVE")[0]["residual"] <= 1e-10
+        out[tag] = (r, dbg)
+    (r, dbg), (_, jdbg) = out["t"], out["j"]
+    assert "ordering engine: native" in r.stdout
+    assert "fill engine: native" in r.stdout
+    assert "debug dumps" not in r.stdout and _dump_names(dbg) == []
+    assert open(os.path.join(dbg, "output"), "rb").read() == open(
+        os.path.join(jdbg, "output"), "rb").read()
+
+
+def test_cli_debug_dumps_without_d_does_nothing(tmp_path, capsys,
+                                                port_fixtures,
+                                                monkeypatch):
+    from cholesky_tpu_torch import cli
+
+    monkeypatch.chdir(tmp_path)
+    p = port_fixtures("lapl_9x9")
+    assert cli.main([*_files(p), "--debug-dumps", "--device", "cpu"]) == 0
+    stdout = capsys.readouterr().out
+    assert "debug" not in stdout and "Done factoring" in stdout
+    assert os.listdir(tmp_path) == []

@@ -456,3 +456,56 @@ def test_schur_complement_on_card_matches_cpu():
         out[dev] = (S, bh, x)
     for g, w in zip(out["cuda"], out["cpu"]):
         assert np.abs(g - w).max() <= 1e-10 * np.abs(w).max()
+
+
+@pytest.mark.cuda
+def test_native_ordering_from_scipy_factors_on_card():
+    """from_scipy orders with the native host core and factors on the card;
+    the Python engine gives the same plan."""
+    _require_cuda()
+    import scipy.sparse as sp
+
+    from cholesky_tpu_torch.utils import problems
+
+    n, r, c, v = problems.make_gallery(1)["aniso3d"]()
+    a = sp.csr_matrix((v, (r, c)), shape=(n, n))
+    s = SparseCholesky.from_scipy(a, dtype=np.float32)
+    assert s.ordering_info["engine"] == "native"
+    assert s.device.type == "cuda"
+    py = SparseCholesky.from_scipy(a, dtype=np.float32, device="cpu",
+                                   native=False)
+    assert py.ordering_info["engine"] == "python"
+    assert np.array_equal(s.plan.perm, py.plan.perm)
+    b = np.random.default_rng(9).standard_normal(n)
+    assert s.residual(b, s.solve(b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_cli_debug_log_on_card_matches_cpu(tmp_path, capsys):
+    """`-d` on the card writes the log a CPU run writes, byte for byte; its
+    `--debug-dumps` and f64 factor file pass debug_factor at 1e-10."""
+    _require_cuda()
+    from cholesky_tpu_torch import cli
+    from cholesky_tpu_torch.io import mmio, ordering as ordio
+    from cholesky_tpu_torch.verify import replay
+
+    n, r, c, v, o, cl, b = generate_problem((20, 20), 5)
+    f = {k: str(tmp_path / k) for k in ("m.mtx", "ord.txt", "clust.txt",
+                                         "b.mtx", "factored.mtx")}
+    mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
+    ordio.write_ordering(f["ord.txt"], o)
+    ordio.write_clusters(f["clust.txt"], cl)
+    mmio.write_array(f["b.mtx"], b)
+    base = ["-i", f["m.mtx"], "-s", f["ord.txt"], "-c", f["clust.txt"],
+            "-b", f["b.mtx"], "--dtype", "float64"]
+    card, host = str(tmp_path / "card"), str(tmp_path / "host")
+    assert cli.main(base + ["-d", card, "--debug-dumps", "-m",
+                            f["factored.mtx"], "--device", "cuda"]) == 0
+    assert cli.main(base + ["-d", host, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("fill engine: native") == 2
+    assert open(f"{card}/output", "rb").read() == open(
+        f"{host}/output", "rb").read()
+    assert replay.debug_factor(f["m.mtx"], f["ord.txt"], f["factored.mtx"],
+                               f"{card}/output", directory=card, rtol=TOL,
+                               atol=TOL)

@@ -138,3 +138,26 @@ def test_check_separator_tree_rejects_a_crossing_edge():
     with pytest.raises(AssertionError, match="crosses"):
         tmd.check_separator_tree(n, np.append(r, a[0]), np.append(c, b[0]),
                                  dofs, 3)
+
+
+@pytest.mark.parametrize("engine", ["native", "python"])
+@pytest.mark.parametrize("name", ["random", "circuit", "aniso3d",
+                                  "elasticity"])
+def test_engines_identical_to_jax(name, engine):
+    """Each engine of the port (its native core, `native=False`'s Python
+    paths) against the JAX package's same engine: identical orderings,
+    minimum-degree permutations and FLOP counts, and `info["engine"]`
+    names the one that ran."""
+    native = engine == "native"
+    n, r, c, _ = jproblems.make_gallery(1)[name]()
+    info = {}
+    port = tnd.nested_dissection_graph(n, r, c, info=info, native=native)
+    assert info["engine"] == engine and info["order_s"] > 0
+    _same_ordering(port, jnd.nested_dissection_graph(n, r, c, native=native))
+    perm = tmd.min_degree_perm(n, r, c, native=native)
+    assert np.array_equal(perm, jmd.min_degree_perm(n, r, c, native=native))
+    assert tq.permuted_cost(n, r, c, perm, native=native) \
+        == jq.permuted_cost(n, r, c, perm)
+    with pytest.raises(IndexError):
+        tnd.nested_dissection_graph(5, np.arange(1, 6), np.arange(5),
+                                    levels=2, native=native)

@@ -3,7 +3,7 @@
 trees of the port can be compared in one run on the same card.
 
     python3 torch_walls.py [--tree DIR] [--shape 50] [--levels 8]
-                           [--repeat 30] [--rhs K]
+                           [--repeat 30] [--rhs K] [--cli]
 
 `--tree DIR` puts DIR first on the import path: a checkout of another
 commit (unpacked with `git archive` into a directory that .gitignore
@@ -15,6 +15,14 @@ plan per factorization where the tree records them. `--rhs K` (K > 1)
 solves a seeded [n, K] block instead of one right-hand side (a tree whose
 solve takes no block fails there). Exits nonzero when there is no CUDA
 device.
+
+`--cli` times the tree's command-line interface instead, as subprocesses
+on the card on a --shape^3 L--levels problem written to files: the process
+wall of building the kernels (and the native core, where the tree has
+one), of importing the package, of a first run (`-o -m --profile
+--save-factor --inv-diag --bench`), of the same run without `-m` (the
+factor file), and of a run resumed with `--load-factor`, with the
+`FACTOR:` / `SOLVE:` / `INVDIAG:` seconds each run prints.
 """
 
 import argparse
@@ -33,6 +41,7 @@ def main() -> int:
     ap.add_argument("--levels", type=int, default=8)
     ap.add_argument("--repeat", type=int, default=30)
     ap.add_argument("--rhs", type=int, default=1)
+    ap.add_argument("--cli", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
 
@@ -42,6 +51,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_walls: no CUDA device", file=sys.stderr)
         return 2
+    if args.cli:
+        return cli_walls(args)
     import cholesky_tpu_torch
     from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.utils.laplacian import generate_problem
@@ -77,6 +88,68 @@ def main() -> int:
         "solve_wall_median_s": statistics.median(solves[1:]),
         "last_solve": getattr(s, "last_solve", None),
         "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def cli_walls(args) -> int:
+    """Process walls of the tree's CLI on one problem (see the module's
+    docstring); one JSON line."""
+    import ast
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from cholesky_tpu_torch.io import mmio, ordering as ordio
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    tree = os.path.abspath(args.tree)
+    n, r, c, v, o, cl, b = generate_problem((args.shape,) * 3, args.levels,
+                                            seed=0)
+    env = dict(os.environ, PYTHONPATH=tree)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        f = {k: os.path.join(d, k) for k in (
+            "m.mtx", "ord.txt", "clust.txt", "b.mtx", "sol.txt", "factor.mtx",
+            "ck.npz", "diag.txt")}
+        mmio.write_coo(f["m.mtx"], r, c, v, (n, n), symmetry="hermitian")
+        ordio.write_ordering(f["ord.txt"], o)
+        ordio.write_clusters(f["clust.txt"], cl)
+        mmio.write_array(f["b.mtx"], b)
+        cli = [sys.executable, "-m", "cholesky_tpu_torch.cli", "-i",
+               f["m.mtx"], "-s", f["ord.txt"], "-c", f["clust.txt"], "-b",
+               f["b.mtx"], "--dtype", "float32", "--device", "cuda", "-o",
+               f["sol.txt"]]
+        first = ["--profile", "--save-factor", f["ck.npz"], "--inv-diag",
+                 f["diag.txt"], "--bench"]
+        build = ("from cholesky_tpu_torch.kernels import build; "
+                 "build.load('chol_inv'); import importlib.util as u; "
+                 "u.find_spec('cholesky_tpu_torch.native') and __import__("
+                 "'cholesky_tpu_torch.native.ext', fromlist=['ext'])"
+                 ".available()")
+        runs = (("build", [sys.executable, "-c", build]),
+                ("import", [sys.executable, "-c",
+                            "import torch, cholesky_tpu_torch.api"]),
+                ("first", cli + ["-m", f["factor.mtx"]] + first),
+                ("first_without_m", cli + first),
+                ("resumed", cli + ["--load-factor", f["ck.npz"]]))
+        for name, cmd in runs:
+            t = time.perf_counter()
+            p = subprocess.run(cmd, cwd=d, env=env, capture_output=True,
+                               text=True, timeout=900)
+            wall = time.perf_counter() - t
+            if p.returncode != 0:
+                print(p.stderr[-3000:], file=sys.stderr)
+                return 1
+            tagged = {ln.split(": ", 1)[0]: ast.literal_eval(
+                ln.split(": ", 1)[1])["time_s"]
+                for ln in p.stdout.splitlines()
+                if ln.startswith(("FACTOR: ", "SOLVE: ", "INVDIAG: "))}
+            out[name] = {"wall_s": wall, **tagged}
+    print(json.dumps({
+        "package": tree, "problem": f"{args.shape}^3 L{args.levels}",
+        "n": n, "cli": out, "device": torch.cuda.get_device_name(0)}),
+        flush=True)
     return 0
 
 
