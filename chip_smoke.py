@@ -5,7 +5,8 @@ GPU.
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. device: the card (and `nvidia-smi` name + power limit on its own line);
+  1. device: the card (and `nvidia-smi` name + power limit on its own line),
+             torch's versions and the float32 matmul flag;
   2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
              csrc` with nvcc, build seconds and the `-Xptxas -v` report; the
              native host core (`cholesky_tpu_torch/native/src/mndio.cc`)
@@ -20,7 +21,8 @@ Phases, each printing one JSON line:
              plain version and the library pair `cholesky_ex` +
              `solve_triangular`;
              `factor_slab` with the kernel vs the plain composite at the 50^3
-             leaf slab [128, 1440, 864];
+             leaf slab [128, 1440, 864], timed beside its bound and the
+             library pair `cholesky_ex` + `solve_triangular`;
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -131,6 +133,24 @@ Phases, each printing one JSON line:
              factor file: dumps, seconds. Then the native core's call
              counts: every ordering, fill analysis and matrix file read or
              written in this process ran natively.
+ 17. precision: the matmul-precision ladder (`precision=`; on the card
+             TF32 or IEEE float32 cuBLAS products). On the slice's 50^3
+             solver (after the companions) and the scale phase's 140^3
+             solver (default budget, after that phase), for AUTO,
+             "highest", "high" and "default": factorize(precision=) twice,
+             the resolved rung, the flag before, inside the level loop and
+             after (restored), factor walls, two solves (and a [n, 16]
+             block at 50^3) with sweeps and f64 SciPy residuals at the
+             contract, chol_inv launches against the routing rule (counts
+             set to 0 before each rung); at 50^3 the solve's apply rung A/B
+             (`demote_apply` off, on, on, off); the AUTO crossover (warm
+             factor + one solve, "highest" against "default") at 50^3,
+             140^3 and on aniso3d x4. Then, on their own: a batched
+             [8192, 128, 128] f32 GEMM under each flag (time, bound, error
+             against f64: TF32 must be faster and coarser), chol_inv at the
+             140^3 batches bit-identical under both flags, the library pair
+             (cholesky_ex, solve_triangular) under both flags, and
+             factor_slab [128, 1440, 864] under both beside its bounds.
 Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
@@ -197,9 +217,21 @@ ENGINE_PARITY = ("circuit", 1)     # ordered by both engines
 SCALE_ORDER_LEVELS = 14            # the 140^3 pattern ordered alone
 DEBUG_PROBLEM = ((20, 20), 5)      # the reference's lapl_400x400 shape
 DEBUG_TOL = 1e-10                  # debug_factor's rtol / atol (f64)
+# the matmul-precision ladder: AUTO (None), then each rung the card has
+# (IEEE f32, then TF32 under two names)
+PRECISION_RUNGS = (None, "highest", "high", "default")
+PRECISION_BLOCK_K = 16
+CROSSOVER = ("aniso3d", 4)         # the AUTO crossover's gallery matrix
+GEMM_B = 8192                      # the 140^3 level-13 batch of fronts
+CHOL_INV_140 = (8192, 1024, 512, 256, 128)   # its batches at 140^3 L14
+# a TF32 product keeps 10 of f32's 23 significand bits: its error against
+# an f64 product must exceed the IEEE product's by this factor, or the flag
+# did not take effect
+TF32_ERR_RATIO = 10.0
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
+TF32_FLOPS = 495e12                # H100 SXM TF32 tensor-core rate, dense
 
 
 CARD = None                        # nvidia-smi's name, power limit
@@ -246,6 +278,36 @@ def chol_inv_bound(B: int, n: int = 128):
                                      else "operations")
 
 
+def factor_slab_bound(B: int, F: int, W: int, flops_per_s: float):
+    """Least time in ms of factor_slab on a [B, F, W] slab at a peak rate
+    (the rung's), and what bounds it: the slab read once and the factor
+    written once (B F W f32 each); B (W^3/3 + K W^2) flops with K = F - W
+    (the pivot Cholesky and the boundary strip's triangular solve)."""
+    bytes_ms = B * F * W * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    flops_ms = B * (W ** 3 / 3 + (F - W) * W * W) / flops_per_s * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+
+
+def slab_library(a, W: int):
+    """The library's partial factorization of slab a [B, F, W]:
+    `cholesky_ex` of the pivot block, `solve_triangular` of the boundary
+    strip (X = A_bw L^-T)."""
+    import torch
+
+    L, _ = torch.linalg.cholesky_ex(a[:, :W, :])
+    X = torch.linalg.solve_triangular(L, a[:, W:, :].transpose(1, 2),
+                                      upper=False)
+    return L, X.transpose(1, 2)
+
+
+def fp32_flag() -> str:
+    """cuBLAS's float32 math: the flag the precision ladder sets."""
+    import torch
+
+    return torch.backends.cuda.matmul.fp32_precision
+
+
 def rel_err(x, ref) -> float:
     return float((x.double() - ref.double()).abs().max()
                  / ref.double().abs().max())
@@ -269,8 +331,8 @@ def phase_device():
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "float32_matmul_precision": torch.get_float32_matmul_precision(),
-          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+          "cuda_matmul_fp32_precision": fp32_flag(),
+          "fp32_precision": torch.backends.fp32_precision})
 
 
 def phase_build():
@@ -403,9 +465,12 @@ def phase_kernel():
     slab_ms = cuda_ms(lambda: hk.factor_slab(a, W), iters=5)
     slab_plain_ms = cuda_ms(
         lambda: hk.factor_slab(a, W, block_fn=hk.chol_inv_ref), iters=5)
+    bound_ms, bound_by = factor_slab_bound(B, F, W, FP32_FLOPS)
     emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
           "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
-          "ms": slab_ms, "plain_ms": slab_plain_ms})
+          "ms": slab_ms, "plain_ms": slab_plain_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by, "flag": fp32_flag(),
+          "library_ms": cuda_ms(lambda: slab_library(a, W), iters=5)})
     return {**timed[128], "max_abs_err": max_abs,
             "per_shape": {f"[{B},128,128]": t for B, t in timed.items()}}
 
@@ -521,7 +586,7 @@ def phase_slice():
     check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
           "a solve took more than 2 refinement sweeps")
     emit({"phase": "slice", "problem": "50^3 L8", "n": n,
-          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
+          "precision": s.precision, "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
           "plan_regimes": plan_s,
           "solves": solves, "max_memory_allocated": peak,
           "launches": launches, "factorizations": len(walls)})
@@ -779,6 +844,7 @@ def phase_scale():
               "free_bytes": free, "total_bytes": total,
               "budget": s.factor_stats["budget"], "lazy": plan.lazy,
               "reupload": plan.reupload, "host_plan_s": plan_s,
+              "precision": s.precision,
               "factor_wall_s": walls[0],
               "factor_wall_warm_s": walls[-1] if len(walls) > 1 else None,
               "plan_regimes": plans_s, "levels": table,
@@ -876,8 +942,7 @@ def phase_scale():
                   "allocated_before": before,
                   "allocated_after": torch.cuda.memory_allocated(dev),
                   "error": refused[:400]})
-    del s
-    return results
+    return results, s, a, rhs[0]
 
 
 def column_residuals(a, B, X):
@@ -956,11 +1021,12 @@ def unit_solves(s, a, cols, what: str):
     return X
 
 
-def inv_diag_check(s, a, seed: int, what: str):
+def inv_diag_check(s, a, seed: int, what: str, tol=SELINV_F32_TOL):
     """inv_diag() (synchronized wall, peak device bytes above what was
     allocated before, beside the estimate less the resident bytes) and its
-    value at 64 seeded dofs against e_i^T A^-1 e_i from refined solves.
-    Returns (the record, the diagonal)."""
+    value at 64 seeded dofs against e_i^T A^-1 e_i from refined solves,
+    held to `tol` (None: the error is reported, not held). Returns (the
+    record, the diagonal)."""
     import numpy as np
     import torch
 
@@ -980,12 +1046,12 @@ def inv_diag_check(s, a, seed: int, what: str):
     dofs = np.random.default_rng(seed).choice(n, 64, replace=False)
     ref = unit_solves(s, a, dofs, what)[dofs, np.arange(64)]
     err = float((np.abs(d[dofs] - ref) / np.abs(ref)).max())
-    check(err <= SELINV_F32_TOL, f"{what}: inv_diag differs from the "
-          f"unit-vector solves by {err} > {SELINV_F32_TOL}")
+    check(tol is None or err <= tol, f"{what}: inv_diag differs from the "
+          f"unit-vector solves by {err} > {tol}")
     return {"wall_s": wall, "peak_bytes": peak,
             "est_bytes": est, "est_with_resident": s.selinv_stats["estimate"],
             "budget": s.selinv_stats["budget"], "rel_err_64_dofs": err,
-            "tol": SELINV_F32_TOL}, d
+            "tol": tol}, d
 
 
 def phase_selinv(s):
@@ -1827,6 +1893,337 @@ def phase_native():
     emit({"phase": "native", "calls": calls})
 
 
+# ---------------------------------------------------------------------------
+# The matmul-precision ladder
+
+
+def _want_flag(resolved) -> str:
+    return "ieee" if resolved in ("highest", "float32") else "tf32"
+
+
+def rung_runs(s, a, b, what: str, rungs=PRECISION_RUNGS,
+              block_k: int = 0) -> list:
+    """Per rung (None: AUTO, through the setter; the others through
+    factorize(precision=)), two factorizations of solver s (the first after
+    the rung changed, then warm), two solves of b (the first computes the
+    pivot inverses) and, with block_k, a seeded [n, block_k] block. Per
+    rung: the resolved name, the flag before, inside the level loop and
+    after, walls, sweeps, f64 residuals against the SciPy matrix a (each
+    at the contract), and chol_inv launches, set to 0 before the rung's
+    factorizations and read after them, against the routing rule."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    rows = []
+    for rung in rungs:
+        before = fp32_flag()
+        inside = set()
+        if rung is None:
+            s.precision = None
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        walls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.factorize(precision=rung, level_hook=(
+                lambda lvl, where: inside.add(fp32_flag())) if i == 0
+                else None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        launches = hk.LAUNCHES["chol_inv"]
+        want = expected_chol_inv(s.fplan, s.regimes) * len(walls)
+        resolved = s.precision
+        name = f"{what} at {rung or 'AUTO'}"
+        check(launches == want, f"{name}: {launches} chol_inv launches, the "
+              f"routing rule gives {want}")
+        check(inside == {_want_flag(resolved)},
+              f"{name}: the level loop ran under {inside}")
+        solves = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            x = s.solve(b, tol=TOL)
+            wall = time.perf_counter() - t
+            res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+            check(bool(np.all(np.isfinite(x))), f"{name}: not finite")
+            check(res <= TOL, f"{name}: residual {res} > {TOL}")
+            solves.append({"wall_s": wall, "residual": res,
+                           **s.last_solve})
+        block = (block_solve(s, a, block_k, SEED + 80, name) if block_k
+                 else None)
+        after = fp32_flag()
+        check(after == before, f"{name}: the flag was {before}, is {after}")
+        rows.append({"rung": rung or "AUTO", "resolved": resolved,
+                     "flag_before": before, "flag_in_factor": sorted(inside),
+                     "flag_after": after, "factor_wall_s": walls[0],
+                     "factor_wall_warm_s": walls[1], "solves": solves,
+                     "block_solve": block,
+                     "factor_plus_solve_s": walls[1] + solves[0]["wall_s"],
+                     "chol_inv_launches": launches, "rule": want})
+    return rows
+
+
+def crossover(rows) -> dict:
+    """Warm factor plus the first solve after it, "highest" against
+    "default": the rung AUTO should pick for one solve a factorization."""
+    by = {r["rung"]: r["factor_plus_solve_s"] for r in rows}
+    return {"highest_s": by["highest"], "default_s": by["default"],
+            "faster": min(("highest", "default"), key=by.get)}
+
+
+def demote_ab(s, a, b) -> list:
+    """The solve's apply rung, A/B in one run (off, on, on, off):
+    `refine.solve_refined_df` with demote_apply False (the port's default:
+    the solve at the factor's rung) and True (at the one-pass rung, the
+    JAX package's default), under the solver's rung: sweeps, walls and
+    f64 residuals at the contract."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch.numeric import refine
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    ell, inv = s._ell_device(True), s._inv_pivots()
+    perm, iperm = s._perm_device()
+    runs = []
+    for demote in (False, True, True, False):
+        with precision_ctx(s.precision):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            xp, sweeps, rn = refine.solve_refined_df(
+                s.fplan, s.panels, inv, torch.from_numpy(b).to(s.device)[perm],
+                ell, tol=TOL / 3.0, demote_apply=demote)
+            x = xp[iperm].cpu().numpy()
+            wall = time.perf_counter() - t
+        res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+        check(res <= TOL, f"demote_apply={demote}: residual {res} > {TOL}")
+        runs.append({"demote_apply": demote, "sweeps": sweeps,
+                     "wall_s": wall, "residual": res, "rn_rel": rn})
+    return runs
+
+
+def one_pass_companions(s, a) -> dict:
+    """At the "default" rung: inv_diag against refined unit-vector solves,
+    and a family of FAMILY_K[0] scaled systems solved per system to the
+    contract. Selected inversion is not refined, so its error is the TF32
+    factor's: it is reported beside the f32 bound SELINV_F32_TOL (which
+    the selinv phase holds at the IEEE rung), not held to it."""
+    import numpy as np
+
+    s.factorize(precision="default")
+    rec, _ = inv_diag_check(s, a, SEED + 82, "50^3 L8 at default", tol=None)
+    rec["within_the_f32_bound"] = rec["rel_err_64_dofs"] <= SELINV_F32_TOL
+    n, K = s.plan.n, FAMILY_K[0]
+    scales = 1.0 + np.random.default_rng(SEED + 83).uniform(0, 2, size=K)
+    vals = scales[:, None] * s.vals[None, :]
+    bf = s.factorize_many(vals)
+    B = np.random.default_rng(SEED + 84).standard_normal((K, n))
+    X = bf.solve(B, tol=TOL)
+    res = np.array([np.linalg.norm(scales[i] * (a @ X[i]) - B[i])
+                    / np.linalg.norm(B[i]) for i in range(K)])
+    check(float(res.max()) <= TOL, f"family at default: worst system's "
+          f"residual {res.max()} > {TOL}")
+    return {"resolved": s.precision, "inv_diag": rec, "family_K": K,
+            "family_residual_max": float(res.max()),
+            "family_solve": bf.last_solve}
+
+
+def phase_precision(s, b):
+    """The ladder on the slice's 50^3 solver (AUTO resolves "highest"),
+    the A/B of the solve's apply rung, and the AUTO crossover at 50^3 and
+    on a gallery matrix. Returns chol_inv launches by path."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.utils import capacity, problems
+
+    a = _scipy_matrix(s.plan.n, s.rows, s.cols, s.vals)
+    flops = capacity.frontal_flops(s.fplan)
+    rows = rung_runs(s, a, b, "50^3 L8", block_k=PRECISION_BLOCK_K)
+    for r in rows:
+        emit({"phase": "precision", "problem": "50^3 L8",
+              "frontal_flops": flops, **r})
+    check(rows[0]["resolved"] == "highest",
+          f"50^3 L8: AUTO resolved {rows[0]['resolved']}")
+    emit({"phase": "precision", "problem": "50^3 L8",
+          "what": "selected inversion and a family at default",
+          **one_pass_companions(s, a)})
+    s.precision = None
+    s.factorize()
+    emit({"phase": "precision", "problem": "50^3 L8",
+          "what": "apply rung A/B", "resolved": s.precision,
+          "runs": demote_ab(s, a, b)})
+    launches = {"50^3 L8": sum(r["chol_inv_launches"] for r in rows)}
+
+    name, scale = CROSSOVER
+    n, r, c, v = problems.make_gallery(scale)[name]()
+    g = SparseCholesky.from_scipy(sp.csr_matrix((v, (r, c)), shape=(n, n)),
+                                  dtype=np.float32, device="cuda")
+    ga = _scipy_matrix(n, g.rows, g.cols, g.vals)
+    gb = np.random.default_rng(SEED + 81).standard_normal(n)
+    auto = g.precision
+    g.solve(gb, tol=TOL)        # first use: the ELL planes, outside the A/B
+    grows = rung_runs(g, ga, gb, f"{name} x{scale}",
+                      rungs=("highest", "default"))
+    for row in grows:
+        emit({"phase": "precision", "problem": f"{name} x{scale}", "n": n,
+              "frontal_flops": capacity.frontal_flops(g.fplan), **row})
+    emit({"phase": "precision", "what": "AUTO crossover",
+          "threshold_flops": 1e12,
+          "50^3 L8": {"frontal_flops": flops, "auto": rows[0]["resolved"],
+                      **crossover(rows)},
+          f"{name} x{scale}": {
+              "frontal_flops": capacity.frontal_flops(g.fplan),
+              "auto": auto, **crossover(grows)}})
+    launches[f"{name} x{scale}"] = sum(x["chol_inv_launches"] for x in grows)
+    return launches
+
+
+def phase_precision_scale(s, a, b):
+    """The ladder on the scale phase's 140^3 solver under the default
+    budget (AUTO resolves the one-pass rung there). Returns its chol_inv
+    launches."""
+    from cholesky_tpu_torch.utils import capacity
+
+    s.budget = None
+    flops = capacity.frontal_flops(s.fplan)
+    rows = rung_runs(s, a, b, "140^3 L14")
+    for r in rows:
+        emit({"phase": "precision", "problem": "140^3 L14",
+              "frontal_flops": flops, **r})
+    check(rows[0]["resolved"] is None,
+          f"140^3 L14: AUTO resolved {rows[0]['resolved']}")
+    emit({"phase": "precision", "what": "AUTO crossover",
+          "140^3 L14": {"frontal_flops": flops, "auto": None,
+                        **crossover(rows)}})
+    return sum(r["chol_inv_launches"] for r in rows)
+
+
+def phase_precision_kernels():
+    """What the flag does on its own, at the 140^3 shapes: a batched
+    [GEMM_B, 128, 128] f32 GEMM under each flag (time, bound, error
+    against an f64 product: TF32 must be faster and coarser); chol_inv at
+    each 140^3 batch under both flags (bit-identical: it computes in
+    scalar FMAs) after the kernel phase's check against its plain version;
+    the library pair (`cholesky_ex`, `solve_triangular`) under both flags,
+    reported; factor_slab under both flags beside its bounds."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    x = torch.randn(GEMM_B, 128, 128, generator=gen, device=dev)
+    y = torch.randn(GEMM_B, 128, 128, generator=gen, device=dev)
+    ref = torch.bmm(x.double(), y.double())
+    flops = 2 * GEMM_B * 128 ** 3
+    bytes_ms = 3 * GEMM_B * 128 * 128 * 4 / HBM_BYTES_PER_S * 1e3
+    gemm = {}
+    for rung, peak in (("highest", FP32_FLOPS), ("default", TF32_FLOPS)):
+        with precision_ctx(rung):
+            flag = fp32_flag()
+            err = rel_err(torch.bmm(x, y), ref)
+            ms = cuda_ms_median(lambda: torch.bmm(x, y))
+        bound = max(bytes_ms, flops / peak * 1e3)
+        gemm[flag] = {"ms": ms, "rel_err_vs_f64": err, "bound_ms": bound,
+                      "bound_by": ("bytes" if bytes_ms * 1e-3 * peak >= flops
+                                   else "operations"),
+                      "tflops": flops / ms * 1e-9}
+    del x, y, ref
+    # reading the legacy flag after the new API set it: torch raises on
+    # the mix, which is why nothing here reads `allow_tf32`
+    with precision_ctx("default"):
+        try:
+            mixed = f"reads {torch.backends.cuda.matmul.allow_tf32}"
+        except RuntimeError as e:
+            mixed = f"raises: {str(e)[:160]}"
+    emit({"phase": "precision", "what": "batched GEMM",
+          "shape": [GEMM_B, 128, 128], **gemm,
+          "legacy_allow_tf32_under_the_new_api": mixed})
+    check(gemm["tf32"]["ms"] < gemm["ieee"]["ms"],
+          "the GEMM is not faster under tf32")
+    check(gemm["tf32"]["rel_err_vs_f64"]
+          > TF32_ERR_RATIO * gemm["ieee"]["rel_err_vs_f64"],
+          "the GEMM is no coarser under tf32: the flag took no effect")
+
+    eye = torch.eye(128, device=dev)
+    big = torch.randn(max(CHOL_INV_140), 128, 128, generator=gen, device=dev)
+    big = big @ big.transpose(1, 2) / 128 + 0.5 * eye
+    rows = []
+    for B in CHOL_INV_140:
+        d = big[:B].contiguous()
+        errs = check_chol_inv(d)            # at the process flag, as before
+        out = {}
+        for rung in ("highest", "default"):
+            with precision_ctx(rung):
+                out[fp32_flag()] = (hk.chol_inv(d), hk.chol_inv_ref(d))
+        torch.cuda.synchronize()
+        (lk_i, mk_i), (lp_i, mp_i) = out["ieee"]
+        (lk_t, mk_t), (lp_t, mp_t) = out["tf32"]
+        same = bool(torch.equal(lk_i, lk_t) and torch.equal(mk_i, mk_t))
+        check(same, f"chol_inv at [{B},128,128] differs under tf32")
+        rows.append({"shape": [B, 128, 128], "bit_identical": same,
+                     "max_abs_err": errs["max_abs_err"],
+                     "cholesky_ex_identical": bool(torch.equal(lp_i, lp_t)),
+                     "cholesky_ex_max_diff": float((lp_i - lp_t).abs().max()),
+                     "solve_triangular_identical": bool(
+                         torch.equal(mp_i, mp_t)),
+                     "solve_triangular_max_diff": float(
+                         (mp_i - mp_t).abs().max())})
+        del out, d
+    del big
+    emit({"phase": "precision", "what": "chol_inv and the library pair "
+          "under both flags", "rows": rows})
+    # cuSOLVER / cuBLAS on the wider pivot blocks of the plain levels
+    lib = []
+    for B, W in ((64, 512), (1, 4096)):
+        g = torch.randn(B, W, W, generator=gen, device=dev)
+        d = g @ g.transpose(1, 2) / W + torch.eye(W, device=dev)
+        del g
+        out = {}
+        for rung in ("highest", "default"):
+            with precision_ctx(rung):
+                L, _ = torch.linalg.cholesky_ex(d)
+                out[fp32_flag()] = (L, torch.linalg.solve_triangular(
+                    L, d, upper=False))
+        torch.cuda.synchronize()
+        lib.append({"shape": [B, W, W],
+                    "cholesky_ex_identical": bool(torch.equal(
+                        out["ieee"][0], out["tf32"][0])),
+                    "cholesky_ex_rel_diff": rel_err(out["tf32"][0],
+                                                    out["ieee"][0]),
+                    "solve_triangular_identical": bool(torch.equal(
+                        out["ieee"][1], out["tf32"][1])),
+                    "solve_triangular_rel_diff": rel_err(out["tf32"][1],
+                                                         out["ieee"][1])})
+        del out, d
+    emit({"phase": "precision", "what": "library pair under both flags",
+          "rows": lib})
+
+    B, F, W = 128, 1440, 864
+    a = 0.01 * torch.randn(B, F, W, generator=gen, device=dev)
+    a[:, :W, :] += 2.0 * torch.eye(W, device=dev)
+    slab = {}
+    for rung, peak in (("highest", FP32_FLOPS), ("default", TF32_FLOPS)):
+        with precision_ctx(rung):
+            f = hk.factor_slab(a, W)
+            bound_ms, bound_by = factor_slab_bound(B, F, W, peak)
+            slab[fp32_flag()] = {
+                "ms": cuda_ms(lambda: hk.factor_slab(a, W), iters=5),
+                "plain_ms": cuda_ms(lambda: hk.factor_slab(
+                    a, W, block_fn=hk.chol_inv_ref), iters=5),
+                "library_ms": cuda_ms(lambda: slab_library(a, W), iters=5),
+                "bound_ms": bound_ms, "bound_by": bound_by, "out": f}
+    diff = rel_err(slab["tf32"].pop("out"), slab["ieee"].pop("out"))
+    emit({"phase": "precision", "what": "factor_slab under both flags",
+          "shape": [B, F, W], **slab, "tf32_vs_ieee_rel_diff": diff})
+
+
 def main() -> int:
     import torch
 
@@ -1853,8 +2250,12 @@ def main() -> int:
         family = phase_family(solver)
         qd = phase_qd(solver)
         phase_companions(solver, b)
+        ladder = phase_precision(solver, b)
         del solver
-        scale = phase_scale()
+        scale, big, big_a, big_b = phase_scale()
+        ladder["140^3 L14"] = phase_precision_scale(big, big_a, big_b)
+        del big, big_a, big_b
+        phase_precision_kernels()
         ordering_launches = phase_ordering()
         phase_cli()
         phase_debug()
@@ -1874,6 +2275,7 @@ def main() -> int:
             "50^3 L8 family K=8 (2 factorizations)": family[8],
             "50^3 L8 family K=16 (2 factorizations)": family[16],
             "50^3 L8 quasi-definite": qd,
+            **{f"{k} precision ladder": v for k, v in ladder.items()},
             "from_scipy gallery (ordering phase)": ordering_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],

@@ -30,7 +30,15 @@ The single-device SPD surface of `cholesky_tpu/api.py`:
     low-rank updates by Woodbury (`solve_updated`, `logdet_updated`), a
     general perturbation by preconditioned CG (`solve_perturbed`), and
     Lanczos eigenpairs and condition numbers (`eigsh`, `condest`,
-    `numeric/eigs.py`).
+    `numeric/eigs.py`);
+  * the matmul-precision ladder: every constructor and `factorize` take
+    `precision=` (the JAX package's names), the `precision` property
+    resolves AUTO (None) from the plan's executed frontal FLOPs
+    (`utils/capacity.py`) and pins the answer once factored, and
+    checkpoints carry it. On the card a rung is cuBLAS's float32 math
+    (`numeric/precision.py`: TF32, or IEEE for "highest" / "float32"),
+    set for the factorization, the solves and every method that applies
+    the factor, and put back after each.
 
 The device is an explicit argument everywhere; asking for "cuda" without a
 card raises. The port reads no environment variable.
@@ -72,6 +80,31 @@ from cholesky_tpu_torch.numeric import refine as refine_mod
 from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      build_frontal_plan)
+from cholesky_tpu_torch.numeric.precision import (
+    check as _check_precision, precision_ctx as _precision_ctx)
+from cholesky_tpu_torch.utils import capacity
+
+# AUTO rung (precision=None, f32 factors): executed frontal FLOPs
+# (`capacity.frontal_flops`) at or below this pick "highest", above it the
+# one-pass default. The JAX package's threshold, kept so that both packages
+# name the same rung on the same plan (50^3 L8 executes 0.35 TFLOP); the
+# H100's own crossover is measured by chip_smoke's precision phase
+# (PERF.md), not adopted here. Read at use time, so a test can move it.
+_AUTO_HIGHEST_FLOPS = 1e12
+
+
+def _with_precision(fn):
+    """Method decorator: run the body under the solver's rung, so that every
+    surface that applies the factor (solves, selected inversion, sampling,
+    Schur reads, gradients, spectra) runs at the precision the factor was
+    built at. Nesting with an identical inner context is harmless."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with _precision_ctx(self.precision):
+            return fn(self, *args, **kwargs)
+    return wrapper
 
 
 def _resolve_device(device) -> torch.device:
@@ -106,13 +139,20 @@ class SparseCholesky:
 
     def __init__(self, plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
                  vals: np.ndarray, dtype=np.float64, device="cuda",
-                 budget: Optional[int] = None, signs=None):
+                 budget: Optional[int] = None, signs=None,
+                 precision: Optional[str] = None):
         """`budget`: device bytes the factorization may hold at once (None:
         regimes.BUDGET_FRACTION of the card's free memory when factorize()
         starts; unbounded on the CPU). `signs`: [n] of +1 / -1 in original
         dof order, the signature of a symmetric quasi-definite matrix
         (factored as L~ S L~^T, `numeric/ldlt.py`); an all-positive
-        signature is the SPD path (`signs` None)."""
+        signature is the SPD path (`signs` None). `precision`: the matmul
+        rung of the factorization and of every application of the factor,
+        one of the JAX package's names (`numeric/precision.py`); None is
+        AUTO (see the `precision` property), "default" the one-pass rung."""
+        _check_precision(precision)
+        self._precision = precision
+        self._precision_resolved = None   # AUTO's answer, pinned when factored
         self.device = _resolve_device(device)
         self.signs = None
         if signs is not None:
@@ -154,8 +194,8 @@ class SparseCholesky:
     def from_files(cls, matrix_file: str, separator_file: str,
                    clusters_file: Optional[str] = None, dtype=np.float64,
                    pad_to: int = 8, device="cuda",
-                   budget: Optional[int] = None, signs=None
-                   ) -> "SparseCholesky":
+                   budget: Optional[int] = None, signs=None,
+                   precision: Optional[str] = None) -> "SparseCholesky":
         ordng = ordio.parse_ordering(separator_file)
         clusters = ordio.parse_clusters(clusters_file) if clusters_file else None
         plan = build_plan(ordng, clusters, pad_to=pad_to)
@@ -165,7 +205,7 @@ class SparseCholesky:
                 f"matrix dim {banner.rows} != ordering dof count {plan.n}")
         r2, c2, v2 = mmio.dedup_lower(r, c, v)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget, signs=signs)
+                   budget=budget, signs=signs, precision=precision)
 
     @classmethod
     def from_matrix(cls, n: int, rows, cols, vals, levels=None,
@@ -174,6 +214,7 @@ class SparseCholesky:
                     md_small: int = 16384, signs=None,
                     native: Optional[bool] = None,
                     threads: Optional[int] = None,
+                    precision: Optional[str] = None,
                     _canonical: bool = False) -> "SparseCholesky":
         """Solve an arbitrary SPD (or, with `signs`, symmetric
         quasi-definite) matrix with NO precomputed ordering: a
@@ -190,6 +231,7 @@ class SparseCholesky:
         from cholesky_tpu_torch.symbolic.nd import nested_dissection_graph
 
         _resolve_device(device)             # fail before the host work
+        _check_precision(precision)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         info = {}
@@ -198,13 +240,16 @@ class SparseCholesky:
             info=info, native=native, threads=threads)
         solver = cls.from_coo(n, rows, cols, vals, ordng, clusters,
                               dtype=dtype, device=device, budget=budget,
-                              signs=signs, _canonical=_canonical)
+                              signs=signs, precision=precision,
+                              _canonical=_canonical)
         solver.ordering_info = info
         return solver
 
     @classmethod
     def from_scipy(cls, a, dtype=None, levels=None, device="cuda",
-                   budget: Optional[int] = None, **kw) -> "SparseCholesky":
+                   budget: Optional[int] = None,
+                   precision: Optional[str] = None,
+                   **kw) -> "SparseCholesky":
         """Build from a scipy sparse matrix (any format) or a dense
         symmetric ndarray. Accepts the lower triangle, the upper triangle,
         or a fully-populated symmetric matrix: (i,j)/(j,i) pairs fold to
@@ -265,12 +310,13 @@ class SparseCholesky:
                 dtype = np.float64
         return cls.from_matrix(int(n), rr, cc, vmean, levels=levels,
                                dtype=dtype, device=device, budget=budget,
-                               _canonical=True, **kw)
+                               precision=precision, _canonical=True, **kw)
 
     @classmethod
     def from_coo(cls, n: int, rows, cols, vals, ordng: ordio.Ordering,
                  clusters=None, dtype=np.float64, pad_to: int = 8,
                  device="cuda", budget: Optional[int] = None, signs=None,
+                 precision: Optional[str] = None,
                  _canonical: bool = False) -> "SparseCholesky":
         plan = build_plan(ordng, clusters, pad_to=pad_to)
         if plan.n != n:
@@ -282,9 +328,35 @@ class SparseCholesky:
         else:
             r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget, signs=signs)
+                   budget=budget, signs=signs, precision=precision)
 
     # ------------------------------------------------------------------
+    @property
+    def precision(self) -> Optional[str]:
+        """The effective matmul rung, as the JAX package resolves it. An
+        explicit one (constructor, setter, `factorize(precision=)`) wins,
+        "default" reading back as None. Otherwise AUTO: an f32 factor whose
+        executed frontal FLOPs (`capacity.frontal_flops`) are at most
+        `_AUTO_HIGHEST_FLOPS` gets "highest", a larger one None (the
+        one-pass rung); f64 and quasi-definite solvers get None. The answer
+        is pinned once the solver is factored (a factor is applied at the
+        rung it was built at); `update_values` re-resolves it from the same
+        plan, `load_factor` pins the checkpoint's."""
+        if self._precision is not None:
+            return None if self._precision == "default" else self._precision
+        if (self.dtype != np.float32 or self.signs is not None
+                or self.factored):
+            return self._precision_resolved
+        auto = ("highest" if capacity.frontal_flops(self.fplan)
+                <= _AUTO_HIGHEST_FLOPS else None)
+        self._precision_resolved = auto
+        return auto
+
+    @precision.setter
+    def precision(self, value: Optional[str]) -> None:
+        self._precision = value
+        self._precision_resolved = None
+
     @property
     def fplan(self) -> FrontalPlan:
         if self._fplan is None:
@@ -359,7 +431,8 @@ class SparseCholesky:
             return regimes.default_budget(self.device)
         return 1 << 62                          # the CPU: unbounded
 
-    def factorize(self, check: bool = False, level_hook=None):
+    def factorize(self, check: bool = False, precision: Optional[str] = None,
+                  level_hook=None):
         """Numeric factorization under the regime plan of the budget;
         returns the per-level [B, F, W] factors (device tensors, or CPU
         tensors for levels the plan keeps in host memory). `level_hook(lvl,
@@ -380,12 +453,26 @@ class SparseCholesky:
         LAPACK `info`-style diagnosis; a signed factor's pivots are
         sqrt(s_j d_j), NaN where the signature does not fit). Off by
         default: the check reads each level's diagonals back to the
-        host."""
-        pre = self.panels if (self.panels is not None
-                              and not self.factored) else None
-        # drop the previous factor and its inverses before the budget is
-        # read: the new factorization replaces them
-        self.panels, self.factored, self._inv = None, False, None
+        host.
+
+        `precision` overrides the solver's matmul rung for this and every
+        later factorization (sticky, as in the JAX package: the solves
+        apply the factor at the same rung). The factorization runs under
+        the resolved rung (`numeric/precision.py`)."""
+        if precision is not None:
+            _check_precision(precision)
+            self.precision = precision
+        if self.factored:
+            # drop the previous factor and its inverses before the budget
+            # is read: the new factorization replaces them
+            self.panels, self.factored, self._inv = None, False, None
+        with _precision_ctx(self.precision):
+            return self._factorize(check, level_hook)
+
+    def _factorize(self, check: bool, level_hook):
+        """The body of `factorize`, under the solver's rung."""
+        # slabs the caller assembled (or None); only `pre` holds them now
+        pre, self.panels, self._inv = self.panels, None, None
         t0 = time.perf_counter()
         budget = self._budget_bytes()
         kept = self._plans[1] if self._plans is not None else None
@@ -541,9 +628,10 @@ class SparseCholesky:
         """Per-level pivot inverses, cached with the factorization."""
         if self._inv is None or self._inv[0] != id(self.panels):
             self._inv = None            # free stale inverses first
-            self._inv = (id(self.panels),
-                         frontal.invert_pivots(self.fplan, self.panels,
-                                               device=self.device))
+            with _precision_ctx(self.precision):
+                inv = frontal.invert_pivots(self.fplan, self.panels,
+                                            device=self.device)
+            self._inv = (id(self.panels), inv)
         return self._inv[1]
 
     def _ell_host(self):
@@ -630,6 +718,7 @@ class SparseCholesky:
         more = room // regimes.solve_vector_bytes(fp.W, tdt)
         return int(max(1, min(k, 1 + more)))
 
+    @_with_precision
     def solve(self, b: np.ndarray, refine: str = "auto", tol: float = 1e-10,
               max_iter: int = 50) -> np.ndarray:
         """Solve A x = b; b and x are in ORIGINAL dof order. b is one
@@ -837,6 +926,7 @@ class SparseCholesky:
                 f"the room")
         return need
 
+    @_with_precision
     def inv_diag(self) -> np.ndarray:
         """diag(A^-1) in original dof order, by selected inversion on the
         factor (`numeric/selinv.py`): a top-down batched recursion over the
@@ -855,6 +945,7 @@ class SparseCholesky:
                                                  device=self.device)
         return out
 
+    @_with_precision
     def inv_entries(self, rows, cols) -> np.ndarray:
         """Selected entries (A^-1)[rows[k], cols[k]] in original dof order,
         for entries within the factor pattern (L + L^T + I): covariances
@@ -872,6 +963,7 @@ class SparseCholesky:
             self.fplan, self.panels, self.plan.iperm[rows],
             self.plan.iperm[cols], device=self.device)
 
+    @_with_precision
     def logdet_grad(self) -> np.ndarray:
         """d logdet(A) / dv, aligned with coo_pattern(): d logdet =
         tr(A^-1 dA), and entry v_k stands at (r_k, c_k) and (c_k, r_k), so
@@ -884,6 +976,7 @@ class SparseCholesky:
         g = self.inv_entries(self.rows, self.cols)
         return np.where(self.rows == self.cols, g, 2.0 * g)
 
+    @_with_precision
     def solve_grad(self, b: np.ndarray, xbar: np.ndarray,
                    x: Optional[np.ndarray] = None, tol: float = 1e-12):
         """Adjoint of x = A^-1 b: given the cotangent xbar = df/dx of a
@@ -907,6 +1000,7 @@ class SparseCholesky:
         vbar[r == c] = -(lam[r] * x[r])[r == c]
         return vbar, lam
 
+    @_with_precision
     def quadform_grad(self, b: np.ndarray, x: Optional[np.ndarray] = None,
                       tol: float = 1e-12) -> np.ndarray:
         """d(b^T A^-1 b) / dv aligned with coo_pattern(): -x_r x_c, doubled
@@ -933,6 +1027,7 @@ class SparseCholesky:
         return torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device)[perm].to(TORCH_DTYPES[self.dtype])
 
+    @_with_precision
     def sample(self, z: np.ndarray) -> np.ndarray:
         """Samples with covariance A^-1 from standard-normal draws: with
         A_perm = L L^T, x_perm = L^-T z has covariance A_perm^-1 (the
@@ -949,6 +1044,7 @@ class SparseCholesky:
         _, iperm = self._perm_device()
         return xp[iperm].to(torch.float64).cpu().numpy()
 
+    @_with_precision
     def whiten(self, x: np.ndarray) -> np.ndarray:
         """The inverse transform of sample(): z = L^T P x. For x ~
         N(0, A^-1) in original dof order the result is standard normal
@@ -978,6 +1074,7 @@ class SparseCholesky:
         off, sz = self._root_extent()
         return self.plan.perm[off:off + sz]
 
+    @_with_precision
     def schur_complement(self) -> np.ndarray:
         """Dense Schur complement S = A_rr - A_ro A_oo^-1 A_or of A onto
         the root separator dofs (rows / cols ordered as schur_dofs()). The
@@ -994,6 +1091,7 @@ class SparseCholesky:
         ld = ld.tril()
         return (ld @ ld.T).cpu().numpy()
 
+    @_with_precision
     def condense_rhs(self, b: np.ndarray) -> np.ndarray:
         """Condensed right-hand side b_hat = b_r - A_ro A_oo^-1 b_o of the
         interface system S x_r = b_hat (forward substitution over the
@@ -1009,6 +1107,7 @@ class SparseCholesky:
         off, sz = self._root_extent()
         return bg[off:off + sz].to(torch.float64).cpu().numpy()
 
+    @_with_precision
     def expand_solution(self, b: np.ndarray, x_root: np.ndarray
                         ) -> np.ndarray:
         """The full solution from an interface solution: given x_r solving
@@ -1050,6 +1149,7 @@ class SparseCholesky:
             raise ValueError("update weights must be nonzero")
         return u, w
 
+    @_with_precision
     def solve_updated(self, b: np.ndarray, u: np.ndarray, w=None,
                       tol: float = 1e-12) -> np.ndarray:
         """Solve (A + U diag(w) U^T) x = b by the Woodbury identity, reusing
@@ -1072,6 +1172,7 @@ class SparseCholesky:
         cap = np.diag(1.0 / w) + u.T @ ainv_u            # [k, k] capacitance
         return x - ainv_u @ np.linalg.solve(cap, u.T @ x)
 
+    @_with_precision
     def logdet_updated(self, u: np.ndarray, w=None, tol: float = 1e-12
                        ) -> float:
         """log det(A + U diag(w) U^T) by the matrix determinant lemma,
@@ -1093,6 +1194,7 @@ class SparseCholesky:
                 "A + U diag(w) U^T is not positive definite")
         return float(self.logdet() + np.log(np.abs(w)).sum() + logabs)
 
+    @_with_precision
     def solve_perturbed(self, b: np.ndarray, rows: np.ndarray,
                         cols: np.ndarray, vals: np.ndarray,
                         tol: float = 1e-10, max_iter: int = 200
@@ -1176,6 +1278,7 @@ class SparseCholesky:
     # ------------------------------------------------------------------
     # Spectra through the factor (`api.py:1320-1389`; `numeric/eigs.py`)
 
+    @_with_precision
     def eigsh(self, k: int = 6, which: str = "smallest", tol: float = 1e-9,
               m: Optional[int] = None, seed: int = 0, M=None):
         """k extremal eigenpairs of A (eigenvalues ascending, orthonormal
@@ -1195,6 +1298,7 @@ class SparseCholesky:
         return eigs.eigsh(self, k=k, which=which, tol=tol, m=m, seed=seed,
                           M=M)
 
+    @_with_precision
     def condest(self, iters: int = 12, seed: int = 0,
                 method: str = "power") -> float:
         """2-norm condition-number estimate kappa_2(A) ~ lambda_max /
@@ -1275,6 +1379,7 @@ class SparseCholesky:
                 f"ones")
         return plan
 
+    @_with_precision
     def factorize_many(self, vals_many) -> "BatchedFactors":
         """Factor K matrices that share THIS solver's sparsity pattern as
         one family: `vals_many` is [K, nnz] aligned with coo_pattern().
@@ -1328,7 +1433,9 @@ class SparseCholesky:
         exact matrix/ordering/dtype, in the JAX package's layout (version
         2), so either package loads it. Levels held in host memory are
         saved from there. bf16 levels are stored as their bit patterns
-        (uint16). Returns the written path."""
+        (uint16). The meta record names the rung the factor was built at
+        (`"precision"`, the `precision` property). Returns the written
+        path."""
         self._require_spd("save_factor/load_factor")
         if not self.factored:
             self.factorize()
@@ -1345,9 +1452,9 @@ class SparseCholesky:
         meta = {"version": 2, "engine": "frontal", "storage": "bits",
                 "n_panels": len(dtypes), "panel_dtypes": dtypes,
                 "fingerprint": self._factor_fingerprint(),
-                # the JAX package's matmul-precision ladder has no
-                # counterpart here: null is its default
-                "precision": None}
+                # the rung the factor was built at: a loader applies its
+                # solves at the same one (None: the one-pass rung)
+                "precision": self.precision}
         arrays["meta"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
         path = self._npz_path(path)
@@ -1361,7 +1468,10 @@ class SparseCholesky:
         solver's matrix/ordering/dtype (a mismatched factor would silently
         solve the wrong system). Each level keeps its stored dtype and goes
         where the regime plan of this solver's budget puts it: on the
-        device, or in host memory for levels the plan offloads."""
+        device, or in host memory for levels the plan offloads. A solver
+        without an explicit `precision` takes the checkpoint's rung
+        (`meta["precision"]`); a checkpoint without the key gets AUTO's
+        answer on this plan."""
         self._require_spd("save_factor/load_factor")
         with np.load(self._npz_path(path)) as data:
             meta = json.loads(bytes(data["meta"].tobytes()).decode())
@@ -1383,6 +1493,13 @@ class SparseCholesky:
                 host = plan.levels[i].offload and not plan.reupload
                 panels.append(t if host else t.to(self.device))
         self.regimes = plan
+        # pin the factor's rung BEFORE factored=True: its solves apply at
+        # the rung it was built at, not at AUTO's answer in this process
+        if self._precision is None:
+            if "precision" in meta:
+                self._precision_resolved = meta["precision"]
+            else:
+                _ = self.precision      # resolve while factored is False
         self.panels = tuple(panels)
         self.factored = True
 
@@ -1500,11 +1617,16 @@ class BatchedFactors:
         family on the device (double-float residuals, the ELL index shared
         by the family), then, where that does not reach tol or a row is too
         dense for ELL, a host loop with f64 CSR residuals. `last_solve`
-        records the sweeps of each loop and which loop finished."""
+        records the sweeps of each loop and which loop finished. Runs at
+        the parent solver's matmul rung, as the family was factored."""
         if refine not in ("auto", "never", "always"):
             raise ValueError(f"refine must be 'auto', 'never' or 'always', "
                              f"got {refine!r}")
-        b = self._rhs(b)
+        with _precision_ctx(self._s.precision):
+            return self._solve(self._rhs(b), refine, tol, max_iter)
+
+    def _solve(self, b: np.ndarray, refine: str, tol: float,
+               max_iter: int) -> np.ndarray:
         s = self._s
         self.last_solve = {"sweeps": 0, "host_sweeps": 0, "loop": "none"}
         want_ir = refine == "always" or (
@@ -1574,8 +1696,8 @@ def spsolve(a, b: np.ndarray, dtype=None, levels=None, tol: float = 1e-10,
     triangle (or both) of A may be populated. `dtype=None` keeps A's dtype
     (float32 factors in f32 and refines to `tol`). A sparse `b` is
     densified: a direct factor-solve has no sparsity to exploit in the
-    right-hand side. Extra keywords pass through to
-    `SparseCholesky.from_scipy`."""
+    right-hand side. Extra keywords (`precision=` among them) pass through
+    to `SparseCholesky.from_scipy`."""
     import scipy.sparse as _sp
 
     if _sp.issparse(b):

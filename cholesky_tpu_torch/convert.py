@@ -52,8 +52,9 @@ def plan_from_jax(jplan) -> SolvePlan:
 
 
 def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
-    """A factored port solver holding the JAX solver's plan, factor and
-    signature (`signs`, None for a Cholesky factor)."""
+    """A factored port solver holding the JAX solver's plan, factor,
+    signature (`signs`, None for a Cholesky factor) and matmul rung (pinned
+    as `load_factor` pins a checkpoint's)."""
     if not jax_solver.factored:
         raise ValueError("factorize the JAX solver first")
     jfp = jax_solver.fplan
@@ -75,6 +76,7 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
     solver.panels = tuple(
         _level(p, "cpu" if isinstance(p, np.ndarray) else solver.device)
         for p in jax_solver.panels)
+    solver._precision_resolved = jax_solver.precision
     solver.factored = True
     return solver
 

@@ -19,6 +19,12 @@ column whose x is 0).
 
 Each Dekker/Knuth step is its own eager tensor op. Do not run these under
 `torch.compile` or any fusing compiler: a fused multiply-add breaks TwoProd.
+The residual is gathers and elementwise products, no GEMM, so it does not
+depend on the matmul rung (`numeric/precision.py`); the inner solve applies
+the factor at the ambient rung, the factor's own (the JAX package's
+"ambient" apply mode). `solve_refined_df(demote_apply=True)` applies it at
+the one-pass rung instead, the JAX package's default on the TPU, kept for
+measuring both.
 
 Each loop (`_iterate`; the single-RHS, the block and the family loop) is a
 Python loop with one host read of the residual norm per sweep. It stops on the tolerance or on stagnation (a sweep that does not
@@ -40,6 +46,7 @@ import torch
 
 from cholesky_tpu_torch.numeric import frontal, ldlt, regimes
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
+from cholesky_tpu_torch.numeric.precision import precision_ctx
 
 _SPLIT = 4097.0                    # Dekker split constant for f32: 2^12 + 1
 
@@ -242,7 +249,8 @@ def _inner_solve(fp: FrontalPlan, factors, inv_pivots, signs):
 def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
                      inv_pivots: Optional[Sequence[torch.Tensor]],
                      b64: np.ndarray, ell, tol: float = 1e-12,
-                     max_iter: int = 40, signs=None):
+                     max_iter: int = 40, signs=None,
+                     demote_apply: bool = False):
     """IR with f32 solves and double-float residuals. `b64` is the PERMUTED
     f64 RHS [n]: a NumPy array, or a tensor (then everything but the norms
     read per sweep stays on the device, the result too). With `inv_pivots`
@@ -251,9 +259,12 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     `frontal.frontal_solve` in the permuted basis and `ell` is the
     `build_ell` planes of the permuted matrix. Either way `ell` lies on the
     solve's device (idx as int64). `signs` (an `ldlt.DeviceSigns`): the
-    factor is a quasi-definite signed one. Returns (x_perm64, sweeps,
-    rn_rel): the f64 solution in permuted order, the sweep count, and the
-    loop's own (double-float) estimate of the final RELATIVE residual."""
+    factor is a quasi-definite signed one. `demote_apply`: every inner
+    solve runs at the one-pass rung (TF32 on the card) whatever the ambient
+    rung (`cholesky_tpu/numeric/refine.py:266,329-343`); the api never
+    sets it. Returns (x_perm64, sweeps, rn_rel): the f64 solution in
+    permuted order, the sweep count, and the loop's own (double-float)
+    estimate of the final RELATIVE residual."""
     idx, a_hi, a_lo = ell
     device = idx.device
     b64, as_numpy = _rhs_on_device(b64, device)
@@ -263,6 +274,12 @@ def solve_refined_df(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     tol_abs = float(np.float32(tol * bnorm))
 
     solve = _inner_solve(fp, factors, inv_pivots, signs)
+    if demote_apply:
+        ambient = solve
+
+        def solve(rhs):
+            with precision_ctx(None):
+                return ambient(rhs)
 
     def resid(x_hi, x_lo):
         # banded: the state vectors carry their zero sentinel slot inline

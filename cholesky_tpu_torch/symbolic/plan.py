@@ -1,9 +1,8 @@
 """The static solve plan — the central symbolic artifact.
 
 The port's copy of `cholesky_tpu/symbolic/plan.py` (`SolvePlan`,
-`build_plan`, `block_bounds`, `permute_matrix_dense`), kept line for line
-so that both packages build identical plans; `panel_shape`, which the port
-does not call, is not copied.
+`build_plan`, `panel_shape`, `block_bounds`, `permute_matrix_dense`), kept
+line for line so that both packages build identical plans.
 
 The reference computes this information dynamically inside Legion tasks
 (partition_matrix mmat.rg:300-362 for block bounds, build_separator_tree
@@ -75,6 +74,9 @@ class SolvePlan:
     @property
     def num_separators(self) -> int:
         return self.tree.num_separators
+
+    def panel_shape(self, level: int) -> Tuple[int, int, int]:
+        return (1 << level, int(self.H[level]), int(self.S[level]))
 
     def block_bounds(self, row_sep: int, col_sep: int) -> Tuple[int, int, int, int]:
         """Global (lo_r, lo_c, hi_r, hi_c) inclusive bounds of block

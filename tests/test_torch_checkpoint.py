@@ -3,7 +3,9 @@ of the port against the JAX package's, on the CPU. Both write the same
 `.npz` layout (version 2: per-level panels, bf16 levels as uint16 bit
 patterns, a sha256 fingerprint of matrix, ordering and dtype), so a
 checkpoint written by either loads in the other and solves to the 1e-10
-residual contract; f32 and f64 levels round-trip bit for bit."""
+residual contract; f32 and f64 levels round-trip bit for bit. The meta
+record names the matmul rung the factor was built at (`"precision"`), and
+a loader without an explicit rung pins it, in both directions."""
 
 import json
 
@@ -12,7 +14,9 @@ import pytest
 import torch
 
 import cholesky_tpu
+import cholesky_tpu.api as japi
 import cholesky_tpu_torch
+import cholesky_tpu_torch.api as tapi
 from cholesky_tpu.io import mmio
 from cholesky_tpu.numeric import frontal as jfrontal
 from cholesky_tpu.utils.laplacian import generate_problem
@@ -58,7 +62,10 @@ def test_port_checkpoint_loads_in_jax(name, dtype, tmp_path, port_fixtures):
     with np.load(path) as data:
         meta = json.loads(bytes(data["meta"].tobytes()).decode())
     assert meta["version"] == 2 and meta["storage"] == "bits"
-    assert meta["precision"] is None
+    # the resolved rung: AUTO gives an f32 factor of these small plans
+    # "highest", an f64 one None (as the JAX package writes)
+    assert meta["precision"] == ts.precision == js.precision
+    assert meta["precision"] == ("highest" if dtype == np.float32 else None)
     assert meta["panel_dtypes"] == [np.dtype(dtype).name] * ts.plan.levels
     js.load_factor(path)
     assert js.factored
@@ -153,3 +160,64 @@ def test_both_loaders_refuse_a_changed_problem(what, tmp_path,
         js.load_factor(path)
     assert str(port.value) == str(ref.value)
     assert not ts.factored
+
+
+def _rung_solver(pkg, rung):
+    n, r, c, v, o, cl, b = generate_problem((8, 8, 8), 4)
+    kw = {"device": "cpu"} if pkg is cholesky_tpu_torch else {}
+    return pkg.SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                       precision=rung, **kw), b
+
+
+def _meta(path):
+    with np.load(path) as data:
+        return json.loads(bytes(data["meta"].tobytes()).decode())
+
+
+@pytest.mark.parametrize("rung", ["highest", "high", "default", None])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_pins_the_rung_in_the_other_package(writer, rung,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """A factor saved at a rung loads pinned at that rung in an AUTO solver
+    of the other package (and of its own), though AUTO would answer
+    otherwise there: the loading process's threshold is moved so that it
+    would."""
+    pkgs = (cholesky_tpu, cholesky_tpu_torch)
+    src, dst = pkgs if writer == "jax" else pkgs[::-1]
+    w, b = _rung_solver(src, rung)
+    w.factorize()
+    path = w.save_factor(str(tmp_path / "ck"))
+    saved = _meta(path)["precision"]
+    assert saved == w.precision == (None if rung == "default" else
+                                    "highest" if rung is None else rung)
+    flip = 0.0 if saved == "highest" else 1e30
+    monkeypatch.setattr(japi, "_AUTO_HIGHEST_FLOPS", flip)
+    monkeypatch.setattr(tapi, "_AUTO_HIGHEST_FLOPS", flip)
+    for pkg in (dst, src):
+        s, _ = _rung_solver(pkg, None)
+        assert s.precision != saved             # AUTO here answers otherwise
+        s.load_factor(path)
+        assert s.factored and s.precision == saved
+        assert s.residual(b, s.solve(b)) <= TOL
+        assert s.precision == saved
+
+
+@pytest.mark.parametrize("reader", ["jax", "port"])
+def test_checkpoint_without_the_key_resolves_auto(reader, tmp_path):
+    """A checkpoint written before the meta key existed: the loader takes
+    AUTO's answer on its plan, resolved while unfactored."""
+    w, b = _rung_solver(cholesky_tpu_torch, None)
+    w.factorize()
+    path = w.save_factor(str(tmp_path / "ck"))
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+    meta = _meta(path)
+    del meta["precision"]
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+    s, _ = _rung_solver(cholesky_tpu if reader == "jax"
+                        else cholesky_tpu_torch, None)
+    s.load_factor(path)
+    assert s.precision == "highest"
+    assert s.residual(b, s.solve(b)) <= TOL

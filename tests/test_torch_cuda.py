@@ -1,5 +1,6 @@
 """The port on the card: the hand-written CUDA kernel against its plain
-PyTorch version, and the slice with every wide level forced through it.
+PyTorch version, the slice with every wide level forced through it, and
+the matmul-precision ladder's flag (TF32 or IEEE cuBLAS products).
 
 Every test is marked `cuda` and skips when torch.cuda.is_available() is
 False. This file imports neither jax nor tests.conftest, so it also runs
@@ -509,3 +510,99 @@ def test_cli_debug_log_on_card_matches_cpu(tmp_path, capsys):
     assert replay.debug_factor(f["m.mtx"], f["ord.txt"], f["factored.mtx"],
                                f"{card}/output", directory=card, rtol=TOL,
                                atol=TOL)
+
+
+def _flag():
+    return torch.backends.cuda.matmul.fp32_precision
+
+
+@pytest.mark.cuda
+def test_tf32_flag_takes_effect_on_a_batched_gemm():
+    """A [256, 128, 128] f32 batched GEMM: IEEE within f32 rounding of an
+    f64 product, TF32 (10 significand bits) at least 10x coarser."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(256, 128, 128, generator=gen, device="cuda")
+    y = torch.randn(256, 128, 128, generator=gen, device="cuda")
+    ref = torch.bmm(x.double(), y.double())
+    errs = {}
+    for rung in ("highest", "default"):
+        with precision_ctx(rung):
+            errs[_flag()] = _rel(torch.bmm(x, y), ref)
+    assert errs["ieee"] <= 1e-5
+    assert errs["tf32"] > 10 * errs["ieee"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [128, 1024])
+def test_chol_inv_bit_identical_under_both_flags(B):
+    """chol_inv computes in scalar FMAs: the TF32 flag leaves it bit for
+    bit unchanged."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    d = torch.from_numpy(_blocks(B)).cuda()
+    out = {}
+    for rung in ("highest", "default"):
+        with precision_ctx(rung):
+            out[_flag()] = hk.chol_inv(d)
+    torch.cuda.synchronize()
+    assert torch.equal(out["ieee"][0], out["tf32"][0])
+    assert torch.equal(out["ieee"][1], out["tf32"][1])
+    l_p, m_p = hk.chol_inv_ref(d)
+    assert _rel(out["tf32"][0], l_p) <= L_REL
+    assert _rel(out["tf32"][1], m_p) <= INV_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", [None, "highest", "high", "default"])
+def test_solve_at_each_rung_on_card(rung):
+    """15^3 L5 at each rung (AUTO resolves "highest" there) solves to the
+    contract, and the flag is what it was before."""
+    _require_cuda()
+    n, r, c, v, o, cl, b = generate_problem((15, 15, 15), 5)
+    before = _flag()
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda", precision=rung)
+    s.factorize()
+    x = s.solve(b)
+    assert s.residual(b, x) <= TOL
+    assert s.precision == ("highest" if rung is None else
+                           None if rung == "default" else rung)
+    assert _flag() == before
+
+
+@pytest.mark.cuda
+def test_flag_restored_on_card(monkeypatch):
+    """The flag inside the level loop is the rung's; after the
+    factorization, the solves, selected inversion and a factorization that
+    raises, it is what the process had set."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import frontal
+
+    n, r, c, v, o, cl, b = generate_problem((12, 12, 12), 4)
+    matmul = torch.backends.cuda.matmul
+    for outer in ("none", "ieee", "tf32"):
+        matmul.fp32_precision = outer
+        try:
+            for rung, want in (("highest", "ieee"), ("default", "tf32")):
+                s = SparseCholesky.from_coo(n, r, c, v, o, cl,
+                                            dtype=np.float32, device="cuda",
+                                            precision=rung)
+                seen = set()
+                s.factorize(level_hook=lambda lvl, w: seen.add(_flag()))
+                assert seen == {want}
+                assert s.residual(b, s.solve(b)) <= TOL
+                s.inv_diag()
+                assert _flag() == outer
+                with monkeypatch.context() as m:
+                    def boom(*args, **kwargs):
+                        raise RuntimeError("boom")
+                    m.setattr(frontal, "factor", boom)
+                    with pytest.raises(RuntimeError, match="boom"):
+                        s.factorize()
+                assert _flag() == outer
+        finally:
+            matmul.fp32_precision = "none"
