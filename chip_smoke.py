@@ -14,8 +14,9 @@ Phases, each printing one JSON line:
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
              blocks (errors against an f64 reference), then at each shape
              the main paths launch it with, [128|64|32, 128, 128] (50^3),
-             [8192|1024|512|256|128, 128, 128] (140^3) and [2048, 128, 128]
-             (the 50^3 family at K = 16), checked the same way and timed
+             [8192|1024|512|256|128, 128, 128] (140^3), [2048, 128, 128]
+             (the 50^3 family at K = 16) and [16|8, 128, 128] (a slot of
+             the mesh phase), checked the same way and timed
              beside its bound (bytes over 3.35 TB/s or fp32 flops over 67
              TFLOP/s, whichever is larger), its share of that bound, its
              plain version and the library pair `cholesky_ex` +
@@ -151,6 +152,24 @@ Phases, each printing one JSON line:
              140^3 batches bit-identical under both flags, the library pair
              (cholesky_ex, solve_triangular) under both flags, and
              factor_slab [128, 1440, 864] under both beside its bounds.
+ 18. mesh:   after the precision phase, before the scale phase:
+             `parallel.mesh.make_mesh` of 4 slots over the machine's cards
+             round robin: 4 distinct cards, or logical slots sharing fewer
+             (then `scaling_figure` is false). 50^3 L8
+             f32 at the AUTO rung: the per-level path (slot-sharded 7-2,
+             row groups at 1, the 1-D collective root), factor walls cold
+             and warm, the host assembly and placement alone, one more
+             factorization with per-level CUDA-event ms (after the
+             launches are read), per level the relative difference from the
+             mesh-free factor, per slot and level the stored bytes under
+             `regimes.slot_bytes`, two solves with sweeps and f64 SciPy
+             residuals, chol_inv launches against the rule times the
+             slots; a K = 8 family on the mesh (per-system residuals,
+             launches); the quasi-definite 50^3 system on the mesh
+             (residual, exact inertia); then the 1-D and 2-D collective
+             Cholesky of an [8192, 8192] f32 SPD matrix over 8 slots
+             against cuSOLVER's f64 factor: error, wall, bytes between
+             slots, beside cuSOLVER's f32 wall.
 Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
@@ -228,6 +247,11 @@ CHOL_INV_140 = (8192, 1024, 512, 256, 128)   # its batches at 140^3 L14
 # an f64 product must exceed the IEEE product's by this factor, or the flag
 # did not take effect
 TF32_ERR_RATIO = 10.0
+MESH_SLOTS = 4                     # slots of the mesh phase's solver
+MESH_ROOT_SLOTS = 8                # slots of its collective Cholesky
+MESH_ROOT_F = 8192                 # ... of an [F, F] SPD matrix
+MESH_FACTOR_REL = 1e-5             # mesh factor vs the mesh-free one (f32)
+ROOT_REL_TOL = 1e-5                # collective f32 factor vs cuSOLVER f64
 SEED = 0                           # random blocks, slabs and right-hand sides
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
 FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
@@ -425,8 +449,9 @@ def phase_kernel():
 
     # the shapes the main paths launch it with: 50^3 levels 7, 6, 5 and
     # 140^3 levels 13, 10, 9, 8 (and 7, B = 128); the 50^3 family's
-    # [2048|1024|512|256|128|64] at K = 8 and 16; each checked against its
-    # plain version and the f64 reference, then timed
+    # [2048|1024|512|256|128|64] at K = 8 and 16; a slot of the mesh
+    # phase's 4-slot 50^3 at [32|16|8]; each checked against its plain
+    # version and the f64 reference, then timed
     def library(x):
         L, _ = torch.linalg.cholesky_ex(x)
         return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
@@ -434,7 +459,7 @@ def phase_kernel():
     timed = {}
     big = torch.randn(8192, 128, 128, generator=gen, device=dev)
     big = big @ big.transpose(1, 2) / 128 + 0.5 * eye
-    for B in (128, 64, 32, 8192, 2048, 1024, 512, 256):
+    for B in (128, 64, 32, 16, 8, 8192, 2048, 1024, 512, 256):
         x = d[:B].contiguous() if B <= 300 else big[:B].contiguous()
         errs = check_chol_inv(x)
         max_abs = max(max_abs, errs["max_abs_err"])
@@ -2224,6 +2249,245 @@ def phase_precision_kernels():
           "shape": [B, F, W], **slab, "tf32_vs_ieee_rel_diff": diff})
 
 
+def mesh_devices(slots: int):
+    """`slots` slots over the machine's cards, round robin: distinct cards
+    when it has that many, else logical slots sharing them (all on cuda:0
+    on a one-card machine); and how many distinct cards they use."""
+    import torch
+
+    count = min(torch.cuda.device_count(), slots)
+    return [torch.device("cuda", i % count) for i in range(slots)], count
+
+
+def expected_mesh_chol_inv(fp, plan, mesh, paths) -> int:
+    """chol_inv launches of one mesh factorization by the routing rule:
+    per level the rule on the level's batch over the whole mesh (a chunk's
+    with chunks), one launch per 128-wide panel per chunk, on every slot of
+    a slot-sharded level and on the first slot of a replicated one; row
+    groups and the collective root take none."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    total = 0
+    for lvl, lp in enumerate(plan.levels):
+        if paths[lvl] not in ("slot", "replicated"):
+            continue
+        b = (plan.family << lvl) // lp.chunks
+        if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
+            slots = mesh.size if paths[lvl] == "slot" else 1
+            total += slots * lp.chunks * -(-fp.W[lvl] // hk.BS)
+    return total
+
+
+def slot_storage(panels, fp, plan, mesh, distinct: int) -> dict:
+    """Per level the bytes each slot's part holds beside
+    `regimes.slot_bytes` (logical slots: the storage of each slot's
+    tensors; a replicated level is on the first slot); with distinct cards
+    also each card's max_memory_allocated."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import regimes
+    from cholesky_tpu_torch.parallel.mesh import Sharded
+
+    rows = []
+    for lvl, p in enumerate(panels):
+        held = (p.slot_nbytes() if isinstance(p, Sharded)
+                else [p.numel() * p.element_size()])
+        lp = plan.levels[lvl]
+        est = regimes.slot_bytes(fp, lvl, mesh, dtype=plan.dtype,
+                                 update_dtype=lp.update_dtype,
+                                 store_dtype=lp.store_dtype)
+        check(max(held) <= est, f"mesh: level {lvl} holds {max(held)} bytes "
+              f"on a slot, over slot_bytes {est}")
+        rows.append({"lvl": lvl, "max_slot_bytes": max(held),
+                     "slot_bytes": est, "slots_holding": len(held)})
+    out = {"levels": rows, "per_slot_total": [
+        sum(p.slot_nbytes()[s] if isinstance(p, Sharded) else
+            (p.numel() * p.element_size() if s == 0 else 0) for p in panels)
+        for s in range(mesh.size)]}
+    if distinct > 1:
+        out["max_memory_allocated"] = {str(d): torch.cuda.max_memory_allocated(
+            d) for d in mesh.distinct}
+        out["plan_peak_bytes"] = plan.peak_bytes
+    return out
+
+
+def phase_mesh(base, b0):
+    """The mesh (`parallel/`) on MESH_SLOTS slots over the machine's cards
+    (`mesh_devices`; when slots share a card no wall is a scaling
+    figure). 50^3 L8 f32 at the AUTO rung: per-level placement,
+    factor walls, per-level difference from the mesh-free factor, per-slot
+    stored bytes beside regimes.slot_bytes, two solves, chol_inv launches
+    against the rule times the slots; a K = 8 family; the quasi-definite
+    50^3 system; then the 1-D and 2-D collective Cholesky of an
+    [MESH_ROOT_F, MESH_ROOT_F] SPD matrix over MESH_ROOT_SLOTS slots
+    against cuSOLVER in f64. Returns chol_inv launches by path."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.numeric import frontal
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+    from cholesky_tpu_torch.parallel import dist_cholesky as dc
+    from cholesky_tpu_torch.parallel import mesh as mesh_mod
+
+    devices, distinct = mesh_devices(MESH_SLOTS)
+    mesh = mesh_mod.make_mesh(devices=devices)
+    where = {"slots": mesh.size, "distinct_devices": distinct,
+             "scaling_figure": distinct == mesh.size}
+    n = base.plan.n
+    a = _scipy_matrix(n, base.rows, base.cols, base.vals)
+    base.precision = None
+    base.factorize()
+    free = [p.clone() for p in base.panels]
+    s = SparseCholesky(base.plan, base.rows, base.cols, base.vals,
+                       dtype=np.float32, mesh=mesh)
+    fp = s.fplan
+    paths = frontal.level_paths(fp, mesh, frontal.root_spec(fp, mesh))
+    check(paths == ["root-1d", "rows"] + ["slot"] * 6,
+          f"mesh: 50^3 placement {paths}")
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    # distinct cards: each card's allocator peak over the factorizations
+    for d in mesh.distinct:
+        torch.cuda.reset_peak_memory_stats(d)
+    walls = []
+    for _ in range(2):                  # cold, warm
+        _, w = timed_sync(s.factorize)
+        walls.append(w)
+    launches = dict(hk.LAUNCHES)        # read before the probed run
+    storage = slot_storage(s.panels, fp, s.regimes, mesh, distinct)
+    want = expected_mesh_chol_inv(fp, s.regimes, mesh, paths)
+    check(launches["chol_inv"] == 2 * want, f"mesh: {launches['chol_inv']} "
+          f"chol_inv launches in 2 factorizations, the rule gives {want}")
+    check(want > 0, "mesh: no kernel-routed level")
+    # where the warm factor's time goes: the host assembly and placement
+    # of the slabs alone, then per level by CUDA events
+    fronts, assembly_s = timed_sync(lambda: s._fronts(s.vals))
+    del fronts
+    hook, read = level_probe(s, devices[0])
+    _, probed = timed_sync(lambda: s.factorize(level_hook=hook))
+    levels = read()
+    diffs = [rel_err(mesh_mod.local(s.panels[lvl], "cuda:0").float(),
+                     free[lvl].float()) for lvl in range(fp.levels)]
+    del free
+    check(max(diffs) <= MESH_FACTOR_REL, f"mesh: factor differs from the "
+          f"mesh-free one by {max(diffs)}")
+    solves = []
+    for i in range(2):
+        b = b0 if i == 0 else np.random.default_rng(SEED + 200).integers(
+            1, 11, size=n).astype(np.float64)
+        x, wall = timed_sync(lambda: s.solve(b, tol=TOL))
+        res = float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+        check(bool(np.all(np.isfinite(x))), "mesh: solution not finite")
+        check(res <= TOL, f"mesh: solve {i}: residual {res} > {TOL}")
+        solves.append({"wall_s": wall, "residual": res, **s.last_solve})
+    emit({"phase": "mesh", "problem": "50^3 L8", "n": n, **where,
+          "precision": s.precision, "paths": paths,
+          "root_scheme": frontal.root_spec(fp, mesh).scheme,
+          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1],
+          "host_assembly_and_placement_s": assembly_s,
+          "probed_factor_wall_s": probed,
+          "level_ms": {lvl: x["ms"] for lvl, x in sorted(levels.items())},
+          "level_rel_diff_from_mesh_free": diffs,
+          "storage": storage, "plan": s.regimes.describe(),
+          "solves": solves, "launches": launches,
+          "launches_per_factorization": want})
+    out = {"50^3 L8 mesh (2 factorizations)": launches["chol_inv"]}
+    del s
+
+    # a family of K = 8 on the mesh: K / slots systems per slot
+    K = 8
+    rng = np.random.default_rng(SEED + 210)
+    vals = (1.0 + rng.uniform(0, 2, size=K))[:, None] * base.vals[None, :]
+    vals[:, base.rows == base.cols] += rng.uniform(0, 1, size=K)[:, None]
+    fs = SparseCholesky(base.plan, base.rows, base.cols, base.vals,
+                        dtype=np.float32, mesh=mesh)
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    bf, wall = timed_sync(lambda: fs.factorize_many(vals))
+    fam_launches = hk.LAUNCHES["chol_inv"]
+    fpaths = frontal.level_paths(bf.fp, mesh)
+    fwant = expected_mesh_chol_inv(fp, bf.regimes, mesh, fpaths)
+    check(fam_launches == fwant, f"mesh family: {fam_launches} chol_inv "
+          f"launches, the rule gives {fwant}")
+    B = rng.standard_normal((K, n))
+    X, swall = timed_sync(lambda: bf.solve(B, tol=TOL))
+    res = np.array([np.linalg.norm(_scipy_matrix(n, base.rows, base.cols,
+                                                 vals[i]) @ X[i] - B[i])
+                    / np.linalg.norm(B[i]) for i in range(K)])
+    check(float(res.max()) <= TOL, f"mesh family: residual {res.max()}")
+    emit({"phase": "mesh", "problem": "50^3 L8 family", "K": K, **where,
+          "paths": fpaths, "factor_many_wall_s": wall, "solve_wall_s": swall,
+          "residual_max": float(res.max()), "residuals": res.tolist(),
+          **bf.last_solve, "launches": fam_launches,
+          "launches_rule": fwant})
+    out["50^3 L8 mesh family K=8"] = fam_launches
+    del bf, fs
+
+    # the quasi-definite 50^3 system on the mesh
+    n, r, c, vq, o, cl, bq, sg = qd_problem((50, 50, 50), 8, SEED + 90)
+    q = SparseCholesky.from_coo(n, r, c, vq, o, cl, signs=sg,
+                                dtype=np.float32, mesh=mesh)
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    _, qwall = timed_sync(q.factorize)
+    qa = _scipy_matrix(n, q.rows, q.cols, q.vals)
+    x, qs = timed_sync(lambda: q.solve(bq, tol=TOL))
+    qres = float(np.linalg.norm(qa @ x - bq) / np.linalg.norm(bq))
+    inertia = q.inertia()
+    check(qres <= TOL, f"mesh qd: residual {qres} > {TOL}")
+    check(inertia == (int((sg > 0).sum()), int((sg < 0).sum()), 0),
+          f"mesh qd: inertia {inertia}")
+    emit({"phase": "mesh", "problem": "50^3 L8 quasi-definite", **where,
+          "paths": frontal.level_paths(q.fplan, mesh),
+          "factor_wall_s": qwall, "solve_wall_s": qs, "residual": qres,
+          **q.last_solve, "inertia": list(inertia),
+          "slogdet_sign": q.slogdet()[0],
+          "launches": hk.LAUNCHES["chol_inv"]})
+    out["50^3 L8 mesh quasi-definite"] = hk.LAUNCHES["chol_inv"]
+    del q
+
+    # the collective Cholesky of a root-sized front over 8 slots
+    rdev, rdistinct = mesh_devices(MESH_ROOT_SLOTS)
+    rmesh = mesh_mod.make_mesh(devices=rdev)
+    F = MESH_ROOT_F
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 220)
+    g = torch.randn(F, F, generator=gen, device="cuda") / F ** 0.5
+    spd = g @ g.T + 4.0 * torch.eye(F, device="cuda")
+    del g
+    ref = torch.linalg.cholesky(spd.double())
+    rows = []
+    with precision_ctx("highest"):
+        lib, lib_wall = timed_sync(lambda: torch.linalg.cholesky(spd))
+        lib_err = rel_err(lib, ref)
+        del lib
+        for name, fn in (("1d", dc.distributed_cholesky),
+                         ("2d", dc.distributed_cholesky_2d)):
+            fn(spd, rmesh, block=dc.ROOT_BLOCK)       # first use
+            stats = {}
+            L, wall = timed_sync(lambda: fn(spd, rmesh, block=dc.ROOT_BLOCK,
+                                            stats=stats))
+            err = rel_err(L, ref)
+            del L
+            check(err <= ROOT_REL_TOL, f"collective {name}: rel err {err} "
+                  f"> {ROOT_REL_TOL}")
+            rows.append({"scheme": name, "wall_s": wall, "rel_err_vs_f64":
+                         err, "bytes_between_slots": stats.get("bytes", 0),
+                         "gather_bytes": stats.get("gather_bytes", 0)})
+    emit({"phase": "mesh", "problem": f"collective Cholesky [{F}, {F}] f32",
+          "slots": rmesh.size, "distinct_devices": rdistinct,
+          "scaling_figure": rdistinct == rmesh.size, "block": dc.ROOT_BLOCK,
+          "picked": dc._pick_scheme(F, rmesh.size, dc.ROOT_BLOCK, rmesh),
+          "cusolver_f32_wall_s": lib_wall, "cusolver_f32_rel_err": lib_err,
+          "schemes": rows, "tol": ROOT_REL_TOL})
+    del spd, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2251,6 +2515,7 @@ def main() -> int:
         qd = phase_qd(solver)
         phase_companions(solver, b)
         ladder = phase_precision(solver, b)
+        mesh_launches = phase_mesh(solver, b)
         del solver
         scale, big, big_a, big_b = phase_scale()
         ladder["140^3 L14"] = phase_precision_scale(big, big_a, big_b)
@@ -2276,6 +2541,7 @@ def main() -> int:
             "50^3 L8 family K=16 (2 factorizations)": family[16],
             "50^3 L8 quasi-definite": qd,
             **{f"{k} precision ladder": v for k, v in ladder.items()},
+            **mesh_launches,
             "from_scipy gallery (ordering phase)": ordering_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],

@@ -16,7 +16,9 @@ values, sampling and whitening, and same-pattern families factored as one
 folded batch; symmetric quasi-definite (KKT) matrices by a signed LDL^T
 (`signs=`, `slogdet`, `inertia`); the Schur complement onto the root
 separator, Woodbury updates, factor-preconditioned CG for perturbed
-matrices, and Lanczos eigenpairs and condition numbers.
+matrices, and Lanczos eigenpairs and condition numbers; multi-device
+distribution over a single-process mesh of torch devices (`mesh=`,
+`--devices` / `--slices`).
 
   api.py                   SparseCholesky (from_files, from_coo, from_matrix,
                            from_scipy), BatchedFactors, solve_spd, spsolve
@@ -47,6 +49,9 @@ matrices, and Lanczos eigenpairs and condition numbers.
   numeric/refine.py        double-float iterative refinement, single and block
   numeric/profile.py       per-level, per-stage BLAS: timing lines
   kernels/                 CUDA sources and their nvcc build
+  parallel/                mesh.py (the mesh, placement, Sharded),
+                           dist_cholesky.py (collective root),
+                           dist_level.py (row-group narrow levels)
 """
 
 __version__ = "0.1.0"

@@ -43,6 +43,21 @@ The single-device SPD surface of `cholesky_tpu/api.py`:
 The device is an explicit argument everywhere; asking for "cuda" without a
 card raises. The port reads no environment variable.
 
+Multi-device: every constructor, `spsolve` and `solve_spd` take `mesh=`
+(`parallel.mesh.make_mesh` / `make_multislice_mesh`), which overrides
+`device=` (the mesh's first slot is `self.device`). The slabs are then
+assembled on the host and placed on the slots (`mesh.distribute_panels`);
+`factorize()` runs the slot-sharded levels per slot, eligible narrow levels
+by row groups and a wide root collectively (`numeric/frontal.py`,
+`parallel/`), under one slot's regime plan; the solves and their
+refinement run the slot-sharded levels per slot, the residual on the first
+slot. `factorize_many` shards the family's systems over the mesh, padding
+K to a multiple of the slot count with copies of the last system
+(`BatchedFactors.pad`). Selected inversion, the Schur complement, factor
+export and checkpoints run on the factor gathered onto the first slot's
+device (a sharded selected inversion is later work), and give the JAX
+package's results.
+
 Capacity: `factorize()` plans its regimes against one memory budget
 (`numeric/regimes.py`): by default BUDGET_FRACTION of the card's free
 memory when it starts, or the `budget` given to the constructor (bytes);
@@ -82,6 +97,7 @@ from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      build_frontal_plan)
 from cholesky_tpu_torch.numeric.precision import (
     check as _check_precision, precision_ctx as _precision_ctx)
+from cholesky_tpu_torch.parallel import mesh as mesh_mod
 from cholesky_tpu_torch.utils import capacity
 
 # AUTO rung (precision=None, f32 factors): executed frontal FLOPs
@@ -124,6 +140,16 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _home_device(device, mesh) -> torch.device:
+    """The solver's device: the mesh's first slot (every slot's device
+    checked as `_resolve_device` checks one), else `device`."""
+    if mesh is None:
+        return _resolve_device(device)
+    for d in mesh.distinct:
+        _resolve_device(d)
+    return mesh.flat[0]
+
+
 class SparseCholesky:
     """Sparse SPD Cholesky solver over a nested-dissection ordering.
 
@@ -140,10 +166,12 @@ class SparseCholesky:
     def __init__(self, plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
                  vals: np.ndarray, dtype=np.float64, device="cuda",
                  budget: Optional[int] = None, signs=None,
-                 precision: Optional[str] = None):
+                 precision: Optional[str] = None, mesh=None):
         """`budget`: device bytes the factorization may hold at once (None:
         regimes.BUDGET_FRACTION of the card's free memory when factorize()
-        starts; unbounded on the CPU). `signs`: [n] of +1 / -1 in original
+        starts; unbounded on the CPU; under a mesh, per device, shared by
+        the slots on it). `mesh`: a `parallel.mesh.Mesh` to distribute
+        over (it overrides `device`). `signs`: [n] of +1 / -1 in original
         dof order, the signature of a symmetric quasi-definite matrix
         (factored as L~ S L~^T, `numeric/ldlt.py`); an all-positive
         signature is the SPD path (`signs` None). `precision`: the matmul
@@ -153,7 +181,8 @@ class SparseCholesky:
         _check_precision(precision)
         self._precision = precision
         self._precision_resolved = None   # AUTO's answer, pinned when factored
-        self.device = _resolve_device(device)
+        self.mesh = mesh
+        self.device = _home_device(device, mesh)
         self.signs = None
         if signs is not None:
             signs = np.asarray(signs, dtype=np.float64).reshape(-1)
@@ -195,7 +224,8 @@ class SparseCholesky:
                    clusters_file: Optional[str] = None, dtype=np.float64,
                    pad_to: int = 8, device="cuda",
                    budget: Optional[int] = None, signs=None,
-                   precision: Optional[str] = None) -> "SparseCholesky":
+                   precision: Optional[str] = None,
+                   mesh=None) -> "SparseCholesky":
         ordng = ordio.parse_ordering(separator_file)
         clusters = ordio.parse_clusters(clusters_file) if clusters_file else None
         plan = build_plan(ordng, clusters, pad_to=pad_to)
@@ -205,7 +235,8 @@ class SparseCholesky:
                 f"matrix dim {banner.rows} != ordering dof count {plan.n}")
         r2, c2, v2 = mmio.dedup_lower(r, c, v)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget, signs=signs, precision=precision)
+                   budget=budget, signs=signs, precision=precision,
+                   mesh=mesh)
 
     @classmethod
     def from_matrix(cls, n: int, rows, cols, vals, levels=None,
@@ -214,7 +245,7 @@ class SparseCholesky:
                     md_small: int = 16384, signs=None,
                     native: Optional[bool] = None,
                     threads: Optional[int] = None,
-                    precision: Optional[str] = None,
+                    precision: Optional[str] = None, mesh=None,
                     _canonical: bool = False) -> "SparseCholesky":
         """Solve an arbitrary SPD (or, with `signs`, symmetric
         quasi-definite) matrix with NO precomputed ordering: a
@@ -230,7 +261,7 @@ class SparseCholesky:
         redundant O(nnz log nnz) dedup pass."""
         from cholesky_tpu_torch.symbolic.nd import nested_dissection_graph
 
-        _resolve_device(device)             # fail before the host work
+        _home_device(device, mesh)          # fail before the host work
         _check_precision(precision)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
@@ -240,7 +271,7 @@ class SparseCholesky:
             info=info, native=native, threads=threads)
         solver = cls.from_coo(n, rows, cols, vals, ordng, clusters,
                               dtype=dtype, device=device, budget=budget,
-                              signs=signs, precision=precision,
+                              signs=signs, precision=precision, mesh=mesh,
                               _canonical=_canonical)
         solver.ordering_info = info
         return solver
@@ -248,7 +279,7 @@ class SparseCholesky:
     @classmethod
     def from_scipy(cls, a, dtype=None, levels=None, device="cuda",
                    budget: Optional[int] = None,
-                   precision: Optional[str] = None,
+                   precision: Optional[str] = None, mesh=None,
                    **kw) -> "SparseCholesky":
         """Build from a scipy sparse matrix (any format) or a dense
         symmetric ndarray. Accepts the lower triangle, the upper triangle,
@@ -310,13 +341,14 @@ class SparseCholesky:
                 dtype = np.float64
         return cls.from_matrix(int(n), rr, cc, vmean, levels=levels,
                                dtype=dtype, device=device, budget=budget,
-                               precision=precision, _canonical=True, **kw)
+                               precision=precision, mesh=mesh,
+                               _canonical=True, **kw)
 
     @classmethod
     def from_coo(cls, n: int, rows, cols, vals, ordng: ordio.Ordering,
                  clusters=None, dtype=np.float64, pad_to: int = 8,
                  device="cuda", budget: Optional[int] = None, signs=None,
-                 precision: Optional[str] = None,
+                 precision: Optional[str] = None, mesh=None,
                  _canonical: bool = False) -> "SparseCholesky":
         plan = build_plan(ordng, clusters, pad_to=pad_to)
         if plan.n != n:
@@ -328,7 +360,8 @@ class SparseCholesky:
         else:
             r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
         return cls(plan, r2, c2, v2, dtype=dtype, device=device,
-                   budget=budget, signs=signs, precision=precision)
+                   budget=budget, signs=signs, precision=precision,
+                   mesh=mesh)
 
     # ------------------------------------------------------------------
     @property
@@ -364,15 +397,28 @@ class SparseCholesky:
         return self._fplan
 
     def _assembler(self) -> FrontAssembler:
+        """The front assembler: on the device, or on the host under a mesh
+        (whose slabs go straight to their slots)."""
         if self._fasm is None:
-            self._fasm = FrontAssembler(self.fplan, self.rows, self.cols,
-                                        self.device)
+            self._fasm = FrontAssembler(
+                self.fplan, self.rows, self.cols,
+                "cpu" if self.mesh is not None else self.device)
         return self._fasm
+
+    def _fronts(self, vals, lazy: bool = False):
+        """The slabs of `vals`: on the device (eagerly or level by level),
+        or under a mesh assembled on the host and placed on the slots."""
+        asm = self._assembler()
+        if self.mesh is not None:
+            return mesh_mod.distribute_panels(asm(vals, dtype=self.dtype),
+                                              self.mesh)
+        return (asm.lazy if lazy else asm)(vals, dtype=self.dtype)
 
     def assemble(self) -> List[torch.Tensor]:
         """(Re)build the per-level pivot slabs on the device from the COO
-        values: one scatter per level, only the [nnz] values uploaded."""
-        self.panels = self._assembler()(self.vals, dtype=self.dtype)
+        values: one scatter per level, only the [nnz] values uploaded.
+        Under a mesh, on the host, then placed on the slots."""
+        self.panels = self._fronts(self.vals)
         self.factored = False
         return self.panels
 
@@ -425,10 +471,18 @@ class SparseCholesky:
         self._ell_dev = {}
 
     def _budget_bytes(self) -> int:
+        """The factorization's budget; under a mesh one slot's: the
+        smallest of its devices' budgets over the slots sharing it."""
+        if self.mesh is not None:
+            return min(self._device_budget(d) // self.mesh.slots_on(d)
+                       for d in self.mesh.distinct)
+        return self._device_budget(self.device)
+
+    def _device_budget(self, device) -> int:
         if self.budget is not None:
             return int(self.budget)
-        if self.device.type == "cuda":
-            return regimes.default_budget(self.device)
+        if device.type == "cuda":
+            return regimes.default_budget(device)
         return 1 << 62                          # the CPU: unbounded
 
     def factorize(self, check: bool = False, precision: Optional[str] = None,
@@ -481,7 +535,7 @@ class SparseCholesky:
         self.regimes = plan
         plan_s = time.perf_counter() - t0
         # long-lived state, built once the plan fits, before the baseline
-        asm = self._assembler()
+        self._assembler()
         if self.signs is not None:
             self._signature()
         # A factorization that does not fit in the driver's free memory runs
@@ -502,20 +556,18 @@ class SparseCholesky:
             "released_cache": released,
             "allocated_at_start": (torch.cuda.memory_allocated(self.device)
                                    if self.device.type == "cuda" else None)}
-        if pre is not None:
-            fronts = pre                        # assembled by the caller
-        elif plan.lazy:
-            fronts = asm.lazy(self.vals, dtype=self.dtype)
-        else:
-            fronts = asm(self.vals, dtype=self.dtype)
+        fronts = pre if pre is not None else self._fronts(self.vals,
+                                                           plan.lazy)
         del pre                 # the level loop consumes the slabs
         if self.signs is not None:
             self.panels = ldlt.factor_qd(self.fplan, fronts,
                                          self._signature(),
-                                         level_hook=level_hook)
+                                         level_hook=level_hook,
+                                         mesh=self.mesh)
         else:
-            self.panels = frontal.factor(self.fplan, fronts, plan,
-                                         level_hook=level_hook)
+            self.panels = frontal.factor(
+                self.fplan, fronts, plan, level_hook=level_hook,
+                mesh=self.mesh, root=frontal.root_spec(self.fplan, self.mesh))
         self.factored = True
         if check:
             self._check_pivots()
@@ -523,8 +575,10 @@ class SparseCholesky:
 
     def _level_diagonals(self):
         """(level, [B, W] f64 pivot diagonals) per level: one host transfer
-        each; bf16 and host-resident levels are read through f32."""
+        each; bf16 and host-resident levels are read through f32, sharded
+        ones gathered."""
         for lvl, p in enumerate(self.panels):
+            p = mesh_mod.local(p)
             w = int(self.fplan.W[lvl])
             if w == 0 or p.shape[0] == 0:
                 continue
@@ -586,15 +640,26 @@ class SparseCholesky:
                     self.budget is None and not kept.reupload
                     and kept.peak_bytes <= budget < kept_budget):
                 return kept
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
         self._plans = (budget, regimes.plan_regimes(self.fplan, self.dtype,
-                                                    budget))
+                                                    budget, **mesh))
         return self._plans[1]
 
+    def _local_panels(self):
+        """The factor with one tensor per level: under a mesh its sharded
+        levels gathered onto the first slot's device (host memory for an
+        offloaded level). Selected inversion, the Schur complement, the
+        quasi-definite logdet, factor export and checkpoints read it."""
+        return tuple(mesh_mod.local(p) for p in self.panels)
+
     def _factor_bytes(self) -> int:
-        """Device bytes of the stored factor (levels in host memory not
-        counted)."""
-        return sum(p.numel() * p.element_size() for p in self.panels
-                   if p.device == self.device)
+        """Bytes of the stored factor on the solver's device (levels in host
+        memory, and a mesh's parts on other devices, not counted)."""
+        parts = [t for p in self.panels
+                 for t in (p.parts if isinstance(p, mesh_mod.Sharded)
+                           else [p])]
+        return sum(t.numel() * t.element_size() for t in parts
+                   if t.device == self.device)
 
     def _solve_fits(self, use_inv: bool, k: int = 1) -> bool:
         """Whether a refined solve of k right-hand sides fits the budget:
@@ -702,8 +767,13 @@ class SparseCholesky:
         return self._factor_bytes() + (inv if use_inv else 0)
 
     def _solve_budget(self) -> int:
-        return (self.regimes.budget if self.regimes is not None
-                else self._budget_bytes())
+        """The solve's budget on the solver's device: the factorization's
+        (under a mesh, the slots' on that device together)."""
+        budget = (self.regimes.budget if self.regimes is not None
+                  else self._budget_bytes())
+        if self.mesh is not None:
+            budget *= self.mesh.slots_on(self.device)
+        return budget
 
     def _solve_cols(self, k: int) -> int:
         """Columns per chunk of a block solve outside the device loop: as
@@ -832,7 +902,7 @@ class SparseCholesky:
             return 1, self.logdet()
         if not self.factored:
             self.factorize()
-        return ldlt.logdet_qd(self.fplan, self.panels, self.signs)
+        return ldlt.logdet_qd(self.fplan, self._local_panels(), self.signs)
 
     def inertia(self):
         """(n+, n-, n0) of the factored matrix: the quasi-definite
@@ -911,8 +981,10 @@ class SparseCholesky:
         numbers. Returns the estimate."""
         fp = self.fplan
         dt = selinv.compute_dtype(self.panels)
-        promoted = [p.device != self.device or p.dtype != dt
-                    for p in self.panels]
+        # a sharded level is gathered onto the device: a copy, as a
+        # promotion is
+        promoted = [isinstance(p, mesh_mod.Sharded) or p.device != self.device
+                    or p.dtype != dt for p in self.panels]
         need = regimes.selinv_bytes(fp.F, fp.W, dt, self._resident_bytes(),
                                     promoted)
         budget = self._solve_budget()
@@ -935,14 +1007,15 @@ class SparseCholesky:
         matrix), leverage scores, error estimation. Accuracy follows the
         factor precision (f64 factor ~1e-13 relative; f32 ~kappa(A) 1e-7).
         In core only: raises `regimes.BudgetError` when it does not fit
-        the budget."""
+        the budget. A mesh's factor is gathered onto the first slot's
+        device first (the recursion is not sharded)."""
         self._require_spd("selected inversion")
         if not self.factored:
             self.factorize()
         self._selinv_guard()
         out = np.empty(self.plan.n)
-        out[self.plan.perm] = selinv.selinv_diag(self.fplan, self.panels,
-                                                 device=self.device)
+        out[self.plan.perm] = selinv.selinv_diag(
+            self.fplan, self._local_panels(), device=self.device)
         return out
 
     @_with_precision
@@ -960,7 +1033,7 @@ class SparseCholesky:
         rows = np.atleast_1d(np.asarray(rows, dtype=np.int64))
         cols = np.atleast_1d(np.asarray(cols, dtype=np.int64))
         return selinv.selinv_entries(
-            self.fplan, self.panels, self.plan.iperm[rows],
+            self.fplan, self._local_panels(), self.plan.iperm[rows],
             self.plan.iperm[cols], device=self.device)
 
     @_with_precision
@@ -1087,7 +1160,8 @@ class SparseCholesky:
         if not self.factored:
             self.factorize()
         _, sz = self._root_extent()
-        ld = self.panels[0][0, :sz, :sz].to(self.device, torch.float64)
+        ld = mesh_mod.local(self.panels[0])[0, :sz, :sz].to(
+            self.device, torch.float64)
         ld = ld.tril()
         return (ld @ ld.T).cpu().numpy()
 
@@ -1340,25 +1414,28 @@ class SparseCholesky:
     # Same-pattern families (`api.py:1014-1066` of the JAX package)
 
     def _family_budget(self) -> int:
-        """What a family may hold: the solver's budget less its own
-        resident factor (the default budget reads the card's free memory
-        now, which that factor has already left)."""
+        """What a family may hold (per slot under a mesh): the solver's
+        budget less its own resident factor (the default budget reads the
+        card's free memory now, which that factor has already left)."""
         if self.budget is None:
             return self._budget_bytes()
-        return int(self.budget) - self._resident_bytes()
+        slots = self.mesh.size if self.mesh is not None else 1
+        return self._budget_bytes() - self._resident_bytes() // slots
 
     def _family_plan(self, K: int) -> regimes.RegimePlan:
         """The regime plan of K systems at batch K 2^lvl, in core: square or
         two-piece levels, factor stored in the compute dtype on the device,
-        no chunks, no offload. Raises BudgetError naming K when neither it
-        nor the family's factor beside its solve fits the budget."""
+        no chunks, no offload (under a mesh one slot's, at K / ndev
+        systems). Raises BudgetError naming K when neither it nor the
+        family's factor beside its solve fits the budget."""
         fp = self.fplan
         tdt = TORCH_DTYPES[self.dtype]
         budget = self._family_budget()
+        ks = K // self.mesh.size if self.mesh is not None else K
         try:
             plan = regimes.plan_regimes(
                 fp, self.dtype, budget, family=K, store_dtype=tdt,
-                offload=False, spill=False,
+                offload=False, spill=False, mesh=self.mesh,
                 chunks=dict.fromkeys(range(fp.levels), 1))
         except regimes.BudgetError as e:
             raise regimes.BudgetError(
@@ -1368,8 +1445,8 @@ class SparseCholesky:
         sym = np.concatenate([self.rows, self.cols[self.rows != self.cols]])
         ell_k = min(int(np.bincount(sym, minlength=self.plan.n).max()),
                     regimes.ELL_MAX_K)
-        need = (regimes.stored_bytes(fp.F, fp.W, plan.levels, K)
-                + regimes.solve_bytes(fp.F, fp.W, tdt, ell_k, k=K,
+        need = (regimes.stored_bytes(fp.F, fp.W, plan.levels, K, self.mesh)
+                + regimes.solve_bytes(fp.F, fp.W, tdt, ell_k, k=ks,
                                       promote=False))
         if need > budget:
             raise regimes.BudgetError(
@@ -1390,7 +1467,14 @@ class SparseCholesky:
         batches than one system does. Returns a BatchedFactors handle
         (solve / residual / logdet per system); this solver's own factor
         state is untouched. In core only: `regimes.BudgetError` (naming K)
-        when the family does not fit the budget."""
+        when the family does not fit the budget.
+
+        Under a mesh the SYSTEM axis shards over the slots: each slot
+        factors K / ndev whole systems on its device, with no traffic
+        between slots. A K that the slot count does not divide is padded
+        with copies of the last system (at most ndev - 1 redundant
+        factorizations; `BatchedFactors.pad`), and every result is cut back
+        to K."""
         self._require_spd("factorize_many")
         vals_many = np.asarray(vals_many, dtype=np.float64)
         if (vals_many.ndim != 2 or vals_many.shape[0] < 1
@@ -1399,12 +1483,21 @@ class SparseCholesky:
                 f"vals_many must be [K, {self.vals.shape[0]}] aligned with "
                 f"coo_pattern(); got {vals_many.shape}")
         K = vals_many.shape[0]
-        plan = self._family_plan(K)
+        pad = (-K) % self.mesh.size if self.mesh is not None else 0
+        vals_padded = np.concatenate(
+            [vals_many, np.repeat(vals_many[-1:], pad, axis=0)]) \
+            if pad else vals_many
+        plan = self._family_plan(K + pad)
         asm = self._assembler()
-        fronts = (asm.lazy if plan.lazy else asm)(vals_many, dtype=self.dtype)
-        fp = frontal.FamilyView(self.fplan, K)
-        factors = frontal.factor(fp, fronts, plan)
-        return BatchedFactors(self, fp, factors, vals_many, plan)
+        if self.mesh is not None:
+            fronts = mesh_mod.distribute_family(
+                asm(vals_padded, dtype=self.dtype), self.mesh, K + pad)
+        else:
+            fronts = (asm.lazy if plan.lazy else asm)(vals_many,
+                                                      dtype=self.dtype)
+        fp = frontal.FamilyView(self.fplan, K + pad)
+        factors = frontal.factor(fp, fronts, plan, mesh=self.mesh)
+        return BatchedFactors(self, fp, factors, vals_many, plan, pad=pad)
 
     # ------------------------------------------------------------------
     def _factor_fingerprint(self) -> str:
@@ -1440,7 +1533,7 @@ class SparseCholesky:
         if not self.factored:
             self.factorize()
         arrays, dtypes = {}, []
-        for i, p in enumerate(self.panels):
+        for i, p in enumerate(self._local_panels()):
             if p.dtype == torch.bfloat16:
                 dtypes.append("bfloat16")
                 arrays[f"panel_{i}"] = p.cpu().view(torch.int16).numpy().view(
@@ -1471,7 +1564,8 @@ class SparseCholesky:
         device, or in host memory for levels the plan offloads. A solver
         without an explicit `precision` takes the checkpoint's rung
         (`meta["precision"]`); a checkpoint without the key gets AUTO's
-        answer on this plan."""
+        answer on this plan. Under a mesh the levels are placed on the
+        slots as a factorization leaves them."""
         self._require_spd("save_factor/load_factor")
         with np.load(self._npz_path(path)) as data:
             meta = json.loads(bytes(data["meta"].tobytes()).decode())
@@ -1491,7 +1585,15 @@ class SparseCholesky:
                 else:
                     t = torch.from_numpy(a.astype(np.dtype(want)))
                 host = plan.levels[i].offload and not plan.reupload
-                panels.append(t if host else t.to(self.device))
+                if self.mesh is not None:
+                    t = mesh_mod.distribute(
+                        t, mesh_mod.panel_sharding(self.mesh, i), self.mesh)
+                    if host:
+                        t = (t.map(torch.Tensor.cpu)
+                             if isinstance(t, mesh_mod.Sharded) else t.cpu())
+                    panels.append(t)
+                else:
+                    panels.append(t if host else t.to(self.device))
         self.regimes = plan
         # pin the factor's rung BEFORE factored=True: its solves apply at
         # the rung it was built at, not at AUTO's answer in this process
@@ -1524,15 +1626,18 @@ class BatchedFactors:
     per-system solve (with mixed-precision refinement of an f32 family),
     residual and logdet. `factors[lvl]` is the folded [K 2^lvl, F, W]
     level on the device (system k's fronts at rows [k 2^lvl, (k + 1)
-    2^lvl)); `regimes` the plan it was factored under."""
+    2^lvl)), `Sharded` by systems under a mesh; `regimes` the plan it was
+    factored under. `pad`: copies of the last system that make the family
+    divisible over a mesh; every result is cut back to K."""
 
     def __init__(self, solver: SparseCholesky, fp, factors, vals_many,
-                 plan: regimes.RegimePlan):
+                 plan: regimes.RegimePlan, pad: int = 0):
         self._s = solver
-        self.fp = fp                    # frontal.FamilyView of K systems
+        self.fp = fp                    # frontal.FamilyView of K + pad
         self.factors = factors
         self.vals_many = vals_many      # [K, nnz] f64, solver's coo_pattern
         self.k = int(vals_many.shape[0])
+        self.pad = pad
         self.regimes = plan
         self.last_solve = {}
         self._csr = None
@@ -1580,8 +1685,8 @@ class BatchedFactors:
                 self._ell = False
             else:
                 idx, slot = lay
-                a64 = np.zeros((self.k,) + idx.shape)
-                a64[:, pr, slot] = self.vals_many[:, ent]
+                a64 = np.zeros((self.k + self.pad,) + idx.shape)
+                a64[:, pr, slot] = self._padded(self.vals_many)[:, ent]
                 hi, lo = refine_mod.split_f64(a64)
                 dev = s.device
                 self._ell = (torch.from_numpy(idx.astype(np.int64)).to(dev),
@@ -1589,15 +1694,21 @@ class BatchedFactors:
                              torch.from_numpy(lo).to(dev))
         return self._ell or None
 
+    def _padded(self, x: np.ndarray) -> np.ndarray:
+        """[K, ...] with the pad's copies of the last row appended."""
+        if not self.pad:
+            return x
+        return np.concatenate([x, np.repeat(x[-1:], self.pad, axis=0)])
+
     def _solve_once(self, b: np.ndarray) -> np.ndarray:
         """One solve per system against the family's factors: b [K, n] f64
         in original order -> x [K, n] f64."""
         s = self._s
         perm, iperm = s._perm_device()
-        bp = torch.from_numpy(np.ascontiguousarray(b)).to(
+        bp = torch.from_numpy(np.ascontiguousarray(self._padded(b))).to(
             s.device)[:, perm].to(TORCH_DTYPES[s.dtype])
         xp = frontal.solve_many_systems(self.fp, self.factors, bp)
-        return xp[:, iperm].to(torch.float64).cpu().numpy()
+        return xp[:self.k, iperm].to(torch.float64).cpu().numpy()
 
     def _rhs(self, b) -> np.ndarray:
         b = np.asarray(b, dtype=np.float64)
@@ -1639,9 +1750,9 @@ class BatchedFactors:
             perm, iperm = s._perm_device()
             xp, sweeps, rn_rel = refine_mod.solve_refined_df_family(
                 self.fp, self.factors,
-                torch.from_numpy(np.ascontiguousarray(b)).to(
+                torch.from_numpy(np.ascontiguousarray(self._padded(b))).to(
                     s.device)[:, perm], ell, tol=tol / 3.0, max_iter=max_iter)
-            x = xp[:, iperm].cpu().numpy()
+            x = xp[:self.k, iperm].cpu().numpy()
             del xp
             self.last_solve.update(sweeps=sweeps, rn_rel=rn_rel,
                                    loop="device")
@@ -1669,27 +1780,30 @@ class BatchedFactors:
     def logdet(self) -> np.ndarray:
         """log det(A_k) for every system, [K] (padded pivot diagonals are
         exactly 1 and contribute nothing)."""
-        total = np.zeros(self.k)
+        total = np.zeros(self.k + self.pad)
         for lvl, p in enumerate(self.factors):
             w = int(self.fp.W[lvl])
-            d = torch.diagonal(p[:, :w, :w], dim1=1, dim2=2)
-            d = d.cpu().numpy().astype(np.float64).reshape(self.k, -1)
+            d = torch.diagonal(mesh_mod.local(p)[:, :w, :w], dim1=1, dim2=2)
+            d = d.cpu().numpy().astype(np.float64).reshape(len(total), -1)
             total += np.log(d).sum(axis=1)
-        return 2.0 * total
+        return 2.0 * total[:self.k]
 
 
 def solve_spd(matrix_file: str, separator_file: str, b: np.ndarray,
               clusters_file: Optional[str] = None, dtype=np.float64,
-              device="cuda", budget: Optional[int] = None) -> np.ndarray:
+              device="cuda", budget: Optional[int] = None,
+              mesh=None) -> np.ndarray:
     """One-shot convenience: factor and solve from files."""
     s = SparseCholesky.from_files(matrix_file, separator_file, clusters_file,
-                                  dtype=dtype, device=device, budget=budget)
+                                  dtype=dtype, device=device, budget=budget,
+                                  mesh=mesh)
     s.factorize()
     return s.solve(b)
 
 
 def spsolve(a, b: np.ndarray, dtype=None, levels=None, tol: float = 1e-10,
-            device="cuda", budget: Optional[int] = None, **kw) -> np.ndarray:
+            device="cuda", budget: Optional[int] = None, mesh=None,
+            **kw) -> np.ndarray:
     """scipy.sparse.linalg.spsolve-shaped one-shot: solve A x = b for a
     symmetric positive-definite scipy sparse (or dense symmetric) matrix,
     ordering computed automatically (graph nested dissection). Either
@@ -1705,6 +1819,7 @@ def spsolve(a, b: np.ndarray, dtype=None, levels=None, tol: float = 1e-10,
         if b.ndim == 2 and b.shape[1] == 1:
             b = b.reshape(-1)
     s = SparseCholesky.from_scipy(a, dtype=dtype, levels=levels,
-                                  device=device, budget=budget, **kw)
+                                  device=device, budget=budget, mesh=mesh,
+                                  **kw)
     s.factorize()
     return s.solve(b, tol=tol)

@@ -39,11 +39,16 @@ The native host core (`native/`) reads and writes the matrix files, orders
 and analyses fill when it can be built; the CLI prints `ordering engine:
 native|python` when it orders and `fill engine: native|python` with `-d`.
 
-Flags whose engines the port does not have yet (`--devices` > 1,
-`--slices` > 1) print one line naming the flag and exit 2.
+`--devices N` distributes over a mesh of N slots (`parallel/mesh.py`) and
+`--slices S [--devices S*C]` over a multislice mesh of S slices, as the
+JAX CLI does, with its error line when S does not divide N. On `--device
+cpu` the slots are N logical CPU devices (S without `--devices`); on the
+card they are N distinct cards (S without `--devices`: every card), and
+the CLI exits 2 with one line when the machine has fewer.
 
 Run: python -m cholesky_tpu_torch.cli -i M.mtx [-s ord.txt -c clust.txt]
      -b B.mtx -o sol.txt [-d DIR [--debug-dumps]] [--device cuda|cpu]
+     [--devices N] [--slices S]
 """
 
 from __future__ import annotations
@@ -130,13 +135,36 @@ def parse_args(argv):
     return opts
 
 
-def _unported(opts):
-    """The first flag given whose engine the port lacks, or None."""
-    for flag, given in (("--devices", opts["devices"] > 1),
-                        ("--slices", opts["slices"] > 1)):
-        if given:
-            return flag
-    return None
+def _mesh(opts):
+    """The mesh of --devices / --slices (None without either), on CPU
+    slots for --device cpu and on distinct cards otherwise. Raises
+    ValueError with the line to print when it cannot be built."""
+    import torch
+
+    from cholesky_tpu_torch.parallel import mesh as mesh_mod
+
+    n, S = opts["devices"], opts["slices"]
+    if n <= 1 and S <= 1:
+        return None
+    if S > 1 and n > 1 and n % S:
+        # the JAX CLI's line, where make_multislice_mesh would truncate
+        raise ValueError(f"Error: --devices {n} is not divisible by "
+                         f"--slices {S}")
+    if torch.device(opts["device"]).type == "cpu":
+        devices = [torch.device("cpu")] * (n if n > 1 else S)
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        want = n if n > 1 else S
+        if len(devices) < want:
+            raise ValueError(f"Error: --devices {want} needs {want} CUDA "
+                             f"cards; this machine has {len(devices)}")
+        if n > 1:
+            devices = devices[:n]
+    if S > 1:
+        return mesh_mod.make_multislice_mesh(
+            S, (n // S) if n > 1 else None, devices=devices)
+    return mesh_mod.make_mesh(devices=devices)
 
 
 def main(argv=None) -> int:
@@ -149,19 +177,20 @@ def main(argv=None) -> int:
               "[-m factor.mtx] [-p permuted.mtx] [-d debug_dir] "
               "[--debug-dumps] [--iterations N] "
               "[--dtype float64|float32] [--device cuda|cpu] "
-              "[--budget BYTES] [--profile] [--save-factor ckpt.npz] "
+              "[--budget BYTES] [--devices N] [--slices S] [--profile] "
+              "[--save-factor ckpt.npz] "
               "[--load-factor ckpt.npz] [--inv-diag diag.txt] "
               "[--signs signs.txt] [--bench]\n"
               "Without -s, a nested-dissection ordering is computed from the "
               "matrix sparsity graph.")
         return 2
-    flag = _unported(opts)
-    if flag is not None:
-        print(f"Error: {flag} is not supported by cholesky_tpu_torch yet "
-              "(use python -m cholesky_tpu.cli)")
-        return 2
-
     import torch
+
+    try:
+        mesh = _mesh(opts)
+    except ValueError as e:
+        print(e)
+        return 2
 
     from cholesky_tpu_torch import SparseCholesky
     from cholesky_tpu_torch.io import mmio
@@ -184,7 +213,7 @@ def main(argv=None) -> int:
         print(f"signature: {int((signs > 0).sum())} positive, "
               f"{int((signs < 0).sum())} negative (quasi-definite LDL^T)")
     common = dict(dtype=dtype, device=opts["device"], budget=opts["budget"],
-                  signs=signs)
+                  signs=signs, mesh=mesh)
     if opts["separator_file"]:
         solver = SparseCholesky.from_files(
             opts["matrix_file"], opts["separator_file"],
@@ -231,7 +260,13 @@ def main(argv=None) -> int:
     if opts["profile"]:
         from cholesky_tpu_torch.numeric import profile as prof
 
-        prof.profile_frontal(solver.fplan, solver.assemble())
+        from cholesky_tpu_torch.parallel.mesh import local
+
+        # the profiler times the single-device stages: a mesh's slabs
+        # gathered onto its first slot
+        prof.profile_frontal(solver.fplan,
+                             [local(p, solver.device)
+                              for p in solver.assemble()])
         solver.panels = None
 
     factor_times = []

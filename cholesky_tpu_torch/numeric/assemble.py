@@ -17,6 +17,11 @@ then only the current level's (or chunk's) slab is ever resident.
 Values [K, nnz] (a same-pattern family, `api.factorize_many`) assemble into
 folded slabs [K B, F, W], system-major: the same [nnz] scatter indices
 address each system's row of a [K, B F W] slab, so no K-fold index exists.
+
+Under a mesh the solver assembles with a `FrontAssembler` on the CPU, as
+the JAX package assembles on the host under a mesh (`api.py:641-648`
+there), and `parallel.mesh.distribute_panels` / `distribute_family` send
+each slot's blocks straight to its device, with no staging on one device.
 """
 
 from __future__ import annotations

@@ -32,6 +32,18 @@ Ported:
     the folded batch K 2^lvl (the JAX package switches its kernel off under
     `vmap`).
   * `extract_factor_coo` / `extract_factor_dense` (`:2649-2700`).
+  * The mesh (`parallel/`): `_RootSpec` / `root_spec` (`_effective_root_
+    mesh`, `:1152-1210`) and `level_paths` (`_mesh_for_level`, `:1227`).
+    Under a mesh the level loop runs slot-sharded levels per slot on the
+    slot's device (each slot's blocks are a closed subtree, the batch-chunk
+    machinery with global block offsets), eligible narrow levels through
+    `dist_level.factor_level_sharded` (`:1301-1313`), the rest on the
+    mesh's first device, the root through `dist_cholesky` when it is wide
+    enough (`:1345`, `:1394`); every capacity regime applies per slot, and
+    an offloaded sharded level goes back to its slots (`:2609-2620`). The
+    solves run the slot-sharded levels per slot on work arrays of their
+    own and sum them at the transition to the narrow levels; a family on
+    a mesh holds K / ndev whole systems per slot (`:2451-2500`).
 
 Which regime each level takes comes from one memory budget
 (`regimes.plan_regimes`). Levels that `hopper_kernels.slab_kernel_eligible`
@@ -59,6 +71,13 @@ from cholesky_tpu_torch.numeric import devmem, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric.assemble import LazyFronts
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
+from cholesky_tpu_torch.parallel import dist_cholesky, dist_level
+from cholesky_tpu_torch.parallel import mesh as mesh_mod
+from cholesky_tpu_torch.parallel.mesh import Sharded
+
+# Narrowest root front that factors collectively over a mesh
+# (CHOLESKY_TPU_ROOT_DIST_MIN); narrower roots factor on the first slot.
+ROOT_DIST_MIN = 2048
 
 
 def _acc(dtype) -> torch.dtype:
@@ -131,9 +150,20 @@ class FamilyView:
         self.F, self.W, self.levels = fp.F, fp.W, fp.levels
 
 
+class _SlotView:
+    """The plan seen from one slot of a mesh in a solve: at the levels in
+    `spans` ({lvl: (b0, b1)}) only the slot's blocks; the index maps of
+    those levels are cut to its rows."""
+
+    def __init__(self, fp, spans: dict):
+        self.base, self.spans = fp, spans
+        self.F, self.W, self.levels = fp.F, fp.W, fp.levels
+
+
 def _unwrap(fp) -> Tuple[FrontalPlan, int]:
-    """(the FrontalPlan, the family size K) under a batch or family view."""
-    if isinstance(fp, _BatchView):
+    """(the FrontalPlan, the family size K) under a batch, slot or family
+    view."""
+    if isinstance(fp, (_BatchView, _SlotView)):
         fp = fp.base
     if isinstance(fp, FamilyView):
         return fp.base, fp.K
@@ -141,7 +171,14 @@ def _unwrap(fp) -> Tuple[FrontalPlan, int]:
 
 
 def _index(fp, name: str, lvl, device) -> torch.Tensor:
-    """`_device_index` of a plan or a family view (K-fold)."""
+    """`_device_index` of a plan or a family view (K-fold); a slot view's
+    levels cut to the slot's blocks."""
+    if isinstance(fp, _SlotView):
+        t = _index(fp.base, name, lvl, device)
+        if lvl in fp.spans:
+            b0, b1 = fp.spans[lvl]
+            t = t[b0:b1]
+        return t
     base, K = _unwrap(fp)
     return _device_index(base, name, lvl, device, K)
 
@@ -173,13 +210,21 @@ def _solve_lower_t(ld: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          left=False)
 
 
-def _factor_slab(slab: torch.Tensor, Wl: int) -> torch.Tensor:
+def _factor_slab(slab: torch.Tensor, Wl: int, route_b: Optional[int] = None,
+                 root: Optional["_RootSpec"] = None) -> torch.Tensor:
     """Partial factorization of pivot slabs [b, F, W] (rows [:W] the pivot
     Cholesky, rows [W:] the solved boundary strip): `factor_slab` where the
     routing rule takes the level, else cuSOLVER + TRSM written into one
-    output."""
+    output. The rule reads `route_b` (the batch of the level, or of its
+    chunk, over the whole mesh; default the slab's own). With `root`, a
+    root front [1, W, W] factors collectively over its mesh."""
     b, Fl, _ = slab.shape
-    if hk.slab_kernel_eligible(b, Wl, slab.dtype):
+    if root is not None and b == 1 and Fl == Wl:
+        fn = (dist_cholesky.distributed_cholesky_2d if root.scheme == "2d"
+              else dist_cholesky.distributed_cholesky)
+        return fn(slab[0], root.mesh, block=root.block)[None]
+    if hk.slab_kernel_eligible(b if route_b is None else route_b, Wl,
+                               slab.dtype):
         return hk.factor_slab(slab, Wl)
     if Fl == Wl:
         return _cholesky(slab)
@@ -370,7 +415,9 @@ def _schur_update_cast(X: torch.Tensor, E_T, out_dtype, fp=None,
 
 
 def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
-                  lp: Optional["regimes.LevelPlan"] = None):
+                  lp: Optional["regimes.LevelPlan"] = None,
+                  route_b: Optional[int] = None,
+                  root: Optional["_RootSpec"] = None):
     """One level of the multifrontal factorization. Consumes the level's
     pivot slabs `piv` [b, F, W] (the two-piece path writes into them) and
     the children's accumulated updates `U` (None at the leaf level; a
@@ -378,7 +425,8 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
     Returns (factor [b, F, W], U_next) where U_next feeds the parent level
     (None when lvl == 0). `lp` is the level's regime (square front or two
     piece, xxt tier, update dtype); None is the in-core square path with
-    updates in the factor's dtype."""
+    updates in the factor's dtype. `route_b` and `root` as in
+    `_factor_slab` (the root only where children feed the level)."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
     B = piv.shape[0]
     udt = piv.dtype if lp is None else lp.update_dtype
@@ -386,7 +434,7 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
     if U is None:
         # leaf levels: no children, so the square front is never needed —
         # factor the [B, F, W] pivot slab directly
-        fac = _factor_slab(piv, Wl)
+        fac = _factor_slab(piv, Wl, route_b)
         if lvl == 0:
             return fac, None
         if Fl > Wl:
@@ -404,7 +452,7 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
         if isinstance(U, tuple) or U.shape[1] > 0:
             piv, E_T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, udt)
         del U
-        fac = _factor_slab(piv, Wl)
+        fac = _factor_slab(piv, Wl, route_b, root)
         del piv
         if lvl == 0:
             return fac, None
@@ -421,7 +469,7 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
     if U.shape[1] > 0:
         _extend_add_fused_(fp, full, U, lvl + 1)
     del U
-    fac = _factor_slab(full[:, :Fl, :Wl], Wl)
+    fac = _factor_slab(full[:, :Fl, :Wl], Wl, route_b, root)
     if lvl == 0:
         return fac, None
     if Fl > Wl:
@@ -433,23 +481,110 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
 def _take_child_rows(pieces: List, counts: List[int], r0: int, r1: int,
                      device):
     """Rows [r0, r1) of the concatenation of `pieces` (child-update tensors
-    stacked along axis 0, sizes `counts`; host pieces are uploaded). A
-    span inside one device piece is a view; otherwise a copy on the
-    device."""
+    stacked along axis 0, sizes `counts`; host pieces are uploaded, pieces
+    of other devices copied, row-sharded pieces gathered). A span inside
+    one piece on `device` is a view; otherwise a copy on the device."""
     parts = []
     off = 0
     for arr, cnt in zip(pieces, counts):
         lo, hi = max(r0 - off, 0), min(r1 - off, cnt)
         if lo < hi:
-            parts.append(arr[lo:hi])
+            parts.append(arr.gather(device, lo, hi) if isinstance(arr, Sharded)
+                         else arr[lo:hi])
         off += cnt
     if len(parts) == 1:
         return parts[0].to(device)
     return torch.cat([p.to(device) for p in parts], dim=0)
 
 
+class _RootSpec:
+    """The collective-root decision, resolved once per factorization: the
+    mesh, the scheme ("1d", "2d", or "off" when the root is too narrow to
+    amortize the per-step traffic) and the column block."""
+
+    __slots__ = ("mesh", "scheme", "block")
+
+    def __init__(self, mesh, scheme: str, block: int):
+        self.mesh, self.scheme, self.block = mesh, scheme, block
+
+
+def root_spec(fp, mesh) -> Optional[_RootSpec]:
+    """`_effective_root_mesh`: None without a mesh; else the scheme of
+    `dist_cholesky._pick_scheme` for the root's width W[0], "off" below
+    ROOT_DIST_MIN (read at call time, as the block dist_cholesky.ROOT_BLOCK
+    and its ROOT_SCHEME are)."""
+    if mesh is None:
+        return None
+    block = dist_cholesky.ROOT_BLOCK
+    if fp.W[0] < ROOT_DIST_MIN:
+        return _RootSpec(mesh, "off", block)
+    return _RootSpec(mesh, dist_cholesky._pick_scheme(fp.W[0], mesh.size,
+                                                      block, mesh), block)
+
+
+def _is_family(fp) -> bool:
+    if isinstance(fp, (_BatchView, _SlotView)):
+        fp = fp.base
+    return isinstance(fp, FamilyView)
+
+
+def level_placement(fp, lvl: int, mesh):
+    """The placement of level lvl's [B, F, W] on `mesh` (None without one):
+    a family's by its system axis at every level, one system's by
+    `mesh.panel_sharding`."""
+    if mesh is None:
+        return None
+    if _is_family(fp):
+        return mesh_mod.family_sharding(mesh, _unwrap(fp)[1])
+    return mesh_mod.panel_sharding(mesh, lvl)
+
+
+def level_paths(fp, mesh, root: Optional[_RootSpec] = None) -> List[str]:
+    """Per level how the level loop runs it on `mesh` (`_mesh_for_level`):
+    "slot" (per slot on its blocks), "rows" (row groups, `dist_level`),
+    "root-1d" / "root-2d" (the collective root) or "replicated" (on the
+    mesh's first device); all "single" without a mesh."""
+    out = []
+    for lvl in range(fp.levels):
+        place = level_placement(fp, lvl, mesh)
+        if place is None:
+            out.append("single")
+        elif place.kind == "slot":
+            out.append("slot")
+        elif (place.kind == "rows" and lvl < fp.levels - 1
+              and dist_level.eligible(fp, lvl, 1 << lvl, mesh)):
+            out.append("rows")
+        elif (lvl == 0 and root is not None and root.scheme != "off"
+              and not _is_family(fp)):
+            out.append("root-" + root.scheme)
+        else:
+            out.append("replicated")
+    return out
+
+
+def _spans(place, devices, B: int):
+    """(slot, device, b0, b1) per slot that runs a level of B blocks: every
+    slot of a slot-sharded level, else the first device alone."""
+    if place is None or place.kind != "slot":
+        return [(0, devices[0], 0, B)]
+    return [(s, d) + place.batch_range(s, B) for s, d in enumerate(devices)]
+
+
+def _slab_of(item, s: int, b0: int, c0: int, c1: int, device):
+    """Blocks [c0, c1) of a level's assembled slab on `device`: from slot
+    s's part (which holds blocks from b0 on) or from the whole slab (a
+    row-sharded one gathered)."""
+    if isinstance(item, Sharded) and item.kind == "slot":
+        return item.parts[s][c0 - b0:c1 - b0].to(device)
+    if isinstance(item, Sharded):
+        return item.gather(device, c0, c1)
+    return item[c0:c1].to(device)
+
+
 def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
-                            level_hook=None) -> Tuple[torch.Tensor, ...]:
+                            level_hook=None, mesh=None,
+                            root: Optional[_RootSpec] = None
+                            ) -> Tuple[torch.Tensor, ...]:
     """The level loop, leaves to root, under a regime plan
     (`regimes.plan_regimes`): per level, `plan.levels[lvl]` gives the path
     (square or two-piece), the update dtype, the batch-chunk count, the
@@ -470,13 +605,25 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
     `fp` may be a `FamilyView` of K systems: B is then K 2^lvl, and `plan`
     the regime plan of that batch (`plan_regimes(..., family=K)`).
 
-    Returns the per-level [B, F, W] factors: device tensors, or CPU tensors
-    for offloaded levels."""
+    With `mesh` (`parallel.mesh.Mesh`), `fronts` is the list that
+    `mesh.distribute_panels` (or `distribute_family`) made and `plan` is
+    per slot (`plan_regimes(..., mesh=mesh)`): a slot-sharded level runs
+    on each slot's device over the slot's blocks, in the plan's chunks
+    (the kernel route decided on the level's batch over the whole mesh);
+    an eligible narrow level by row groups (`dist_level`); any other
+    level on the mesh's first device, the root collectively when `root`
+    (`root_spec`) says so.
+
+    Returns the per-level [B, F, W] factors: device tensors, CPU tensors
+    for offloaded levels, `Sharded` levels under a mesh."""
     lazy = isinstance(fronts, LazyFronts)
-    device = fronts.device if lazy else fronts[0].device
+    if mesh is not None:
+        devices = mesh.flat
+    else:
+        devices = [fronts.device if lazy else fronts[0].device]
     dtype = plan.dtype
     K = _unwrap(fp)[1]
-    out: List[Optional[torch.Tensor]] = [None] * fp.levels
+    out: List = [None] * fp.levels
     pieces = counts = None
     xxt = False                  # pieces hold a leaf's X (deferred X X^T)
     for lvl in range(fp.levels - 1, -1, -1):
@@ -484,23 +631,41 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
             level_hook(lvl, "start")
         lp = plan.levels[lvl]
         B, Fl, Wl = K << lvl, fp.F[lvl], fp.W[lvl]
+        place = level_placement(fp, lvl, mesh)
+        if (place is not None and place.kind == "rows" and pieces is not None
+                and dist_level.eligible(fp, lvl, B, mesh)):
+            child = _Child(pieces, counts, xxt)
+            pieces = None
+            fac, nxt = dist_level.factor_level_sharded(
+                fp, lvl, fronts[lvl], child, mesh, lp.update_dtype)
+            del child
+            if not lazy:
+                fronts[lvl] = None
+            out[lvl] = fac.map(lambda p: _store(p, lp))
+            del fac
+            pieces = [nxt.map(torch.Tensor.cpu) if lp.spill else nxt]
+            counts, xxt = [B], False
+            del nxt
+            if level_hook is not None:
+                level_hook(lvl, "end")
+            continue
         nc = lp.chunks
-        cb = B // nc
         # the stored factor stays the compute-dtype tensor on the device:
         # a leaf's X can then be a view of it
         keep = not lp.offload and lp.store_dtype == dtype
         x_view = keep and lp.update_dtype == dtype
-        stored = None if nc == 1 else torch.empty(
-            (B, Fl, Wl), dtype=lp.store_dtype,
-            device="cpu" if lp.offload else device)
-        new_pieces = []
+        # the kernel route reads the batch of a chunk over the whole mesh
+        route_b = B // nc
+        lroot = root if (lvl == 0 and root is not None
+                         and root.scheme != "off") else None
+        new_pieces, new_counts, parts = [], [], []
 
-        def slab(c0, c1):
-            if nc == 1:
-                return fronts[lvl]
-            return fronts.chunk(lvl, c0, c1) if lazy else fronts[lvl][c0:c1]
+        def slab(s, b0, c0, c1, device):
+            if lazy:
+                return fronts[lvl] if nc == 1 else fronts.chunk(lvl, c0, c1)
+            return _slab_of(fronts[lvl], s, b0, c0, c1, device)
 
-        def update(c0, c1):
+        def update(c0, c1, device):
             """Rows [2 c0, 2 c1) of the children's update; pieces that this
             chunk consumes to their end leave the list, so they are freed
             when the level drops the update."""
@@ -514,33 +679,56 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
                 off += cnt
             return ("xxt", U) if xxt else U
 
-        for c in range(nc):
-            c0, c1 = c * cb, (c + 1) * cb
-            view = fp if nc == 1 else _BatchView(fp, lvl, c0, c1)
-            # slab and update are passed as call expressions, not names, so
-            # that the level can free them as soon as it is done with them
-            fac, nxt = _factor_level(view, lvl, slab(c0, c1), update(c0, c1),
-                                     lp)
-            if nc == 1:
-                stored = fac if keep else _store(fac, lp)
-            else:
-                stored[c0:c1] = fac
-            if isinstance(nxt, tuple):                # the leaf's X
-                nxt = (stored[c0:c1, Wl:, :] if x_view else
-                       nxt[1].to(lp.update_dtype).contiguous())
-            del fac
-            if nxt is not None:
-                new_pieces.append(nxt.cpu() if lp.spill else nxt)
-            del nxt
+        for s, dev, b0, b1 in _spans(place, devices, B):
+            cb = (b1 - b0) // nc
+            stored = None if nc == 1 else torch.empty(
+                (b1 - b0, Fl, Wl), dtype=lp.store_dtype,
+                device="cpu" if lp.offload else dev)
+            for c in range(nc):
+                c0, c1 = b0 + c * cb, b0 + (c + 1) * cb
+                view = fp if (c0, c1) == (0, B) else _BatchView(fp, lvl, c0,
+                                                                c1)
+                # slab and update are passed as call expressions, not
+                # names, so that the level can free them as soon as it is
+                # done with them
+                fac, nxt = _factor_level(view, lvl, slab(s, b0, c0, c1, dev),
+                                         update(c0, c1, dev), lp,
+                                         route_b, lroot)
+                if nc == 1:
+                    stored = fac if keep else _store(fac, lp)
+                else:
+                    stored[c0 - b0:c1 - b0] = fac
+                if isinstance(nxt, tuple):                # the leaf's X
+                    nxt = (stored[c0 - b0:c1 - b0, Wl:, :] if x_view else
+                           nxt[1].to(lp.update_dtype).contiguous())
+                del fac
+                if nxt is not None:
+                    new_pieces.append(nxt.cpu() if lp.spill else nxt)
+                    new_counts.append(cb)
+                del nxt
+            parts.append(stored)
+            del stored
         if not lazy:
             fronts[lvl] = None
-        out[lvl] = stored
-        del stored
+        out[lvl] = (parts[0] if place is None or place.kind != "slot" else
+                    Sharded(parts, place, (B, Fl, Wl), devices))
+        del parts
         xxt = lvl == fp.levels - 1 and Fl > Wl
-        pieces, counts = new_pieces, [cb] * nc
+        pieces, counts = new_pieces, new_counts
         if level_hook is not None:
             level_hook(lvl, "end")
     return tuple(out)
+
+
+class _Child:
+    """The children's update of a row-group level (`dist_level`): rows of
+    the pieces on any device."""
+
+    def __init__(self, pieces, counts, xxt: bool):
+        self.pieces, self.counts, self.xxt = pieces, counts, xxt
+
+    def take(self, r0: int, r1: int, device) -> torch.Tensor:
+        return _take_child_rows(self.pieces, self.counts, r0, r1, device)
 
 
 def _store(fac: torch.Tensor, lp) -> torch.Tensor:
@@ -550,21 +738,39 @@ def _store(fac: torch.Tensor, lp) -> torch.Tensor:
     return out.cpu() if lp.offload else out
 
 
-def factor(fp: FrontalPlan, fronts, plan, level_hook=None
-           ) -> Tuple[torch.Tensor, ...]:
+def _upload(f, device):
+    """A stored level back on the device: a sharded one on its slots."""
+    return f.home() if isinstance(f, Sharded) else f.to(device)
+
+
+def factor(fp: FrontalPlan, fronts, plan, level_hook=None, mesh=None,
+           root: Optional[_RootSpec] = None) -> Tuple[torch.Tensor, ...]:
     """The factorization under a regime plan (`regimes.plan_regimes`), level
     by level, leaves to root; returns per-level [B, F, W] factors (pivot
     Cholesky stacked over the solved boundary strip):
-    `frontal_factor_streamed` over eager slabs or a `LazyFronts`. When the
-    plan offloaded levels and their stored bytes plus the solve's working
-    set fit the budget (`plan.reupload`), the levels move back to the
-    device, so that every solve does not ship them again."""
-    device = fronts.device if isinstance(fronts, LazyFronts) \
-        else fronts[0].device
-    out = frontal_factor_streamed(fp, fronts, plan, level_hook=level_hook)
+    `frontal_factor_streamed` over eager slabs or a `LazyFronts` (`mesh`
+    and `root` as there). When the plan offloaded levels and their stored
+    bytes plus the solve's working set fit the budget (`plan.reupload`),
+    the levels move back to the device (a sharded level to its slots), so
+    that every solve does not ship them again."""
+    if mesh is not None:
+        device = mesh.flat[0]
+    else:
+        device = fronts.device if isinstance(fronts, LazyFronts) \
+            else fronts[0].device
+    out = frontal_factor_streamed(fp, fronts, plan, level_hook=level_hook,
+                                  mesh=mesh, root=root)
     if plan.reupload:
-        out = tuple(f.to(device) for f in out)
+        out = tuple(_upload(f, device) for f in out)
     return out
+
+
+def _inverse(f: torch.Tensor, W: int, device) -> torch.Tensor:
+    """inv(L) of the pivot blocks of one stored level (or slot part), on
+    `device` in f32 (f64 for an f64 factor)."""
+    ld = f[:, :W, :].to(device, _acc(f.dtype))
+    eye = torch.eye(W, dtype=ld.dtype, device=ld.device)
+    return torch.linalg.solve_triangular(ld, eye.expand_as(ld), upper=False)
 
 
 def invert_pivots(fp: FrontalPlan, factors, device=None
@@ -574,17 +780,98 @@ def invert_pivots(fp: FrontalPlan, factors, device=None
     solves of the refinement loop. Computed on `device` (default: the
     factors') in f32, or in f64 for an f64 factor, whatever the stored
     dtype; a host-resident level is moved to the device for its
-    inversion."""
+    inversion. A slot-sharded level is inverted on its slots (a `Sharded`
+    of [B, W, W]); a row-sharded one gathered onto `device`."""
     out = []
     for lvl in range(fp.levels):
         W = fp.W[lvl]
         f = factors[lvl]
-        ld = f[:, :W, :].to(device or f.device, _acc(f.dtype))
-        eye = torch.eye(W, dtype=ld.dtype, device=ld.device)
-        out.append(torch.linalg.solve_triangular(ld, eye.expand_as(ld),
-                                                 upper=False))
-        del ld
+        if isinstance(f, Sharded) and f.kind == "slot":
+            out.append(Sharded([_inverse(p, W, d)
+                                for p, d in zip(f.parts, f.devices)],
+                               f.placement, (f.shape[0], W, W), f.devices))
+        else:
+            f = mesh_mod.local(f, device)
+            out.append(_inverse(f, W, device or f.device))
+        del f
     return tuple(out)
+
+
+def _slot_levels(factors, top: int = 0) -> int:
+    """The shallowest level from which every deeper level is slot-sharded
+    (len(factors) when none is), not above `top`."""
+    lw = len(factors)
+    while (lw > top and isinstance(factors[lw - 1], Sharded)
+           and factors[lw - 1].kind == "slot"):
+        lw -= 1
+    return lw
+
+
+def _slots(factors, lw: int, *more):
+    """Per slot of the slot-sharded levels lw .. leaves: (device, {lvl:
+    (b0, b1)}, and for `factors` and each list in `more` the per-level
+    slot parts (None above lw))."""
+    L = len(factors)
+    if lw >= L:
+        return []
+    ref = factors[L - 1]
+    out = []
+    for s, dev in enumerate(ref.devices):
+        spans = {lvl: factors[lvl].placement.batch_range(
+            s, factors[lvl].shape[0]) for lvl in range(lw, L)}
+        lists = [[x[lvl].parts[s] if lvl >= lw else None for lvl in range(L)]
+                 for x in (factors,) + more]
+        out.append((dev, spans, *lists))
+    return out
+
+
+def _banded_forward(fp, factors, inv_pivots, g, ys, lvls, spans, signs):
+    """Forward steps of the banded solve over `lvls` (see
+    `_solve_banded_core`), each level over blocks spans[lvl] (default:
+    all of them)."""
+    _, offs, _, _, _ = _banded_maps(fp)
+    k = g.shape[1]
+    for lvl in lvls:
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        b0, b1 = spans.get(lvl, (0, fp.front_rows[lvl].shape[0]))
+        r0, r1 = offs[lvl] + b0 * Wl, offs[lvl] + b1 * Wl
+        inv = mesh_mod.local(inv_pivots[lvl], g.device)
+        y = torch.bmm(inv, g[r0:r1].view(b1 - b0, Wl, k))     # [B, W, k]
+        ys[lvl] = y
+        if Fl > Wl:
+            X = _strip(factors[lvl], Wl, y)
+            contrib = torch.bmm(X, y).reshape(-1, k)
+            del X
+            g.index_add_(0, _device_index(fp, "bnd_pad", lvl, g.device)
+                         [b0:b1].reshape(-1), contrib, alpha=-1)
+        if signs is not None:                                  # w = S z
+            y *= signs[r0:r1].view(b1 - b0, Wl, 1).to(y.device, y.dtype)
+
+
+def _banded_backward(fp, factors, inv_pivots, xg, ys, lvls, spans):
+    """Backward steps of the banded solve over `lvls`."""
+    _, offs, _, _, _ = _banded_maps(fp)
+    k = xg.shape[1]
+    for lvl in lvls:
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        b0, b1 = spans.get(lvl, (0, fp.front_rows[lvl].shape[0]))
+        rhs = ys[lvl]
+        if Fl > Wl:
+            X = _strip(factors[lvl], Wl, rhs)
+            z = xg[_device_index(fp, "bnd_pad", lvl, xg.device)[b0:b1]]
+            rhs = rhs - torch.bmm(X.transpose(1, 2), z)
+            del X
+        inv = mesh_mod.local(inv_pivots[lvl], xg.device)
+        x = torch.bmm(inv.transpose(1, 2), rhs)
+        xg[offs[lvl] + b0 * Wl:offs[lvl] + b1 * Wl] = x.reshape(-1, k)
+
+
+def _strip(f, Wl: int, like: torch.Tensor) -> torch.Tensor:
+    """The boundary strips X = f[:, W:, :] of a stored level (a sharded
+    one gathered) on `like`'s device and in its dtype."""
+    if isinstance(f, Sharded):
+        f = f.gather(like.device)
+    return f[:, Wl:, :].to(like.device, like.dtype)
 
 
 def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
@@ -602,40 +889,44 @@ def _solve_banded_core(fp: FrontalPlan, factors, inv_pivots,
 
     `signs` ([n_pad + 1] in the padded basis, `ldlt.DeviceSigns.padded`)
     makes it the quasi-definite solve of a signed factor: the forward
-    results ys are scaled by S between the two loops."""
+    results ys are scaled by S between the two loops.
+
+    Slot-sharded levels (a mesh factor, with `invert_pivots`' sharded
+    inverses) run per slot on the slot's device, on a work vector holding
+    only the slot's bands: the forward steps' contributions to the narrow
+    levels' rows are summed into g, and after the narrow levels' backward
+    steps each slot solves its bands from a copy of x."""
     levels = fp.levels
     _, offs, _, _, _ = _banded_maps(fp)
     vec = g.dim() == 1
     g = (g[:, None] if vec else g).clone()
-    k = g.shape[1]
     ys = [None] * levels
-    for lvl in range(levels - 1, -1, -1):
-        Wl, Fl = fp.W[lvl], fp.F[lvl]
-        B = fp.front_rows[lvl].shape[0]
-        band = g[offs[lvl]:offs[lvl] + B * Wl].view(B, Wl, k)
-        y = torch.bmm(inv_pivots[lvl], band)                   # [B, W, k]
-        ys[lvl] = y
-        if Fl > Wl:
-            X = factors[lvl][:, Wl:, :].to(y.device, y.dtype)
-            contrib = torch.bmm(X, y).reshape(-1, k)
-            del X
-            g.index_add_(0, _device_index(fp, "bnd_pad", lvl, g.device)
-                         .reshape(-1), contrib, alpha=-1)
-        if signs is not None:                                  # w = S z
-            y *= signs[offs[lvl]:offs[lvl] + B * Wl].view(B, Wl, 1).to(
-                y.dtype)
+    lw = _slot_levels(factors)
+    slots = []
+    for dev, spans, fac_s, inv_s in _slots(factors, lw, inv_pivots):
+        own = torch.cat([torch.arange(offs[lvl] + b0 * fp.W[lvl],
+                                      offs[lvl] + b1 * fp.W[lvl])
+                         for lvl, (b0, b1) in spans.items()])
+        gs = g.new_zeros(g.shape, device=dev)
+        gs[own.to(dev)] = g[own.to(g.device)].to(dev)
+        ys_s = [None] * levels
+        _banded_forward(fp, fac_s, inv_s, gs, ys_s, range(levels - 1, lw - 1,
+                                                          -1), spans, signs)
+        slots.append((dev, own, gs, ys_s, spans, fac_s, inv_s))
+    for dev, own, gs, *_ in slots:
+        gs[own.to(dev)] = 0
+        g += gs.to(g.device)
+    _banded_forward(fp, factors, inv_pivots, g, ys, range(lw - 1, -1, -1),
+                    {}, signs)
     xg = torch.zeros_like(g)
-    for lvl in range(levels):
-        Wl, Fl = fp.W[lvl], fp.F[lvl]
-        B = fp.front_rows[lvl].shape[0]
-        rhs = ys[lvl]
-        if Fl > Wl:
-            X = factors[lvl][:, Wl:, :].to(rhs.device, rhs.dtype)
-            z = xg[_device_index(fp, "bnd_pad", lvl, g.device)]  # [B, K, k]
-            rhs = rhs - torch.bmm(X.transpose(1, 2), z)
-            del X
-        x = torch.bmm(inv_pivots[lvl].transpose(1, 2), rhs)
-        xg[offs[lvl]:offs[lvl] + B * Wl] = x.reshape(-1, k)
+    _banded_backward(fp, factors, inv_pivots, xg, ys, range(lw), {})
+    done = []
+    for dev, own, _, ys_s, spans, fac_s, inv_s in slots:
+        xs = xg.to(dev, copy=True)
+        _banded_backward(fp, fac_s, inv_s, xs, ys_s, range(lw, levels), spans)
+        done.append((own, xs))
+    for own, xs in done:
+        xg[own.to(xg.device)] = xs[own.to(xs.device)].to(xg.device)
     return xg[:, 0] if vec else xg
 
 
@@ -690,6 +981,62 @@ def _x_apply(pan: torch.Tensor, vec: torch.Tensor, W: int,
     return out
 
 
+def _sweep_forward(fp, factors, bg: torch.Tensor, lvls) -> None:
+    """Forward steps of `_sweeps` over `lvls`."""
+    base, K = _unwrap(fp)
+    n = base.plan.n
+    device = bg.device
+    k = bg.shape[1]
+    sentinels = bg.view(K, n + 1, k)[:, n]
+    for lvl in lvls:
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        pan = _on(factors[lvl], device)
+        piv = _index(fp, "piv_rows", lvl, device)
+        y = _tri_apply(pan, bg[piv], Wl, transpose=False)
+        bg[piv] = y
+        if Fl > Wl:
+            bnd = _index(fp, "bnd_rows", lvl, device)
+            bg.index_add_(0, bnd.reshape(-1),
+                          _x_apply(pan, y, Wl, True).reshape(-1, k),
+                          alpha=-1)
+        sentinels.zero_()
+        del pan
+
+
+def _sweep_backward(fp, factors, bg: torch.Tensor, lvls) -> None:
+    """Backward steps of `_sweeps` over `lvls`."""
+    base, K = _unwrap(fp)
+    n = base.plan.n
+    device = bg.device
+    sentinels = bg.view(K, n + 1, bg.shape[1])[:, n]
+    for lvl in lvls:
+        Wl, Fl = fp.W[lvl], fp.F[lvl]
+        pan = _on(factors[lvl], device)
+        piv = _index(fp, "piv_rows", lvl, device)
+        rhs = bg[piv]
+        if Fl > Wl:
+            z = bg[_index(fp, "bnd_rows", lvl, device)]
+            rhs = rhs - _x_apply(pan, z, Wl, False)
+        bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
+        sentinels.zero_()
+        del pan
+
+
+def _on(f, device) -> torch.Tensor:
+    """A stored level (or slot part) as one tensor on `device`: a sharded
+    level gathered."""
+    return f.gather(device) if isinstance(f, Sharded) else f.to(device)
+
+
+def _own_rows(view: _SlotView, lw: int, device) -> torch.Tensor:
+    """The work-array rows of a slot's pivots at levels lw .. leaves
+    (padded pivots, which land in a sentinel row, left out)."""
+    n = _unwrap(view)[0].plan.n
+    rows = torch.cat([_index(view, "piv_rows", lvl, device).reshape(-1)
+                      for lvl in range(lw, view.levels)])
+    return rows[rows % (n + 1) != n]
+
+
 def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
             backward: bool = True, top: int = 0) -> None:
     """Forward (L y = b) and / or backward (L^T x = y) substitution, in
@@ -703,36 +1050,40 @@ def _sweeps(fp, factors, bg: torch.Tensor, forward: bool = True,
     sweep; a level stored narrower than bg (bf16) is promoted one batch
     chunk at a time. `top` = 1 leaves out the root level: the forward sweep
     stops before it and the backward sweep starts below it (the partial
-    sweeps of static condensation)."""
-    base, K = _unwrap(fp)
-    n = base.plan.n
-    device = bg.device
-    k = bg.shape[1]
-    sentinels = bg.view(K, n + 1, k)[:, n]
-    for lvl in range(fp.levels - 1, top - 1, -1) if forward else ():
-        Wl, Fl = fp.W[lvl], fp.F[lvl]
-        pan = factors[lvl].to(device)
-        piv = _index(fp, "piv_rows", lvl, device)
-        y = _tri_apply(pan, bg[piv], Wl, transpose=False)
-        bg[piv] = y
-        if Fl > Wl:
-            bnd = _index(fp, "bnd_rows", lvl, device)
-            bg.index_add_(0, bnd.reshape(-1),
-                          _x_apply(pan, y, Wl, True).reshape(-1, k),
-                          alpha=-1)
-        sentinels.zero_()
-        del pan
-    for lvl in range(top, fp.levels) if backward else ():
-        Wl, Fl = fp.W[lvl], fp.F[lvl]
-        pan = factors[lvl].to(device)
-        piv = _index(fp, "piv_rows", lvl, device)
-        rhs = bg[piv]
-        if Fl > Wl:
-            z = bg[_index(fp, "bnd_rows", lvl, device)]
-            rhs = rhs - _x_apply(pan, z, Wl, False)
-        bg[piv] = _tri_apply(pan, rhs, Wl, transpose=True)
-        sentinels.zero_()
-        del pan
+    sweeps of static condensation).
+
+    Slot-sharded levels (a mesh factor) run per slot on the slot's device:
+    forward on a work array holding only the slot's pivot rows, whose
+    contributions to the narrow levels' rows are then summed into bg (the
+    slot's own rows copied in exactly); backward from a copy of bg after
+    the narrow levels, the slot's rows copied back. A row-sharded level is
+    gathered onto bg's device."""
+    L = fp.levels
+    lw = _slot_levels(factors, top)
+    slots = [(dev, _SlotView(fp, spans), fac_s)
+             for dev, spans, fac_s in _slots(factors, lw)]
+    if forward:
+        done = []
+        for dev, view, fac_s in slots:
+            own = _own_rows(view, lw, dev)
+            bs = bg.new_zeros(bg.shape, device=dev)
+            bs[own] = bg[own.to(bg.device)].to(dev)
+            _sweep_forward(view, fac_s, bs, range(L - 1, lw - 1, -1))
+            done.append((own, bs))
+        for own, bs in done:
+            bg[own.to(bg.device)] = 0
+            bg += bs.to(bg.device)
+        del done
+        _sweep_forward(fp, factors, bg, range(lw - 1, top - 1, -1))
+    if backward:
+        _sweep_backward(fp, factors, bg, range(top, lw))
+        done = []
+        for dev, view, fac_s in slots:
+            bs = bg.to(dev, copy=True)
+            _sweep_backward(view, fac_s, bs, range(lw, L))
+            done.append((_own_rows(view, lw, dev), bs))
+        for own, bs in done:
+            bg[own.to(bg.device)] = bs[own].to(bg.device)
 
 
 def _with_sentinel(b_perm: torch.Tensor):
@@ -812,7 +1163,7 @@ def frontal_upper_matvec(fp: FrontalPlan, factors, x_perm: torch.Tensor
     device = bg.device
     for lvl in range(fp.levels):
         Wl, Fl = fp.W[lvl], fp.F[lvl]
-        pan = factors[lvl].to(device)
+        pan = _on(factors[lvl], device)
         piv = _device_index(fp, "piv_rows", lvl, device)
         z = _tri_apply(pan, bg[piv], Wl, transpose=True, solve=False)
         if Fl > Wl:
@@ -857,7 +1208,8 @@ def solve_multi(fp: FrontalPlan, factors, b_perm: torch.Tensor
 
 def _level_host64(f: torch.Tensor) -> np.ndarray:
     """One stored level as an f64 NumPy array; bf16 and host-resident
-    levels are read through f32."""
+    levels are read through f32, sharded ones gathered."""
+    f = mesh_mod.local(f, torch.device("cpu"))
     if f.dtype == torch.bfloat16:
         f = f.to(torch.float32)
     return f.cpu().numpy().astype(np.float64)

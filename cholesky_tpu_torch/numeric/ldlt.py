@@ -25,6 +25,11 @@ In core and square: the level loop runs every level on the square front,
 with updates and the stored factor in the compute dtype on the device; the
 regime plan of the budget is `regimes.plan_qd`, which raises `BudgetError`
 before anything is allocated when that does not fit.
+
+Under a mesh (`parallel/mesh.py`) the slot-sharded levels factor per slot
+on the slot's device and the others on the mesh's first device, as GSPMD
+distributes the JAX package's pure-jit qd programs (`ldlt.py:26-29` there);
+the solve's sweeps run per slot through `frontal._sweeps`.
 """
 
 from __future__ import annotations
@@ -169,21 +174,44 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
 
 
 def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
-              level_hook=None) -> Tuple[torch.Tensor, ...]:
+              level_hook=None, mesh=None) -> Tuple[torch.Tensor, ...]:
     """The level loop of the quasi-definite factorization, leaves to root,
     in core (`factor_qd`, `ldlt.py:154-176`). `fronts` is the list of
     assembled [B, F, W] slabs and is CONSUMED (each entry dropped once its
     level ran). Returns per-level [B, F, W] factors: rows :W the signed
     Cholesky L~d, rows W: the off-diagonal block X~. `level_hook(lvl,
-    "start" | "end")` as in `frontal.frontal_factor_streamed`."""
-    out: List[torch.Tensor] = [None] * fp.levels
-    U = None
+    "start" | "end")` as in `frontal.frontal_factor_streamed`. With `mesh`,
+    `fronts` as `mesh.distribute_panels` made them: a slot-sharded level
+    runs per slot over its blocks (a `Sharded` factor), any other on the
+    mesh's first device."""
+    out: List = [None] * fp.levels
+    devices = mesh.flat if mesh is not None else [None]
+    pieces, counts = None, None
     for lvl in range(fp.levels - 1, -1, -1):
         if level_hook is not None:
             level_hook(lvl, "start")
-        out[lvl], U = _factor_level_qd(fp, lvl, fronts[lvl], U,
-                                       sig.slabs[lvl])
+        B = 1 << lvl
+        place = frontal.level_placement(fp, lvl, mesh)
+        spans = frontal._spans(place, devices, B)
+        parts, new_pieces = [], []
+        for s, dev, b0, b1 in spans:
+            dev = dev or fronts[lvl].device
+            view = fp if (b0, b1) == (0, B) else frontal._BatchView(
+                fp, lvl, b0, b1)
+            # the update is passed as a call expression, so that the level
+            # frees it once it is extend-added
+            fac, nxt = _factor_level_qd(
+                view, lvl, frontal._slab_of(fronts[lvl], s, b0, b0, b1, dev),
+                None if pieces is None else frontal._take_child_rows(
+                    pieces, counts, 2 * b0, 2 * b1, dev),
+                sig.slabs[lvl][b0:b1].to(dev))
+            parts.append(fac)
+            new_pieces.append(nxt)
         fronts[lvl] = None
+        out[lvl] = (parts[0] if place is None or place.kind != "slot" else
+                    frontal.Sharded(parts, place, (B,) + parts[0].shape[1:],
+                                    devices))
+        pieces, counts = new_pieces, [b1 - b0 for _, _, b0, b1 in spans]
         if level_hook is not None:
             level_hook(lvl, "end")
     return tuple(out)
@@ -216,7 +244,8 @@ def logdet_qd(fp: FrontalPlan, factors: Sequence[torch.Tensor],
     total = 0.0
     for lvl in range(fp.levels):
         Wl = fp.W[lvl]
-        d = torch.diagonal(factors[lvl][:, :Wl, :Wl], dim1=1, dim2=2)
+        d = torch.diagonal(frontal.mesh_mod.local(factors[lvl])[:, :Wl, :Wl],
+                           dim1=1, dim2=2)
         total += 2.0 * float(np.log(d.cpu().numpy().astype(np.float64)).sum())
     neg = int(np.sum(np.asarray(signs) < 0))
     return (-1) ** neg, total

@@ -9,7 +9,10 @@ levels. Both loops refine a quasi-definite signed factor too (`signs`:
 the inner solve applies S between its substitutions, `numeric/ldlt.py`).
 A same-pattern family (`solve_refined_df_family`) runs the block
 loop's rule over K systems at once: one ELL index, a value plane per
-system, the family's solve without inverses.
+system, the family's solve without inverses. Every loop takes a mesh's
+factor (`parallel/`) as it is: the inner solves of `numeric/frontal.py`
+run its slot-sharded levels per slot, and the residual (`df_matvec`) and
+the loop's vectors stay on the mesh's first slot's device.
 
 An fp32 factor reaches the 1e-10 residual contract when the residual is
 computed to ~1e-14: every value is an (hi, lo) pair of f32, products use

@@ -44,17 +44,31 @@ The keyword arguments of `plan_regimes` force a choice (the tests and the
 smoke run use them to drive each regime at small sizes); what is not
 forced is still chosen against the budget, and a forced plan that does not
 fit raises.
+
+Under a mesh (`parallel/mesh.py`) the plan is one slot's: a slot-sharded
+level at B / ndev blocks, a row-group level (`parallel/dist_level.py`)
+at F / G rows of one front (`_rows_peak`), a replicated level whole, each
+against the budget of one slot (the device's budget over the slots that
+share it). The slabs are assembled on the host and placed on the slots
+before the factorization (the JAX package does no device assembly under a
+mesh), so the lazy rung is not taken. The kernel route of a level is
+decided on its batch over the whole mesh, as the level loop decides it.
+`slot_bytes` is one level's working set on one slot, the counterpart of
+the JAX package's `tools/memcheck_mesh.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.parallel import dist_level
+from cholesky_tpu_torch.parallel import mesh as mesh_mod
 
 # Share of the card's free memory that the default budget takes. The rest
 # is room the estimate does not see: the caching allocator's fragmentation
@@ -135,6 +149,7 @@ class RegimePlan:
     reupload: bool              # offloaded levels come back after factor
     levels: List[LevelPlan]
     family: int = 1             # systems folded into the batch axis
+    mesh: object = None         # one slot's plan of this mesh
 
     @property
     def peak_bytes(self) -> int:
@@ -220,9 +235,11 @@ def solve_batch(rows: int, W: int, size: int, k: int = 1) -> int:
 # The estimate
 
 
-def _factor_temps(b: int, F: int, W: int, fi: int, dtype) -> int:
-    """Bytes `frontal._factor_slab` allocates beyond its output."""
-    if hk.slab_kernel_eligible(b, W, dtype):
+def _factor_temps(b: int, F: int, W: int, fi: int, dtype,
+                  route_b: Optional[int] = None) -> int:
+    """Bytes `frontal._factor_slab` allocates beyond its output (the route
+    decided on `route_b`, default b)."""
+    if hk.slab_kernel_eligible(b if route_b is None else route_b, W, dtype):
         # factor_slab: per panel the updated panel [b, F - c0, w], the
         # boundary product [b, F - c0 - w, w], the diagonal block, the
         # kernel's L and inv(L)
@@ -239,6 +256,7 @@ class _Piece:
     rows: int
     nbytes: int                 # device bytes (0 for host or view pieces)
     host: bool
+    sharded: bool = False       # held across slots: read by a gather
 
 
 @dataclasses.dataclass
@@ -262,14 +280,19 @@ def _idx_bytes(F, W, lvl: int, family: int = 1) -> int:
 
 
 def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
-                lazy: bool, eager_bytes: int, family: int = 1):
+                lazy: bool, eager_bytes: int, family: int = 1,
+                nb: Optional[List[int]] = None, bare: bool = False):
     """(peak bytes, emitted pieces) of level lvl under option lp, by the
     phases of `frontal._factor_level` and the chunk loop of
     `frontal_factor_streamed`. `eager_bytes`: eagerly assembled slabs not
     consumed yet (this level's included). `family`: systems folded into
-    the batch axis (B = family 2^lvl)."""
+    the batch axis (B = family 2^lvl). `nb`: per level the blocks one slot
+    of a mesh runs (the kernel route still reads family 2^lvl / chunks).
+    `bare`: the level's own bytes only (no stored factors, index maps or
+    slack; its slab counted as lazily assembled)."""
     L = len(F)
-    B, Fl, Wl = family << lvl, F[lvl], W[lvl]
+    B = family << lvl if nb is None else nb[lvl]
+    Fl, Wl = F[lvl], W[lvl]
     K = Fl - Wl
     fi = _SIZE[dtype]
     uo = _SIZE[lp.update_dtype]
@@ -281,14 +304,14 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
     x_view = leaf and keep and lp.update_dtype == dtype
     P = b * Fl * Wl * fi                    # a chunk's slab, its factor
     fac = P
-    ft = _factor_temps(b, Fl, Wl, fi, dtype)
+    ft = _factor_temps(b, Fl, Wl, fi, dtype, (family << lvl) // nc)
     # the stored copy made on the device (a cast, or a chunk copied out)
     store_tmp = 0
     if (not keep and lp.store_dtype != dtype) or (nc > 1 and lp.offload):
         store_tmp = b * Fl * Wl * so
-    P_work = P if lazy else 0               # eager slabs sit in eager_bytes
-    base = (st.stored_dev + eager_bytes + _idx_bytes(F, W, lvl, family)
-            + SLACK_BYTES)
+    P_work = P if (lazy or bare) else 0     # eager slabs sit in eager_bytes
+    base = 0 if bare else (st.stored_dev + eager_bytes
+                           + _idx_bytes(F, W, lvl, family) + SLACK_BYTES)
     if nc > 1 and not lp.offload:
         base += B * Fl * Wl * so            # the level's stored buffer
 
@@ -362,7 +385,8 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
                    if starts[i] < r1 and starts[i + 1] > r0]
         span = 0
         if st.u_form != "none" and not (
-                len(touched) == 1 and not st.pieces[touched[0]].host):
+                len(touched) == 1 and not st.pieces[touched[0]].host
+                and not st.pieces[touched[0]].sharded):
             span = (r1 - r0) * row_bytes    # a copy (or an upload)
         consumed = [i for i in touched if starts[i + 1] <= r1]
         u_before = sum(live)
@@ -396,16 +420,24 @@ def _rungs(dtype) -> List[Dict]:
     return rungs
 
 
-def _options(F, W, lvl: int, st: _State, dtype, force: dict,
-             two_forced, family: int = 1) -> List[LevelPlan]:
-    """The level's options in order of preference (see the module note)."""
-    L = len(F)
-    B = family << lvl
+def _update_dtypes(F, W, lvl: int, dtype, force: dict) -> list:
+    """The update dtypes a level may emit, preferred first."""
     udts = [dtype]
     if dtype == torch.float32 and lvl > 0 and F[lvl] > W[lvl]:
         udts.append(torch.bfloat16)
     if force.get("update_dtype") is not None and lvl > 0:
         udts = [force["update_dtype"]]
+    return udts
+
+
+def _options(F, W, lvl: int, st: _State, dtype, force: dict,
+             two_forced, family: int = 1, B: Optional[int] = None
+             ) -> List[LevelPlan]:
+    """The level's options in order of preference (see the module note);
+    `B` the blocks the level runs (default family 2^lvl)."""
+    L = len(F)
+    B = family << lvl if B is None else B
+    udts = _update_dtypes(F, W, lvl, dtype, force)
     forced_nc = (force.get("chunks") or {}).get(lvl)
     ncs = [forced_nc] if forced_nc else [
         1 << k for k in range(0, 64) if (1 << k) <= min(B, MAX_CHUNKS)]
@@ -442,13 +474,74 @@ def _two_forced(force, lvl):
     return lvl in tp
 
 
+def _rows_peak(F, W, lvl: int, G: int, lp: LevelPlan, st: _State, dtype,
+               eager_bytes: int, bare: bool = False):
+    """(peak bytes, emitted pieces) of one slot of a row-group level
+    (`dist_level.factor_level_sharded`, G slots per front), by its phases:
+    the front's two child updates gathered (X X^T formed from a leaf's X),
+    promoted and padded by a zero row and column, its index maps and the
+    extend-added slab rows [F / G, W]; the group's slab rows gathered
+    [F, W] and the pivot Cholesky with its working copy beside the TRSM of
+    its rows; the group's factor rows gathered, the trailing rows T and
+    U2 [K / G, K] and U2's cast."""
+    Fl, Wl = F[lvl], W[lvl]
+    K = Fl - Wl
+    fi = _SIZE[dtype]
+    Kc = F[lvl + 1] - W[lvl + 1]
+    ui, cols = st.u_size, st.u_cols
+    rows = Fl // G
+    P = rows * Wl * fi
+    src = 2 * Kc * cols * ui
+    up = 2 * (Kc + 1) * (Kc + 1) * fi
+    promote = 2 * Kc * cols * fi if ui != fi else 0
+    xxt = 2 * Kc * Kc * fi if st.u_form == "xxt" else 0
+    idx = 16 * Fl + 9 * rows * Wl
+    ext = src + promote + xxt + up + idx + 3 * P
+    fac = Fl * Wl * fi + 2 * Wl * Wl * fi + 3 * P
+    u2 = (K // G) * K
+    tail = (Fl * Wl * fi + 2 * u2 * fi + 9 * u2 + u2 * _SIZE[lp.update_dtype]
+            if K else 0)
+    out = P * _SIZE[lp.store_dtype] + u2 * _SIZE[lp.update_dtype]
+    live = sum(p.nbytes for p in st.pieces)
+    base = 0 if bare else (st.stored_dev + eager_bytes
+                           + _idx_bytes(F, W, lvl) + SLACK_BYTES)
+    peak = base + live + up + max(ext, P + fac, P + tail) + out
+    nbytes = 0 if lp.spill else u2 * _SIZE[lp.update_dtype]
+    return peak, [_Piece(1 << lvl, nbytes, lp.spill, sharded=True)]
+
+
+def _mesh_layout(F, W, mesh, family: int = 1):
+    """Per level under `mesh`: the blocks one slot runs, the row-group
+    count G of a row-group level (0 for the others), and whether the level
+    is slot-sharded."""
+    shapes = types.SimpleNamespace(F=F, W=W)
+    nb, groups, slot = [], [], []
+    for lvl in range(len(F)):
+        B = family << lvl
+        if family > 1:
+            place = mesh_mod.family_sharding(mesh, family)
+        else:
+            place = mesh_mod.panel_sharding(mesh, lvl)
+        rows = (place.kind == "rows" and lvl < len(F) - 1
+                and dist_level.eligible(shapes, lvl, B, mesh))
+        nb.append(B // mesh.size if place.kind == "slot" else
+                  (1 if rows else B))
+        groups.append(mesh.size // B if rows else 0)
+        slot.append(place.kind == "slot")
+    return nb, groups, slot
+
+
 def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
-                 family: int = 1):
+                 family: int = 1, mesh=None):
     """Per-level plans on one rung, or (level, smallest bytes) when a level
-    fits no option."""
+    fits no option. Under `mesh`, one slot's plan."""
     L = len(F)
     fi = _SIZE[dtype]
-    slab = [(family << l) * F[l] * W[l] for l in range(L)]
+    if mesh is None:
+        nb, groups, slot = [family << l for l in range(L)], [0] * L, [False] * L
+    else:
+        nb, groups, slot = _mesh_layout(F, W, mesh, family)
+    slab = [nb[l] * F[l] * W[l] // (groups[l] or 1) for l in range(L)]
     st = _State(0, [], "none", fi, 0)
     force = dict(force, **rung)
     lazy = rung["lazy"]
@@ -456,6 +549,29 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
 
     def eager(lvl):
         return 0 if lazy else sum(slab[:lvl + 1]) * fi
+
+    def peak_of(lvl, lp, state):
+        if groups[lvl]:
+            return _rows_peak(F, W, lvl, groups[lvl], lp, state, dtype,
+                              eager(lvl))
+        peak, emitted = _level_peak(F, W, lvl, lp, state, dtype, lazy,
+                                    eager(lvl), family,
+                                    None if mesh is None else nb)
+        if lvl > 0 and slot[lvl] and not slot[lvl - 1]:
+            # the parent gathers the slots' pieces
+            for p in emitted:
+                p.sharded = True
+        return peak, emitted
+
+    def options(lvl, state):
+        if groups[lvl]:
+            # a row-group level: the square path in one piece
+            return [LevelPlan(False, False, udt, 1,
+                              store_dtype=force["store_dtype"],
+                              offload=force["offload"], spill=False)
+                    for udt in _update_dtypes(F, W, lvl, dtype, force)]
+        return _options(F, W, lvl, state, dtype, force,
+                        _two_forced(force, lvl), family, nb[lvl])
 
     def advance(lvl, lp, emitted):
         so = _SIZE[lp.store_dtype]
@@ -468,10 +584,8 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
 
     for lvl in range(L - 1, -1, -1):
         best = None                     # (bytes, level) of the nearest miss
-        for lp in _options(F, W, lvl, st, dtype, force,
-                           _two_forced(force, lvl), family):
-            peak, emitted = _level_peak(F, W, lvl, lp, st, dtype, lazy,
-                                        eager(lvl), family)
+        for lp in options(lvl, st):
+            peak, emitted = peak_of(lvl, lp, st)
             if peak > budget:
                 best = min(best or (peak, lvl), (peak, lvl))
                 continue
@@ -479,10 +593,8 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
             if lvl > 0:
                 # the parent needs one option that fits: stop at the first
                 parent = None
-                for q in _options(F, W, lvl - 1, nxt, dtype, force,
-                                  _two_forced(force, lvl - 1), family):
-                    need = _level_peak(F, W, lvl - 1, q, nxt, dtype, lazy,
-                                       eager(lvl - 1), family)[0]
+                for q in options(lvl - 1, nxt):
+                    need = peak_of(lvl - 1, q, nxt)[0]
                     if need <= budget:
                         break
                     parent = need if parent is None else min(parent, need)
@@ -493,8 +605,7 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
             if st.u_form != "none":
                 sq = dataclasses.replace(lp, two_piece=False, xxt_tier=False,
                                          chunks=1, spill=False)
-                lp.square_bytes = _level_peak(F, W, lvl, sq, st, dtype, lazy,
-                                              eager(lvl), family)[0]
+                lp.square_bytes = peak_of(lvl, sq, st)[0]
             plans[lvl] = lp
             st = nxt
             break
@@ -503,9 +614,54 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
     return plans
 
 
-def stored_bytes(F, W, levels: List[LevelPlan], family: int = 1) -> int:
-    return sum((family << l) * F[l] * W[l] * _SIZE[lp.store_dtype]
-               for l, lp in enumerate(levels))
+def stored_bytes(F, W, levels: List[LevelPlan], family: int = 1,
+                 mesh=None) -> int:
+    """Bytes of the stored factor (one slot's under `mesh`)."""
+    if mesh is None:
+        nb, groups = [family << l for l in range(len(F))], [0] * len(F)
+    else:
+        nb, groups, _ = _mesh_layout(F, W, mesh, family)
+    return sum(nb[l] * F[l] * W[l] // (groups[l] or 1)
+               * _SIZE[lp.store_dtype] for l, lp in enumerate(levels))
+
+
+def slot_bytes(fp, lvl: int, mesh=None, dtype=torch.float32,
+               update_dtype=None, store_dtype=None, family: int = 1) -> int:
+    """The bytes one slot of `mesh` (the device, without one) holds for
+    level lvl alone: its slab, its share of the children's update, the
+    level's temporaries, its factor and the update it emits (square path,
+    one chunk, in `dtype` unless `update_dtype` / `store_dtype` say
+    otherwise); no stored factors of other levels, index maps or slack.
+    The counterpart of the JAX package's `tools/memcheck_mesh.py`
+    (`analyze`: one level program's per-device bytes)."""
+    F, W = tuple(int(f) for f in fp.F), tuple(int(w) for w in fp.W)
+    L = len(F)
+    dtype = torch_dtype(dtype)
+    if mesh is None:
+        nb, groups, slot = [family << l for l in range(L)], [0] * L, [False] * L
+    else:
+        nb, groups, slot = _mesh_layout(F, W, mesh, family)
+    lp = LevelPlan(False, False, update_dtype or dtype, 1,
+                   store_dtype or dtype, False, False)
+    if lvl == L - 1:
+        st = _State(0, [], "none", _SIZE[dtype], 0)
+    else:
+        cl = lvl + 1
+        Kc = F[cl] - W[cl]
+        xxt = cl == L - 1 and Kc > 0
+        cols = W[cl] if xxt else Kc
+        usize = _SIZE[dtype if xxt else lp.update_dtype]
+        nbytes = (nb[cl] * Kc * cols if not groups[cl]
+                  else (Kc // groups[cl]) * Kc) * usize
+        rows = nb[cl] if mesh is None or slot[cl] else 1 << cl
+        st = _State(0, [_Piece(rows, nbytes, False,
+                               sharded=mesh is not None and not slot[lvl])],
+                    "xxt" if xxt else "arr", usize, cols)
+    if groups[lvl]:
+        return _rows_peak(F, W, lvl, groups[lvl], lp, st, dtype, 0,
+                          bare=True)[0]
+    return _level_peak(F, W, lvl, lp, st, dtype, True, 0, family,
+                       None if mesh is None else nb, bare=True)[0]
 
 
 def inv_bytes(F, W, dtype) -> int:
@@ -647,13 +803,15 @@ def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
                  store_dtype=None, offload: Optional[bool] = None,
                  spill: Optional[bool] = None, lazy: Optional[bool] = None,
                  reupload: Optional[bool] = None,
-                 family: int = 1) -> RegimePlan:
+                 family: int = 1, mesh=None) -> RegimePlan:
     """The regime plan of a factorization (see the module note). `fp` needs
     only F and W (per-level front and pivot widths). Forcing: two_piece
     (bool, or the set of levels that take it), update_dtype, chunks
-    ({lvl: nc}), store_dtype, offload, spill, lazy, reupload. `family`: K
-    same-pattern systems factored at once, folded into the batch axis
-    (level lvl holds K 2^lvl fronts)."""
+    ({lvl: nc}; under a mesh, chunks of one slot's blocks), store_dtype,
+    offload, spill, lazy, reupload. `family`: K same-pattern systems
+    factored at once, folded into the batch axis (level lvl holds K 2^lvl
+    fronts). `mesh`: the plan of one slot of that mesh against `budget`,
+    one slot's budget; slabs are then never assembled lazily."""
     F, W = tuple(int(f) for f in fp.F), tuple(int(w) for w in fp.W)
     dtype = torch_dtype(dtype)
     force = {"two_piece": two_piece, "chunks": chunks,
@@ -665,11 +823,14 @@ def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
                      ("offload", offload), ("spill", spill)):
             if v is not None:
                 r[k] = v
+        if mesh is not None:
+            r["lazy"] = False
         if r not in rungs:
             rungs.append(r)
     fail = None
     for rung in rungs:
-        res = _plan_levels(F, W, dtype, int(budget), rung, force, family)
+        res = _plan_levels(F, W, dtype, int(budget), rung, force, family,
+                           mesh)
         if isinstance(res, list):
             levels = res
             break
@@ -682,7 +843,7 @@ def plan_regimes(fp, dtype, budget: int, *, two_piece=None,
             f"least {need} bytes")
     offloaded = any(lp.offload for lp in levels)
     if reupload is None:
-        reupload = (stored_bytes(F, W, levels) + solve_bytes(F, W, dtype)
-                    <= int(budget))
+        reupload = (stored_bytes(F, W, levels, family, mesh)
+                    + solve_bytes(F, W, dtype) <= int(budget))
     return RegimePlan(dtype, int(budget), rung["lazy"],
-                      bool(reupload and offloaded), levels, family)
+                      bool(reupload and offloaded), levels, family, mesh)

@@ -24,8 +24,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FILE_TOL = 1e-10        # the two CLIs' output files, f64 runs
 
 
-def run_cli(args, module="cholesky_tpu_torch.cli", cpu=True, python_args=()):
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+def run_cli(args, module="cholesky_tpu_torch.cli", cpu=True, python_args=(),
+            env=None):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               **(env or {}))
     extra = ["--device", "cpu"] if cpu and module.endswith("torch.cli") else []
     return subprocess.run(
         [sys.executable, *python_args, "-m", module] + list(args) + extra,
@@ -145,17 +147,42 @@ def test_cli_profile_emits_the_jax_profilers_ops(port_fixtures):
                for d in ops["t"])
 
 
-@pytest.mark.parametrize("flag,args", [
-    ("--devices", ["--devices", "4"]),
-    ("--slices", ["--slices", "2"])])
-def test_cli_unported_flags_exit_2_naming_the_flag(flag, args, capsys,
-                                                   port_fixtures):
+@pytest.mark.parametrize("args", [["--devices", "8"],
+                                  ["--slices", "2", "--devices", "8"]],
+                         ids=["devices8", "slices2x4"])
+def test_cli_mesh_matches_jax(args, tmp_path, port_fixtures):
+    """`--devices 8` and `--slices 2 --devices 8` on `--device cpu` (8
+    logical CPU slots) against the JAX CLI on 8 virtual CPU devices: the
+    solution and factor files within FILE_TOL (f64)."""
+    p = port_fixtures("lapl_400x400")
+    out = {}
+    for tag, module in (("t", "cholesky_tpu_torch.cli"),
+                        ("j", "cholesky_tpu.cli")):
+        sol, fac = (str(tmp_path / f"{tag}_{x}") for x in ("sol.txt",
+                                                           "fac.mtx"))
+        r = run_cli([*_files(p), "-b", p["b"], "-o", sol, "-m", fac, *args],
+                    module, env={"XLA_FLAGS":
+                                 "--xla_force_host_platform_device_count=8"})
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert _lines(r.stdout, "SOLVE")[0]["residual"] <= 1e-10
+        out[tag] = (np.genfromtxt(sol), scipy.io.mmread(fac).toarray())
+    (x, L), (xj, Lj) = out["t"], out["j"]
+    assert np.abs(x - xj).max() <= FILE_TOL * np.abs(xj).max()
+    assert np.abs(L - Lj).max() <= FILE_TOL * np.abs(Lj).max()
+
+
+def test_cli_slices_not_dividing_devices_prints_the_jax_line(capsys,
+                                                              port_fixtures):
     from cholesky_tpu_torch import cli
 
     p = port_fixtures("lapl_9x9")
-    assert cli.main([*_files(p), *args, "--device", "cpu"]) == 2
+    assert cli.main([*_files(p), "--slices", "3", "--devices", "8",
+                     "--device", "cpu"]) == 2
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == 1 and f" {flag} " in lines[0]
+    assert lines == ["Error: --devices 8 is not divisible by --slices 3"]
+    r = run_cli([*_files(p), "--slices", "3", "--devices", "8"],
+                "cholesky_tpu.cli")
+    assert r.returncode == 2 and lines[0] in r.stdout.splitlines()
 
 
 def test_cli_signs_matches_the_jax_cli(tmp_path, port_fixtures):
@@ -214,8 +241,6 @@ def test_cli_inv_diag_matches_the_jax_cli(tmp_path, port_fixtures):
 def test_cli_usage_and_device_default(port_fixtures):
     assert run_cli([]).returncode == 2
     p = port_fixtures("lapl_9x9")
-    r = run_cli([*_files(p), "--devices", "4"])
-    assert r.returncode == 2 and "--devices" in r.stdout
     import torch
 
     if not torch.cuda.is_available():

@@ -606,3 +606,73 @@ def test_flag_restored_on_card(monkeypatch):
                 assert _flag() == outer
         finally:
             matmul.fp32_precision = "none"
+
+
+# ---------------------------------------------------------------------------
+# The mesh (cholesky_tpu_torch/parallel/) on the card
+
+
+@pytest.mark.cuda
+def test_50cubed_on_a_four_slot_mesh_of_one_card():
+    """50^3 L8 f32 on 4 logical slots of cuda:0: the placement per level
+    (slot-sharded 7-2, row groups at 1, the 1-D collective root), every
+    level within 1e-5 of the mesh-free factor, chol_inv launched by every
+    slot of the kernel-routed levels, and the refined solve at the
+    contract."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import frontal
+    from cholesky_tpu_torch.parallel import mesh as mesh_mod
+
+    n, r, c, v, o, cl, b = generate_problem((50, 50, 50), 8)
+    s1 = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                 device="cuda")
+    free = s1.factorize()
+    mesh = mesh_mod.make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    sD = SparseCholesky(s1.plan, s1.rows, s1.cols, s1.vals,
+                        dtype=np.float32, mesh=mesh)
+    fp = sD.fplan
+    assert frontal.level_paths(fp, mesh, frontal.root_spec(fp, mesh)) == \
+        ["root-1d", "rows"] + ["slot"] * 6
+    before = hk.LAUNCHES["chol_inv"]
+    sD.factorize()
+    assert hk.LAUNCHES["chol_inv"] - before == 4 * (7 + 2 + 2)
+    for lvl in range(fp.levels):
+        assert _rel(mesh_mod.local(sD.panels[lvl], "cuda:0"),
+                    free[lvl]) <= 1e-5, lvl
+    x = sD.solve(b)
+    assert sD.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+def test_chol_inv_and_a_two_card_mesh_off_card_zero():
+    """The kernel on cuda:1 (its first launch on a card other than
+    cuda:0: the wrapper's device guard and the kernel's per-device
+    shared-memory limit), a solver on cuda:1, and a 2-card mesh, each
+    against the plain version or the single-card solve."""
+    _require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (torch.cuda.device_count() < 2)")
+    from cholesky_tpu_torch.parallel import mesh as mesh_mod
+
+    d = torch.from_numpy(_blocks(64))
+    l_k, m_k = hk.chol_inv(d.to("cuda:1"))
+    assert l_k.device == torch.device("cuda", 1)
+    l_p, m_p = hk.chol_inv_ref(d.double())
+    assert _rel(l_k, l_p) <= F64_REL and _rel(m_k, m_p) <= 1e-4
+    n, r, c, v, o, cl, b = generate_problem((30, 30, 30), 7)
+    rule = (hk.MIN_B, hk.W_PER_B)
+    hk.MIN_B, hk.W_PER_B = 1, 1 << 20
+    try:
+        xs = []
+        for kw in (dict(device="cuda:0"), dict(device="cuda:1"),
+                   dict(mesh=mesh_mod.make_mesh(2))):
+            s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                        **kw)
+            before = hk.LAUNCHES["chol_inv"]
+            xs.append(s.solve(b))
+            assert hk.LAUNCHES["chol_inv"] > before
+            assert s.residual(b, xs[-1]) <= TOL
+    finally:
+        hk.MIN_B, hk.W_PER_B = rule
+    for x in xs[1:]:
+        assert np.linalg.norm(x - xs[0]) <= 1e-8 * np.linalg.norm(xs[0])
