@@ -157,14 +157,16 @@ Phases, each printing one JSON line:
              round robin: 4 distinct cards, or logical slots sharing fewer
              (then `scaling_figure` is false). 50^3 L8
              f32 at the AUTO rung: the per-level path (slot-sharded 7-2,
-             row groups at 1, the 1-D collective root), factor walls cold
-             and warm, the host assembly and placement alone, one more
-             factorization with per-level CUDA-event ms (after the
+             row groups at 1, the root on the first slot), factor walls
+             cold and warm, each slot's assembly on its device alone, one
+             more factorization with per-level CUDA-event ms (after the
              launches are read), per level the relative difference from the
-             mesh-free factor, per slot and level the stored bytes under
+             mesh-free factor, the root level's ms forced through the 1-D
+             collective scheme, per slot and level the stored bytes under
              `regimes.slot_bytes`, two solves with sweeps and f64 SciPy
              residuals, chol_inv launches against the rule times the
-             slots; a K = 8 family on the mesh (per-system residuals,
+             slots; a 24^3 L6 f64 factor_coo of a mesh solver against the
+             mesh-free one (1e-12); a K = 8 family on the mesh (per-system residuals,
              launches); the quasi-definite 50^3 system on the mesh
              (residual, exact inertia); then the 1-D and 2-D collective
              Cholesky of an [8192, 8192] f32 SPD matrix over 8 slots
@@ -2319,8 +2321,10 @@ def phase_mesh(base, b0):
     figure). 50^3 L8 f32 at the AUTO rung: per-level placement,
     factor walls, per-level difference from the mesh-free factor, per-slot
     stored bytes beside regimes.slot_bytes, two solves, chol_inv launches
-    against the rule times the slots; a K = 8 family; the quasi-definite
-    50^3 system; then the 1-D and 2-D collective Cholesky of an
+    against the rule times the slots, the root level forced through the
+    collective 1-D scheme; a 24^3 f64 factor exported from the mesh into
+    host memory against the mesh-free one; a K = 8 family; the
+    quasi-definite 50^3 system; then the 1-D and 2-D collective Cholesky of an
     [MESH_ROOT_F, MESH_ROOT_F] SPD matrix over MESH_ROOT_SLOTS slots
     against cuSOLVER in f64. Returns chol_inv launches by path."""
     import numpy as np
@@ -2332,6 +2336,7 @@ def phase_mesh(base, b0):
     from cholesky_tpu_torch.numeric.precision import precision_ctx
     from cholesky_tpu_torch.parallel import dist_cholesky as dc
     from cholesky_tpu_torch.parallel import mesh as mesh_mod
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
 
     devices, distinct = mesh_devices(MESH_SLOTS)
     mesh = mesh_mod.make_mesh(devices=devices)
@@ -2346,7 +2351,7 @@ def phase_mesh(base, b0):
                        dtype=np.float32, mesh=mesh)
     fp = s.fplan
     paths = frontal.level_paths(fp, mesh, frontal.root_spec(fp, mesh))
-    check(paths == ["root-1d", "rows"] + ["slot"] * 6,
+    check(paths == ["replicated", "rows"] + ["slot"] * 6,
           f"mesh: 50^3 placement {paths}")
     for k in hk.LAUNCHES:
         hk.LAUNCHES[k] = 0
@@ -2363,8 +2368,8 @@ def phase_mesh(base, b0):
     check(launches["chol_inv"] == 2 * want, f"mesh: {launches['chol_inv']} "
           f"chol_inv launches in 2 factorizations, the rule gives {want}")
     check(want > 0, "mesh: no kernel-routed level")
-    # where the warm factor's time goes: the host assembly and placement
-    # of the slabs alone, then per level by CUDA events
+    # where the warm factor's time goes: the assembly of each slot's slabs
+    # on its device alone, then per level by CUDA events
     fronts, assembly_s = timed_sync(lambda: s._fronts(s.vals))
     del fronts
     hook, read = level_probe(s, devices[0])
@@ -2372,9 +2377,26 @@ def phase_mesh(base, b0):
     levels = read()
     diffs = [rel_err(mesh_mod.local(s.panels[lvl], "cuda:0").float(),
                      free[lvl].float()) for lvl in range(fp.levels)]
-    del free
     check(max(diffs) <= MESH_FACTOR_REL, f"mesh: factor differs from the "
           f"mesh-free one by {max(diffs)}")
+    # the root forced through the collective 1-D scheme on the same mesh:
+    # its level time beside the first slot's cuSOLVER call above
+    prev = frontal.ROOT_DIST_MIN
+    frontal.ROOT_DIST_MIN = 0
+    try:
+        forced = frontal.root_spec(fp, mesh).scheme
+        s.factorize()                   # first use of the collective path
+        hook, read = level_probe(s, devices[0])
+        _, forced_wall = timed_sync(lambda: s.factorize(level_hook=hook))
+        forced_ms = read()[0]["ms"]
+        forced_diff = rel_err(mesh_mod.local(s.panels[0], "cuda:0").float(),
+                              free[0].float())
+    finally:
+        frontal.ROOT_DIST_MIN = prev
+    del free
+    check(forced_diff <= MESH_FACTOR_REL, f"mesh: collective root differs "
+          f"from the mesh-free one by {forced_diff}")
+    s.factorize()
     solves = []
     for i in range(2):
         b = b0 if i == 0 else np.random.default_rng(SEED + 200).integers(
@@ -2388,15 +2410,38 @@ def phase_mesh(base, b0):
           "precision": s.precision, "paths": paths,
           "root_scheme": frontal.root_spec(fp, mesh).scheme,
           "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1],
-          "host_assembly_and_placement_s": assembly_s,
+          "assembly_and_placement_s": assembly_s,
           "probed_factor_wall_s": probed,
           "level_ms": {lvl: x["ms"] for lvl, x in sorted(levels.items())},
           "level_rel_diff_from_mesh_free": diffs,
+          "root_forced": {"scheme": forced, "root_ms": forced_ms,
+                          "probed_factor_wall_s": forced_wall,
+                          "root_rel_diff_from_mesh_free": forced_diff},
           "storage": storage, "plan": s.regimes.describe(),
           "solves": solves, "launches": launches,
           "launches_per_factorization": want})
     out = {"50^3 L8 mesh (2 factorizations)": launches["chol_inv"]}
     del s
+
+    # the mesh factor exported into host memory (every slot's part read
+    # back) against the mesh-free factor's entries, f64 at 24^3 L6
+    n6, r6, c6, v6, o6, cl6, _ = generate_problem((24, 24, 24), 6,
+                                                  seed=SEED + 230)
+    one = SparseCholesky.from_coo(n6, r6, c6, v6, o6, cl6, device="cuda")
+    r1, c1, v1 = one.factor_coo()
+    k1 = np.lexsort((c1, r1))
+    em = SparseCholesky(one.plan, one.rows, one.cols, one.vals, mesh=mesh)
+    (rD, cD, vD), export_s = timed_sync(em.factor_coo)
+    kD = np.lexsort((cD, rD))
+    check(np.array_equal(rD[kD], r1[k1]) and np.array_equal(cD[kD], c1[k1]),
+          "mesh export: factor_coo pattern differs from the mesh-free one")
+    export_err = float(np.abs(vD[kD] - v1[k1]).max() / np.abs(v1).max())
+    check(export_err <= 1e-12, f"mesh export: factor_coo differs from the "
+          f"mesh-free one by {export_err}")
+    emit({"phase": "mesh", "problem": "24^3 L6 f64 factor_coo", **where,
+          "entries": int(len(vD)), "factor_and_export_s": export_s,
+          "rel_err_vs_mesh_free": export_err})
+    del one, em
 
     # a family of K = 8 on the mesh: K / slots systems per slot
     K = 8
@@ -2442,7 +2487,7 @@ def phase_mesh(base, b0):
     check(inertia == (int((sg > 0).sum()), int((sg < 0).sum()), 0),
           f"mesh qd: inertia {inertia}")
     emit({"phase": "mesh", "problem": "50^3 L8 quasi-definite", **where,
-          "paths": frontal.level_paths(q.fplan, mesh),
+          "paths": frontal.level_paths(q.fplan, mesh, rows=False),
           "factor_wall_s": qwall, "solve_wall_s": qs, "residual": qres,
           **q.last_solve, "inertia": list(inertia),
           "slogdet_sign": q.slogdet()[0],

@@ -45,10 +45,11 @@ card raises. The port reads no environment variable.
 
 Multi-device: every constructor, `spsolve` and `solve_spd` take `mesh=`
 (`parallel.mesh.make_mesh` / `make_multislice_mesh`), which overrides
-`device=` (the mesh's first slot is `self.device`). The slabs are then
-assembled on the host and placed on the slots (`mesh.distribute_panels`);
+`device=` (the mesh's first slot is `self.device`). Each slot's part of
+the slabs is then assembled on the slot's device (`MeshAssembler`);
 `factorize()` runs the slot-sharded levels per slot, eligible narrow levels
-by row groups and a wide root collectively (`numeric/frontal.py`,
+by row groups and the rest on the first slot, the root collectively only
+where `frontal.ROOT_DIST_MIN` asks for it (`numeric/frontal.py`,
 `parallel/`), under one slot's regime plan; the solves and their
 refinement run the slot-sharded levels per slot, the residual on the first
 slot. `factorize_many` shards the family's systems over the mesh, padding
@@ -92,7 +93,8 @@ from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
 from cholesky_tpu_torch.numeric import devmem, frontal, ldlt, regimes, selinv
 from cholesky_tpu_torch.numeric import refine as refine_mod
-from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES, FrontAssembler
+from cholesky_tpu_torch.numeric.assemble import (TORCH_DTYPES, FrontAssembler,
+                                                 MeshAssembler)
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      build_frontal_plan)
 from cholesky_tpu_torch.numeric.precision import (
@@ -396,28 +398,29 @@ class SparseCholesky:
             self._fplan = build_frontal_plan(self.plan, self.rows, self.cols)
         return self._fplan
 
-    def _assembler(self) -> FrontAssembler:
-        """The front assembler: on the device, or on the host under a mesh
-        (whose slabs go straight to their slots)."""
+    def _assembler(self):
+        """The front assembler: on the device, or under a mesh on each
+        slot's device (`MeshAssembler`)."""
         if self._fasm is None:
-            self._fasm = FrontAssembler(
-                self.fplan, self.rows, self.cols,
-                "cpu" if self.mesh is not None else self.device)
+            self._fasm = (FrontAssembler(self.fplan, self.rows, self.cols,
+                                         self.device)
+                          if self.mesh is None else
+                          MeshAssembler(self.fplan, self.rows, self.cols,
+                                        self.mesh))
         return self._fasm
 
     def _fronts(self, vals, lazy: bool = False):
         """The slabs of `vals`: on the device (eagerly or level by level),
-        or under a mesh assembled on the host and placed on the slots."""
+        or under a mesh each slot's part on its own device."""
         asm = self._assembler()
         if self.mesh is not None:
-            return mesh_mod.distribute_panels(asm(vals, dtype=self.dtype),
-                                              self.mesh)
+            return asm(vals, dtype=self.dtype)
         return (asm.lazy if lazy else asm)(vals, dtype=self.dtype)
 
     def assemble(self) -> List[torch.Tensor]:
         """(Re)build the per-level pivot slabs on the device from the COO
         values: one scatter per level, only the [nnz] values uploaded.
-        Under a mesh, on the host, then placed on the slots."""
+        Under a mesh, each slot's part on its own device."""
         self.panels = self._fronts(self.vals)
         self.factored = False
         return self.panels
@@ -1490,8 +1493,7 @@ class SparseCholesky:
         plan = self._family_plan(K + pad)
         asm = self._assembler()
         if self.mesh is not None:
-            fronts = mesh_mod.distribute_family(
-                asm(vals_padded, dtype=self.dtype), self.mesh, K + pad)
+            fronts = asm(vals_padded, dtype=self.dtype, family=K + pad)
         else:
             fronts = (asm.lazy if plan.lazy else asm)(vals_many,
                                                       dtype=self.dtype)

@@ -18,10 +18,13 @@ Values [K, nnz] (a same-pattern family, `api.factorize_many`) assemble into
 folded slabs [K B, F, W], system-major: the same [nnz] scatter indices
 address each system's row of a [K, B F W] slab, so no K-fold index exists.
 
-Under a mesh the solver assembles with a `FrontAssembler` on the CPU, as
-the JAX package assembles on the host under a mesh (`api.py:641-648`
-there), and `parallel.mesh.distribute_panels` / `distribute_family` send
-each slot's blocks straight to its device, with no staging on one device.
+Under a mesh, `MeshAssembler` keeps one `FrontAssembler` per distinct
+device of the mesh and assembles each slot's part on the slot's own
+device, from the values uploaded once per device: a slot-sharded level's
+blocks (`chunk`), a row group's rows of its front, a replicated level on
+the first slot, a family's systems of the slot. The JAX package assembles
+on the host under a mesh (`api.py:641-648` there) because GSPMD places a
+host array; a single-process torch mesh addresses each device directly.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from cholesky_tpu_torch.numeric import devmem
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      _front_scatter_indices)
+from cholesky_tpu_torch.parallel import mesh as mesh_mod
 
 TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -134,3 +138,49 @@ class LazyFronts:
 
     def nbytes_of(self, lvl: int) -> int:
         return int(np.prod(self.shapes[lvl])) * self.dtype.itemsize
+
+
+class MeshAssembler:
+    """Front assembly on a mesh's devices: one `FrontAssembler` per
+    distinct device, each slot's part of each level scattered on the
+    slot's device."""
+
+    def __init__(self, fp: FrontalPlan, rows: np.ndarray, cols: np.ndarray,
+                 mesh):
+        self.mesh = mesh
+        self.by_device = {d: FrontAssembler(fp, rows, cols, d)
+                          for d in mesh.distinct}
+        self.shapes = self.by_device[mesh.flat[0]].shapes
+
+    def __call__(self, vals, dtype=np.float32, family: int = 0) -> list:
+        """vals [nnz] -> per-level slabs placed as `mesh.panel_sharding`
+        says (a `Sharded` of the slots' parts, or one tensor on the first
+        slot); a family's [K, nnz] with `family` = K -> folded slabs
+        placed as `mesh.family_sharding` says."""
+        tdt = TORCH_DTYPES[np.dtype(dtype)]
+        v = {d: asm.upload(vals, dtype).to(tdt)
+             for d, asm in self.by_device.items()}
+        devs = self.mesh.flat
+        out = []
+        for lvl, (B, Fl, Wl) in enumerate(self.shapes):
+            place = (mesh_mod.family_sharding(self.mesh, family) if family
+                     else mesh_mod.panel_sharding(self.mesh, lvl))
+            if place.kind == "replicated":
+                out.append(self.by_device[devs[0]].level(v[devs[0]], lvl))
+                continue
+            parts = []
+            for s, d in enumerate(devs):
+                asm = self.by_device[d]
+                if family:
+                    per = family // len(devs)
+                    parts.append(asm.level(v[d][s * per:(s + 1) * per], lvl))
+                    continue
+                b0, b1 = place.batch_range(s, B)
+                part = asm.chunk(v[d], lvl, b0, b1)
+                if place.kind == "rows":
+                    r0, r1 = place.row_range(s, Fl)
+                    part = part[:, r0:r1].contiguous()
+                parts.append(part)
+            out.append(mesh_mod.Sharded(parts, place,
+                                        ((family or 1) * B, Fl, Wl), devs))
+        return out

@@ -38,8 +38,9 @@ Ported:
     slot's device (each slot's blocks are a closed subtree, the batch-chunk
     machinery with global block offsets), eligible narrow levels through
     `dist_level.factor_level_sharded` (`:1301-1313`), the rest on the
-    mesh's first device, the root through `dist_cholesky` when it is wide
-    enough (`:1345`, `:1394`); every capacity regime applies per slot, and
+    mesh's first device, the root through `dist_cholesky` when
+    ROOT_DIST_MIN asks for it (`:1345`, `:1394`); every capacity regime
+    applies per slot, and
     an offloaded sharded level goes back to its slots (`:2609-2620`). The
     solves run the slot-sharded levels per slot on work arrays of their
     own and sum them at the transition to the narrow levels; a family on
@@ -76,8 +77,13 @@ from cholesky_tpu_torch.parallel import mesh as mesh_mod
 from cholesky_tpu_torch.parallel.mesh import Sharded
 
 # Narrowest root front that factors collectively over a mesh
-# (CHOLESKY_TPU_ROOT_DIST_MIN); narrower roots factor on the first slot.
-ROOT_DIST_MIN = 2048
+# (CHOLESKY_TPU_ROOT_DIST_MIN); None: none does, every root factors on the
+# first slot. Nothing observable favours the collective root in one
+# process: it gathers the whole factor back onto the first slot, so it
+# frees no memory there, and on H100s it lost to one cuSOLVER call on the
+# first slot at every width timed (chip_smoke.py's mesh phase, PERF.md).
+# Setting a width (the JAX package's default is 2048) forces it.
+ROOT_DIST_MIN: Optional[int] = None
 
 
 def _acc(dtype) -> torch.dtype:
@@ -510,13 +516,13 @@ class _RootSpec:
 
 def root_spec(fp, mesh) -> Optional[_RootSpec]:
     """`_effective_root_mesh`: None without a mesh; else the scheme of
-    `dist_cholesky._pick_scheme` for the root's width W[0], "off" below
-    ROOT_DIST_MIN (read at call time, as the block dist_cholesky.ROOT_BLOCK
-    and its ROOT_SCHEME are)."""
+    `dist_cholesky._pick_scheme` for the root's width W[0], "off" when
+    ROOT_DIST_MIN is None or above W[0] (read at call time, as the block
+    dist_cholesky.ROOT_BLOCK and its ROOT_SCHEME are)."""
     if mesh is None:
         return None
     block = dist_cholesky.ROOT_BLOCK
-    if fp.W[0] < ROOT_DIST_MIN:
+    if ROOT_DIST_MIN is None or fp.W[0] < ROOT_DIST_MIN:
         return _RootSpec(mesh, "off", block)
     return _RootSpec(mesh, dist_cholesky._pick_scheme(fp.W[0], mesh.size,
                                                       block, mesh), block)
@@ -539,11 +545,14 @@ def level_placement(fp, lvl: int, mesh):
     return mesh_mod.panel_sharding(mesh, lvl)
 
 
-def level_paths(fp, mesh, root: Optional[_RootSpec] = None) -> List[str]:
+def level_paths(fp, mesh, root: Optional[_RootSpec] = None,
+                rows: bool = True) -> List[str]:
     """Per level how the level loop runs it on `mesh` (`_mesh_for_level`):
     "slot" (per slot on its blocks), "rows" (row groups, `dist_level`),
     "root-1d" / "root-2d" (the collective root) or "replicated" (on the
-    mesh's first device); all "single" without a mesh."""
+    mesh's first device); all "single" without a mesh. `rows` = False
+    gives the quasi-definite factorization's paths (`ldlt.factor_qd`),
+    which takes no row groups."""
     out = []
     for lvl in range(fp.levels):
         place = level_placement(fp, lvl, mesh)
@@ -551,7 +560,7 @@ def level_paths(fp, mesh, root: Optional[_RootSpec] = None) -> List[str]:
             out.append("single")
         elif place.kind == "slot":
             out.append("slot")
-        elif (place.kind == "rows" and lvl < fp.levels - 1
+        elif (rows and place.kind == "rows" and lvl < fp.levels - 1
               and dist_level.eligible(fp, lvl, 1 << lvl, mesh)):
             out.append("rows")
         elif (lvl == 0 and root is not None and root.scheme != "off"
@@ -606,7 +615,7 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
     the regime plan of that batch (`plan_regimes(..., family=K)`).
 
     With `mesh` (`parallel.mesh.Mesh`), `fronts` is the list that
-    `mesh.distribute_panels` (or `distribute_family`) made and `plan` is
+    `assemble.MeshAssembler` placed on the slots and `plan` is
     per slot (`plan_regimes(..., mesh=mesh)`): a slot-sharded level runs
     on each slot's device over the slot's blocks, in the plan's chunks
     (the kernel route decided on the level's batch over the whole mesh);

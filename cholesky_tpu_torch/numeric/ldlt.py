@@ -181,7 +181,7 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
     level ran). Returns per-level [B, F, W] factors: rows :W the signed
     Cholesky L~d, rows W: the off-diagonal block X~. `level_hook(lvl,
     "start" | "end")` as in `frontal.frontal_factor_streamed`. With `mesh`,
-    `fronts` as `mesh.distribute_panels` made them: a slot-sharded level
+    `fronts` as `assemble.MeshAssembler` placed them: a slot-sharded level
     runs per slot over its blocks (a `Sharded` factor), any other on the
     mesh's first device."""
     out: List = [None] * fp.levels

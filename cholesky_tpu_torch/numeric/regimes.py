@@ -49,9 +49,8 @@ Under a mesh (`parallel/mesh.py`) the plan is one slot's: a slot-sharded
 level at B / ndev blocks, a row-group level (`parallel/dist_level.py`)
 at F / G rows of one front (`_rows_peak`), a replicated level whole, each
 against the budget of one slot (the device's budget over the slots that
-share it). The slabs are assembled on the host and placed on the slots
-before the factorization (the JAX package does no device assembly under a
-mesh), so the lazy rung is not taken. The kernel route of a level is
+share it). Each slot's slabs are assembled on its device before the
+factorization (`assemble.MeshAssembler`), so the lazy rung is not taken. The kernel route of a level is
 decided on its batch over the whole mesh, as the level loop decides it.
 `slot_bytes` is one level's working set on one slot, the counterpart of
 the JAX package's `tools/memcheck_mesh.py`.

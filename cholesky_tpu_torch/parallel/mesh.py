@@ -313,10 +313,14 @@ class Sharded:
 def _send(t: torch.Tensor, device, stats: Optional[dict],
           count: bool = True) -> torch.Tensor:
     """`t` on `device` (a peer copy between cards, none within one); its
-    bytes are added to stats["bytes"] when `count`."""
+    bytes are added to stats["bytes"] when `count`. A copy between cards
+    is asynchronous (torch orders it on both cards' streams); a copy into
+    host memory returns only once it has landed, since the host reads it
+    at once."""
     if stats is not None and count:
         stats["bytes"] = stats.get("bytes", 0) + t.numel() * t.element_size()
-    return t.to(device, non_blocking=True)
+    device = _device(device)
+    return t.to(device, non_blocking=device.type != "cpu")
 
 
 def local(t, device=None):

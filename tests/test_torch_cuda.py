@@ -615,7 +615,7 @@ def test_flag_restored_on_card(monkeypatch):
 @pytest.mark.cuda
 def test_50cubed_on_a_four_slot_mesh_of_one_card():
     """50^3 L8 f32 on 4 logical slots of cuda:0: the placement per level
-    (slot-sharded 7-2, row groups at 1, the 1-D collective root), every
+    (slot-sharded 7-2, row groups at 1, the root on the first slot), every
     level within 1e-5 of the mesh-free factor, chol_inv launched by every
     slot of the kernel-routed levels, and the refined solve at the
     contract."""
@@ -632,7 +632,7 @@ def test_50cubed_on_a_four_slot_mesh_of_one_card():
                         dtype=np.float32, mesh=mesh)
     fp = sD.fplan
     assert frontal.level_paths(fp, mesh, frontal.root_spec(fp, mesh)) == \
-        ["root-1d", "rows"] + ["slot"] * 6
+        ["replicated", "rows"] + ["slot"] * 6
     before = hk.LAUNCHES["chol_inv"]
     sD.factorize()
     assert hk.LAUNCHES["chol_inv"] - before == 4 * (7 + 2 + 2)
@@ -641,6 +641,34 @@ def test_50cubed_on_a_four_slot_mesh_of_one_card():
                     free[lvl]) <= 1e-5, lvl
     x = sD.solve(b)
     assert sD.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+def test_mesh_factor_export_on_card_matches_mesh_free(monkeypatch):
+    """`factor_coo` of a solver on 4 logical slots of cuda:0 (the levels
+    gathered from the card into host memory) equals the mesh-free
+    factor's entries to 1e-12 in f64, with the root factored on the first
+    slot and, forced, collectively."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import frontal
+    from cholesky_tpu_torch.parallel import mesh as mesh_mod
+
+    n, r, c, v, o, cl, b = generate_problem((24, 24, 24), 6)
+    s1 = SparseCholesky.from_coo(n, r, c, v, o, cl, device="cuda")
+    r1, c1, v1 = s1.factor_coo()
+    key = np.lexsort((c1, r1))
+    mesh = mesh_mod.make_mesh(devices=[torch.device("cuda", 0)] * 4)
+    for forced in (None, 16):
+        monkeypatch.setattr(frontal, "ROOT_DIST_MIN", forced)
+        sD = SparseCholesky(s1.plan, s1.rows, s1.cols, s1.vals, mesh=mesh)
+        assert frontal.level_paths(sD.fplan, mesh, frontal.root_spec(
+            sD.fplan, mesh))[0] == ("replicated" if forced is None
+                                    else "root-1d")
+        rD, cD, vD = sD.factor_coo()
+        kD = np.lexsort((cD, rD))
+        assert np.array_equal(rD[kD], r1[key])
+        assert np.array_equal(cD[kD], c1[key])
+        assert np.abs(vD[kD] - v1[key]).max() <= 1e-12 * np.abs(v1).max()
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from cholesky_tpu.parallel import mesh as jmesh
 from cholesky_tpu.utils.laplacian import generate_problem
 from cholesky_tpu_torch import SparseCholesky
 from cholesky_tpu_torch.numeric import frontal, regimes
+from cholesky_tpu_torch.numeric.assemble import FrontAssembler, MeshAssembler
 from cholesky_tpu_torch.parallel import dist_level
 from cholesky_tpu_torch.parallel import mesh as tmesh
 
@@ -102,7 +103,8 @@ def test_sharding_policy_matches_jax(meshes):
 def test_level_paths_match_jax_dispatch(grid24, meshes):
     """The port's per-level path equals the JAX package's dispatch: row
     groups exactly where `dist_level.eligible` holds, slot-sharded where
-    the placement is, the root replicated below ROOT_DIST_MIN."""
+    the placement is, the root replicated (the port's ROOT_DIST_MIN is
+    unset; the JAX package's root replicates below its 2048)."""
     tm, jm = meshes
     fp, jfp = grid24["tD"].fplan, grid24["jD"].fplan
     paths = frontal.level_paths(fp, tm, frontal.root_spec(fp, tm))
@@ -112,6 +114,30 @@ def test_level_paths_match_jax_dispatch(grid24, meshes):
             jfp, lvl, 1 << lvl, jm), lvl
     assert [type(p).__name__ for p in grid24["tD"].panels] == [
         "Tensor", "Sharded", "Sharded", "Sharded", "Sharded"]
+
+
+def test_mesh_assembly_places_each_slots_part(grid24):
+    """Each slot's part assembled on its own device (`MeshAssembler`)
+    equals the slot's part of the slabs assembled whole and then placed
+    (`distribute_panels` / `distribute_family`): slot-sharded blocks, row
+    groups, the replicated root, and a K = 8 family's systems."""
+    tD = grid24["tD"]
+    whole = FrontAssembler(tD.fplan, tD.rows, tD.cols, "cpu")
+    asm = MeshAssembler(tD.fplan, tD.rows, tD.cols, tD.mesh)
+    vals = np.stack([tD.vals * (1 + k) for k in range(8)])
+    for got, want in (
+            (asm(tD.vals, np.float64), tmesh.distribute_panels(
+                whole(tD.vals, np.float64), tD.mesh)),
+            (asm(vals, np.float64, family=8), tmesh.distribute_family(
+                whole(vals, np.float64), tD.mesh, 8))):
+        assert [type(g) for g in got] == [type(w) for w in want]
+        for g, w in zip(got, want):
+            if isinstance(w, tmesh.Sharded):
+                assert g.kind == w.kind and g.shape == w.shape
+                assert all(torch.equal(a, b)
+                           for a, b in zip(g.parts, w.parts))
+            else:
+                assert torch.equal(g, w)
 
 
 def test_mesh_factor_and_solve_match_mesh_free_and_jax(grid24):
@@ -316,7 +342,10 @@ def test_quasi_definite_on_mesh(meshes):
     jD = cholesky_tpu.SparseCholesky.from_coo(n, r, c, vq, o, cl, signs=sg,
                                               mesh=jm)
     tD.factorize()
-    assert isinstance(tD.panels[3], tmesh.Sharded)
+    paths = frontal.level_paths(tD.fplan, tm, rows=False)
+    assert paths == ["replicated"] * 3 + ["slot"]
+    assert [isinstance(p, tmesh.Sharded) for p in tD.panels] == [
+        x == "slot" for x in paths]
     xD = tD.solve(b)
     assert tD.residual(b, xD) <= TOL
     assert _rel(xD, t1.solve(b)) <= F64_REL
