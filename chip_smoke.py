@@ -172,6 +172,30 @@ Phases, each printing one JSON line:
              Cholesky of an [8192, 8192] f32 SPD matrix over 8 slots
              against cuSOLVER's f64 factor: error, wall, bytes between
              slots, beside cuSOLVER's f32 wall.
+ 19. oracle: the panel oracle engine (`verify.oracle.PanelsOracle`, one
+             POTRF / TRSM / SYRK per level over full ancestor-path panels)
+             on the card: at 24^3 L6 f64 its factor_dense against the
+             production solver's and SciPy's Cholesky of the permuted
+             matrix (max abs difference <= 1e-10); at 50^3 L8 f64 its
+             factorize walls (cold, warm) and their parts (host assembly,
+             upload, level loop), solve wall, peak memory beside the panel
+             bytes (and the f64 panel bytes the 140^3 L14 plan would
+             need), f64 SciPy residual (<= 1e-10), distance from
+             the refined f32 production solve (<= 1e-9 relative), and
+             2 sum log diag of its pivot blocks against the production f64
+             factor's logdet() (<= 1e-9 relative); at 50^3 L8 f32 its
+             factorize walls and parts and unrefined residual beside the
+             production f32 factor's (printed only).
+ 20. examples: the six scripts of examples/torch run in process
+             (runpy, stdout captured): gp_variance --dim 512 --levels 10,
+             gmrf_learn --dim 256 --levels 9, kkt_solve --nx 300 --m 600,
+             modal_analysis --nx 256 --k 6, fem_gallery --scale 4 and
+             solve_mtx on the 50^3 matrix written to a temporary .mtx:
+             wall, chol_inv launches against the routing rule over every
+             factorization the script ran, peak memory, its output, and
+             the output properties tests/test_examples.py asserts
+             (residuals <= 1e-10, KKT <= 1e-8 with its inertia, coverage
+             >= 80%, pencil residual <= 1e-6, a printed tau).
 Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
@@ -2533,6 +2557,361 @@ def phase_mesh(base, b0):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The panel oracle engine and the examples
+
+
+ORACLE_SMALL = ((24, 24, 24), 6)    # the three-way factor_dense check
+ORACLE_PROBLEM = ((50, 50, 50), 8)  # the slice's problem, f64 and f32
+ORACLE_DENSE_TOL = 1e-10            # max abs difference of the three factors
+ORACLE_RES_TOL = 1e-10              # the f64 oracle's residual at 50^3
+ORACLE_X_REL = 1e-9                 # ... its distance from the refined f32
+ORACLE_LOGDET_REL = 1e-9            # ... its logdet vs the production f64's
+# each example at a size its users would run; solve_mtx reads the
+# ORACLE_PROBLEM matrix from a temporary .mtx (its path is appended)
+EXAMPLES = (("gp_variance", ["--dim", "512", "--levels", "10"]),
+            ("gmrf_learn", ["--dim", "256", "--levels", "9"]),
+            ("kkt_solve", ["--nx", "300", "--m", "600"]),
+            ("modal_analysis", ["--nx", "256", "--k", "6"]),
+            ("fem_gallery", ["--scale", "4"]),
+            ("solve_mtx", []))
+
+
+def oracle_logdet(oracle) -> float:
+    """2 sum log diag of the oracle's pivot blocks over valid dofs (the
+    padded diagonal is identity and adds 0)."""
+    import torch
+
+    plan, total = oracle.plan, 0.0
+    for lvl, p in enumerate(oracle.panels):
+        W = int(plan.S[lvl])
+        sizes = torch.tensor([int(plan.sep_sizes[plan.tree.sep_at(lvl, t)])
+                              for t in range(1 << lvl)], device=p.device)
+        d = torch.diagonal(p[:, :W, :W], dim1=1, dim2=2)
+        valid = torch.arange(W, device=p.device)[None, :] < sizes[:, None]
+        total += float(torch.log(d.double())[valid].sum())
+    return 2.0 * total
+
+
+def panel_bytes(plan, itemsize: int) -> int:
+    """Bytes of the oracle's [2^L, H(L), S(L)] panels of a plan."""
+    import numpy as np
+
+    return sum(int(np.prod(plan.panel_shape(lvl))) * itemsize
+               for lvl in range(plan.levels))
+
+
+def scale_panel_bytes() -> int:
+    """The f64 panel bytes the oracle would need at the scale phase's
+    problem (host plan only)."""
+    from cholesky_tpu_torch.symbolic.plan import build_plan
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    *_, o, cl, _ = generate_problem(*SCALE, seed=SEED)
+    return panel_bytes(build_plan(o, cl), 8)
+
+
+def oracle_parts(oracle) -> dict:
+    """Where an oracle factorization's wall goes, each part synchronized:
+    the host panel assembly, the upload of the panels, the level loop on
+    the card (its CUDA-event ms beside)."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import assemble
+    from cholesky_tpu_torch.numeric import factor as nfactor
+
+    oracle.panels = None
+    host, assembly_s = timed_sync(lambda: assemble.assemble_panels(
+        oracle.plan, oracle.rows, oracle.cols, oracle.vals,
+        dtype=oracle.dtype))
+    panels, upload_s = timed_sync(lambda: nfactor._on(host, oracle.device))
+    del host
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    oracle.panels, loop_s = timed_sync(
+        lambda: nfactor.factor_panels(oracle.plan, panels))
+    e1.record()
+    e1.synchronize()
+    return {"host_assembly": assembly_s, "upload": upload_s,
+            "level_loop": loop_s, "level_loop_event_ms": e0.elapsed_time(e1)}
+
+
+def _oracle_three_way():
+    """24^3 L6 f64: the oracle's factor_dense, the production solver's and
+    SciPy's Cholesky of the permuted matrix, all in the plan's
+    permutation."""
+    import numpy as np
+    import scipy.linalg
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.symbolic.plan import permute_matrix_dense
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.verify.oracle import PanelsOracle
+
+    shape, levels = ORACLE_SMALL
+    n, r, c, v, o, cl, _ = generate_problem(shape, levels, seed=SEED)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float64,
+                                device="cuda")
+    t = time.perf_counter()
+    L_o = PanelsOracle(s.plan, s.rows, s.cols, s.vals,
+                       device="cuda").factor_dense()
+    oracle_s = time.perf_counter() - t
+    L_p = s.factor_dense()
+    t = time.perf_counter()
+    a = permute_matrix_dense(s.plan,
+                             _scipy_matrix(n, s.rows, s.cols, s.vals)
+                             .toarray())
+    L_s = scipy.linalg.cholesky(a + np.tril(a, -1).T, lower=True)
+    scipy_s = time.perf_counter() - t
+    diffs = {"oracle_vs_production": float(np.abs(L_o - L_p).max()),
+             "oracle_vs_scipy": float(np.abs(L_o - L_s).max()),
+             "production_vs_scipy": float(np.abs(L_p - L_s).max())}
+    for k, d in diffs.items():
+        check(d <= ORACLE_DENSE_TOL, f"24^3 factor_dense {k}: {d} > "
+              f"{ORACLE_DENSE_TOL}")
+    emit({"phase": "oracle", "problem": f"{shape[0]}^3 L{levels} f64 "
+          "factor_dense", "n": n,
+          "max_abs_diff": diffs, "limit": ORACLE_DENSE_TOL,
+          "oracle_factor_dense_s": oracle_s, "scipy_s": scipy_s})
+
+
+def phase_oracle():
+    """The port's PanelsOracle on the card: the 24^3 three-way factor
+    check, then 50^3 L8 in f64 (walls, peak beside the panel bytes,
+    residual, distance from the refined f32 solve, logdet against the
+    production f64 factor's) and in f32 (walls, unrefined residual beside
+    the production f32 factor's)."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.verify.oracle import PanelsOracle
+
+    _oracle_three_way()
+
+    shape, levels = ORACLE_PROBLEM
+    what = f"{shape[0]}^3 L{levels}"
+    n, r, c, v, o, cl, b = generate_problem(shape, levels, seed=SEED)
+    s32 = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                  device="cuda")
+    plan = s32.plan
+    a = _scipy_matrix(n, s32.rows, s32.cols, s32.vals)
+
+    def residual(x):
+        return float(np.linalg.norm(a @ x - b) / np.linalg.norm(b))
+
+    _, prod_cold = timed_sync(s32.factorize)
+    _, prod_warm = timed_sync(s32.factorize)
+    x32 = s32.solve(b, tol=TOL)
+    check(residual(x32) <= TOL, "the refined f32 solve missed the contract")
+    prod_raw = residual(s32.solve(b, refine="never"))
+    s64 = SparseCholesky(plan, s32.rows, s32.cols, s32.vals,
+                         dtype=np.float64, device="cuda")
+    _, prod64_s = timed_sync(s64.factorize)
+    logdet64 = s64.logdet()
+    del s64
+    torch.cuda.empty_cache()
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    oracle = PanelsOracle(plan, s32.rows, s32.cols, s32.vals,
+                          dtype=np.float64, device="cuda")
+    _, cold = timed_sync(oracle.factorize)
+    peak = torch.cuda.max_memory_allocated() - base
+    oracle.panels = None
+    _, warm = timed_sync(oracle.factorize)
+    parts = oracle_parts(oracle)
+    x, solve_s = timed_sync(lambda: oracle.solve(b))
+    res = residual(x)
+    x_rel = float(np.linalg.norm(x - x32) / np.linalg.norm(x))
+    ld = oracle_logdet(oracle)
+    ld_rel = abs(ld - logdet64) / abs(logdet64)
+    emit({"phase": "oracle", "problem": f"{what} f64", "n": n,
+          "panel_shapes": [plan.panel_shape(lvl)
+                           for lvl in range(plan.levels)],
+          "panel_bytes": panel_bytes(plan, 8),
+          "scale_panel_bytes": scale_panel_bytes(),
+          "factorize_cold_s": cold, "factorize_warm_s": warm,
+          "factorize_parts_s": parts,
+          "solve_s": solve_s, "peak_bytes": peak, "residual": res,
+          "x_rel_vs_refined_f32": x_rel, "logdet": ld,
+          "production_f64_logdet": logdet64, "logdet_rel": ld_rel,
+          "production_f64_factor_s": prod64_s})
+    check(bool(np.all(np.isfinite(x))) and x.shape == (n,),
+          "oracle solution not finite or of the wrong shape")
+    check(res <= ORACLE_RES_TOL, f"{what} oracle residual {res}")
+    check(x_rel <= ORACLE_X_REL, f"{what} oracle vs refined f32: {x_rel}")
+    check(ld_rel <= ORACLE_LOGDET_REL, f"{what} oracle logdet: {ld_rel}")
+    del oracle, x
+    torch.cuda.empty_cache()
+
+    oracle = PanelsOracle(plan, s32.rows, s32.cols, s32.vals,
+                          dtype=np.float32, device="cuda")
+    _, cold = timed_sync(oracle.factorize)
+    oracle.panels = None
+    _, warm = timed_sync(oracle.factorize)
+    parts = oracle_parts(oracle)
+    raw = residual(oracle.solve(b))
+    emit({"phase": "oracle", "problem": f"{what} f32",
+          "panel_bytes": panel_bytes(plan, 4),
+          "factorize_cold_s": cold, "factorize_warm_s": warm,
+          "factorize_parts_s": parts,
+          "unrefined_residual": raw, "precision": s32.precision,
+          "production_factor_cold_s": prod_cold,
+          "production_factor_warm_s": prod_warm,
+          "production_unrefined_residual": prod_raw})
+    check(np.isfinite(raw), "the f32 oracle's solve is not finite")
+    del oracle, s32
+    torch.cuda.empty_cache()
+
+
+RESIDUAL_RE = r"residual[^\n]*?([0-9][0-9.]*e[+-]?[0-9]+)"
+
+
+def _example_checks(name, out):
+    """The output properties tests/test_examples.py asserts of the JAX
+    twins, read from the script's stdout."""
+    import re
+
+    res = [float(m) for m in re.findall(RESIDUAL_RE, out)]
+    got = {}
+    if name in ("fem_gallery", "solve_mtx", "kkt_solve"):
+        limit = 1e-8 if name == "kkt_solve" else TOL
+        check(bool(res) and max(res) <= limit,
+              f"{name}: residuals {res} over {limit}")
+        got["max_residual"] = max(res)
+    if name == "solve_mtx":
+        check("logdet" in out and "condest" in out, "solve_mtx: no logdet "
+              "or condest line")
+    if name == "kkt_solve":
+        check("slogdet" in out, "kkt_solve: no slogdet line")
+        m = re.search(r"inertia \(([0-9]+), ([0-9]+)\) .* \(([0-9]+), "
+                      r"([0-9]+) expected\)", out)
+        check(bool(m) and m.group(1, 2) == m.group(3, 4),
+              "kkt_solve: inertia not as expected")
+    if name == "gp_variance":
+        m = re.search(r"coverage of truth: ([0-9.]+)%", out)
+        check(bool(m) and float(m.group(1)) >= 80.0,
+              f"gp_variance: coverage {m and m.group(1)}")
+        got["coverage_pct"] = float(m.group(1))
+    if name == "gmrf_learn":
+        m = re.search(r"MLE tau ~= ([0-9.]+)", out)
+        check(bool(m), "gmrf_learn: no tau printed")
+        got["tau"] = float(m.group(1))
+    if name == "modal_analysis":
+        m = re.search(r"worst pencil residual: ([0-9.]+e[+-]?[0-9]+)", out)
+        check(bool(m) and float(m.group(1)) <= 1e-6,
+              f"modal_analysis: pencil residual {m and m.group(1)}")
+        got["pencil_residual"] = float(m.group(1))
+    return got
+
+
+class _RuleCount:
+    """While active, adds to `want` the chol_inv launches the routing rule
+    gives each factorization (SparseCholesky.factorize and
+    factorize_many): 0 for a factor not in float32 or a signed one."""
+
+    def __init__(self):
+        self.want = 0
+
+    def _rule(self, solver, plan) -> int:
+        import numpy as np
+
+        if solver.dtype != np.float32 or solver.signs is not None:
+            return 0
+        return expected_chol_inv(solver.fplan, plan)
+
+    def __enter__(self):
+        from cholesky_tpu_torch.api import SparseCholesky
+
+        self.orig = (SparseCholesky.factorize, SparseCholesky.factorize_many)
+        f, fm = self.orig
+
+        def factorize(solver, *a, **k):
+            out = f(solver, *a, **k)
+            self.want += self._rule(solver, solver.regimes)
+            return out
+
+        def factorize_many(solver, *a, **k):
+            bf = fm(solver, *a, **k)
+            self.want += self._rule(solver, bf.regimes)
+            return bf
+
+        SparseCholesky.factorize = factorize
+        SparseCholesky.factorize_many = factorize_many
+        return self
+
+    def __exit__(self, *exc):
+        from cholesky_tpu_torch.api import SparseCholesky
+
+        SparseCholesky.factorize, SparseCholesky.factorize_many = self.orig
+
+
+def run_example(script, args):
+    """examples/torch/<script> in this process with `args`: (stdout,
+    synchronized wall seconds)."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch", script)
+    argv, syspath, out = sys.argv, list(sys.path), io.StringIO()
+    sys.argv = [path, *args]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+    finally:
+        sys.argv, sys.path[:] = argv, syspath
+    return out.getvalue(), time.perf_counter() - t
+
+
+def phase_examples() -> dict:
+    """The six examples of examples/torch on the card at their sizes, in
+    process: wall, chol_inv launches against the routing rule, and the
+    output properties tests/test_examples.py asserts of the JAX twins.
+    Returns the chol_inv launches of each example that launched any."""
+    import torch
+
+    from cholesky_tpu_torch.io import mmio
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+
+    with tempfile.TemporaryDirectory() as d:
+        mtx = os.path.join(d, "lapl.mtx")
+        n, r, c, v, *_ = generate_problem(*ORACLE_PROBLEM, seed=SEED)
+        mmio.write_coo(mtx, r, c, v, (n, n), symmetry="hermitian")
+        launched = {}
+        for name, args in EXAMPLES:
+            if name == "solve_mtx":
+                args = [*args, mtx]
+            for k in hk.LAUNCHES:
+                hk.LAUNCHES[k] = 0
+            torch.cuda.reset_peak_memory_stats()
+            with _RuleCount() as rule:
+                out, wall = run_example(name + ".py", args)
+            launches = hk.LAUNCHES["chol_inv"]
+            lines = out.strip().splitlines()
+            emit({"phase": "examples", "script": f"examples/torch/{name}.py",
+                  "args": [os.path.basename(x) for x in args],
+                  "wall_s": wall, "chol_inv_launches": launches,
+                  "rule": rule.want, "max_memory_allocated":
+                  torch.cuda.max_memory_allocated(), "output": lines,
+                  **_example_checks(name, out)})
+            check(launches == rule.want, f"{name}: {launches} chol_inv "
+                  f"launches, the rule gives {rule.want}")
+            if launches:
+                launched[f"examples/torch/{name}.py"] = launches
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2570,6 +2949,8 @@ def main() -> int:
         phase_cli()
         phase_debug()
         phase_native()
+        phase_oracle()
+        example_launches = phase_examples()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1
@@ -2587,7 +2968,8 @@ def main() -> int:
             "50^3 L8 quasi-definite": qd,
             **{f"{k} precision ladder": v for k, v in ladder.items()},
             **mesh_launches,
-            "from_scipy gallery (ordering phase)": ordering_launches},
+            "from_scipy gallery (ordering phase)": ordering_launches,
+            **example_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],

@@ -18,13 +18,16 @@ folded batch; symmetric quasi-definite (KKT) matrices by a signed LDL^T
 separator, Woodbury updates, factor-preconditioned CG for perturbed
 matrices, and Lanczos eigenpairs and condition numbers; multi-device
 distribution over a single-process mesh of torch devices (`mesh=`,
-`--devices` / `--slices`).
+`--devices` / `--slices`); the panel oracle engine that cross-checks the
+production factor (`verify.oracle.PanelsOracle`). `examples/torch/` holds
+the six example workflows on this package.
 
   api.py                   SparseCholesky (from_files, from_coo, from_matrix,
                            from_scipy), BatchedFactors, solve_spd, spsolve
   cli.py                   python -m cholesky_tpu_torch.cli (flag-compatible
                            with python -m cholesky_tpu.cli)
-  convert.py               carry a plan and a factor across from the JAX package
+  convert.py               carry a plan, a factor or an oracle across from the
+                           JAX package
   io/                      MatrixMarket and ordering readers and writers
   native/                  the C++ host core (a copy of the JAX package's):
                            ordering, MatrixMarket I/O, fill analysis; g++
@@ -33,12 +36,16 @@ distribution over a single-process mesh of torch devices (`mesh=`,
                            ordering of a matrix that comes without one;
                            fill.py: the cluster fill analysis of -d
   verify/                  the -d structure log, the op schedule and its
-                           replay oracle (NumPy, SciPy)
+                           replay oracle (NumPy, SciPy); oracle.py:
+                           PanelsOracle
   utils/                   problem generators (grid Laplacians, the gallery)
   numeric/frontal_plan.py  host frontal analysis (NumPy)
   numeric/regimes.py       the budget and the per-level regime plan
   numeric/devmem.py        the allocator pool of long-lived device state
-  numeric/assemble.py      device assembly, eager or level by level
+  numeric/assemble.py      device assembly, eager or level by level; the
+                           oracle's host panel assembly
+  numeric/factor.py        the oracle's panel engine: per level POTRF, TRSM,
+                           SYRK over full ancestor-path panels
   numeric/frontal.py       per-level factorization, level loop (one system
                            or a family), solves of [n], [n, k] and of a
                            family, L^-T and L^T, factor extraction

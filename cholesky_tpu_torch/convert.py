@@ -16,6 +16,10 @@ regimes) stays in host memory; the port's solve reads both. The other way
 needs no code: the port's per-level [B, F, W] factors, read with
 `.cpu().numpy()`, are the JAX package's layout.
 
+`oracle_from_jax` turns a JAX `cholesky_tpu.verify.oracle.PanelsOracle`
+into the port's: its plan, COO and, once factored, its [2^L, H, S] panels,
+so that the port's oracle solves on the JAX factor.
+
 This module does not import jax; it only reads the arrays it is handed.
 """
 
@@ -30,6 +34,7 @@ from cholesky_tpu_torch.numeric.assemble import TORCH_DTYPES
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan
 from cholesky_tpu_torch.symbolic.plan import SolvePlan
 from cholesky_tpu_torch.symbolic.tree import SeparatorTree
+from cholesky_tpu_torch.verify.oracle import PanelsOracle
 
 
 def _host(a):
@@ -79,6 +84,20 @@ def state_from_jax(jax_solver, device="cuda") -> SparseCholesky:
     solver._precision_resolved = jax_solver.precision
     solver.factored = True
     return solver
+
+
+def oracle_from_jax(jax_oracle, device="cuda") -> PanelsOracle:
+    """The port's `PanelsOracle` holding the JAX oracle's plan, COO and
+    dtype, and its factored panels when it has them (copied to
+    `device`)."""
+    oracle = PanelsOracle(plan_from_jax(jax_oracle.plan),
+                          np.array(jax_oracle.rows),
+                          np.array(jax_oracle.cols),
+                          np.array(jax_oracle.vals),
+                          dtype=jax_oracle.dtype, device=device)
+    if jax_oracle.panels is not None:
+        oracle.panels = [_level(p, oracle.device) for p in jax_oracle.panels]
+    return oracle
 
 
 def _level(p, device) -> torch.Tensor:

@@ -260,7 +260,7 @@ def fill_analyze(levels, nsep, nblocks, base, arena, cur_off, cur_nr, cur_nc,
 def assemble_panels(rows, cols, vals, sep_of, loc_of, nsep, levels, row_off,
                     panels) -> None:
     """Scatter COO entries into the per-level [B, H, S] f64 panel buffers
-    in place (the JAX package's panel engine; no caller in the port)."""
+    in place (the oracle engine's panel assembly, `numeric/assemble.py`)."""
     _same_length(rows, cols, vals)
     lib = _lib("assemble_panels")
     ptrs = (ctypes.c_void_p * len(panels))()

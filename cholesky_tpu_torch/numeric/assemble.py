@@ -25,19 +25,28 @@ blocks (`chunk`), a row group's rows of its front, a replicated level on
 the first slot, a family's systems of the slot. The JAX package assembles
 on the host under a mesh (`api.py:641-648` there) because GSPMD places a
 host array; a single-process torch mesh addresses each device directly.
+
+The panel assembly of the oracle engine (`numeric/factor.py`,
+`verify/oracle.py`) is host NumPy, copied from
+`cholesky_tpu/numeric/assemble.py:21-168`: `empty_panels`,
+`assemble_panels` (on the native core when it builds, by `ext.use_native`),
+`assemble_panels_numpy`, `assemble_rhs`, `extract_solution`,
+`extract_factor_dense`. They give arrays identical to the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from cholesky_tpu_torch.native import ext
 from cholesky_tpu_torch.numeric import devmem
 from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan,
                                                      _front_scatter_indices)
 from cholesky_tpu_torch.parallel import mesh as mesh_mod
+from cholesky_tpu_torch.symbolic.plan import SolvePlan
 
 TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
@@ -184,3 +193,152 @@ class MeshAssembler:
             out.append(mesh_mod.Sharded(parts, place,
                                         ((family or 1) * B, Fl, Wl), devs))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Panel assembly of the oracle engine: per level [2^L, H(L), S(L)] panels,
+# each separator against its full ancestor path.
+
+
+def empty_panels(plan: SolvePlan, dtype=np.float64) -> List[np.ndarray]:
+    """Zeroed panel arrays, one [2^L, H(L), S(L)] per level, with the
+    padded diagonal set to identity so the batched Cholesky stays
+    well-posed."""
+    panels = [np.zeros(plan.panel_shape(lvl), dtype=dtype)
+              for lvl in range(plan.levels)]
+    _pad_identity(plan, panels)
+    return panels
+
+
+def _pad_identity(plan: SolvePlan, panels: List[np.ndarray]) -> None:
+    t = plan.tree
+    for lvl in range(plan.levels):
+        W = int(plan.S[lvl])
+        for slot in range(1 << lvl):
+            sz = int(plan.sep_sizes[t.sep_at(lvl, slot)])
+            if sz < W:
+                idx = np.arange(sz, W)
+                panels[lvl][slot, idx, idx] = 1.0
+
+
+def assemble_panels(plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
+                    vals: np.ndarray, dtype=np.float64,
+                    check_structure: bool = False,
+                    native: Optional[bool] = None) -> List[np.ndarray]:
+    """Panels from a COO lower triangle (original dof indexing).
+
+    Entries are mirrored to (i, j) and (j, i) and routed to the block that
+    exists for the pair: diagonal blocks keep the lower triangle only,
+    ancestor blocks take the full entry. `native` follows `ext.use_native`
+    (None: the native core when it builds). `check_structure` takes the
+    NumPy path, which raises on an entry that couples non-ancestor
+    separators; the native core does not check."""
+    if check_structure or not ext.use_native(native):
+        return assemble_panels_numpy(plan, rows, cols, vals, dtype=dtype,
+                                     check_structure=check_structure)
+    panels = empty_panels(plan, dtype=np.float64)
+    ext.assemble_panels(rows, cols, vals, plan.sep_of_dof, plan.loc_of_dof,
+                        plan.num_separators, plan.levels, plan.row_off,
+                        panels)
+    if np.dtype(dtype) != np.float64:
+        panels = [p.astype(dtype) for p in panels]
+    return panels
+
+
+def assemble_panels_numpy(plan: SolvePlan, rows: np.ndarray,
+                          cols: np.ndarray, vals: np.ndarray,
+                          dtype=np.float64,
+                          check_structure: bool = False) -> List[np.ndarray]:
+    """The NumPy assembly (where the native core does not build, and the
+    native path's parity reference)."""
+    off = rows != cols
+    r = np.concatenate([rows, cols[off]])
+    c = np.concatenate([cols, rows[off]])
+    v = np.concatenate([vals, vals[off]])
+
+    nsep = plan.num_separators
+    sr = plan.sep_of_dof[r]
+    sc = plan.sep_of_dof[c]
+    lr = plan.loc_of_dof[r]
+    lc = plan.loc_of_dof[c]
+    heap_r = nsep - sr + 1
+    heap_c = nsep - sc + 1
+    lvl_r = np.int64(np.log2(heap_r))
+    lvl_c = np.int64(np.log2(heap_c))
+
+    diag = (sr == sc) & (lr >= lc)
+    anc = (lvl_r < lvl_c) & ((heap_c >> (lvl_c - lvl_r).clip(0)) == heap_r)
+
+    if check_structure:
+        bad = ~(diag | anc | ((sr == sc) & (lr < lc)) |
+                ((lvl_c < lvl_r)
+                 & ((heap_r >> (lvl_r - lvl_c).clip(0)) == heap_c)))
+        if bad.any():
+            k = int(np.argmax(bad))
+            raise ValueError(
+                f"matrix entry ({r[k]},{c[k]}) couples non-ancestor "
+                f"separators {sr[k]} and {sc[k]}: invalid nested-dissection "
+                "ordering")
+
+    panels = empty_panels(plan, dtype=dtype)
+    slot_c = heap_c - (np.int64(1) << lvl_c)
+    prow = np.where(sr == sc, lr,
+                    plan.row_off[lvl_c.clip(0, plan.levels - 1),
+                                 lvl_r.clip(0, plan.levels - 1)] + lr)
+    keep = diag | anc
+    for lvl in range(plan.levels):
+        m = keep & (lvl_c == lvl)
+        panels[lvl][slot_c[m], prow[m], lc[m]] = v[m].astype(dtype)
+    return panels
+
+
+def assemble_rhs(plan: SolvePlan, b: np.ndarray,
+                 dtype=np.float64) -> List[np.ndarray]:
+    """The right-hand side permuted into per-level [2^L, S(L)] slabs."""
+    b = np.asarray(b).reshape(-1)
+    t = plan.tree
+    out = []
+    for lvl in range(plan.levels):
+        arr = np.zeros((1 << lvl, int(plan.S[lvl])), dtype=dtype)
+        for slot in range(1 << lvl):
+            s = t.sep_at(lvl, slot)
+            off = int(plan.sep_offset[s])
+            sz = int(plan.sep_sizes[s])
+            arr[slot, :sz] = b[plan.perm[off:off + sz]]
+        out.append(arr)
+    return out
+
+
+def extract_solution(plan: SolvePlan, xlv: List[np.ndarray]) -> np.ndarray:
+    """The per-level solution slabs un-permuted to original dof order."""
+    t = plan.tree
+    x = np.zeros(plan.n, dtype=np.asarray(xlv[0]).dtype)
+    for lvl in range(plan.levels):
+        arr = np.asarray(xlv[lvl])
+        for slot in range(1 << lvl):
+            s = t.sep_at(lvl, slot)
+            off = int(plan.sep_offset[s])
+            sz = int(plan.sep_sizes[s])
+            x[plan.perm[off:off + sz]] = arr[slot, :sz]
+    return x
+
+
+def extract_factor_dense(plan: SolvePlan,
+                         panels: List[np.ndarray]) -> np.ndarray:
+    """The factor L as a dense [n, n] f64 lower-triangular array in
+    permuted coordinates."""
+    t = plan.tree
+    L = np.zeros((plan.n, plan.n))
+    for lvl in range(plan.levels):
+        arr = np.asarray(panels[lvl])
+        for slot in range(1 << lvl):
+            s = t.sep_at(lvl, slot)
+            off = int(plan.sep_offset[s])
+            sz = int(plan.sep_sizes[s])
+            L[off:off + sz, off:off + sz] = np.tril(arr[slot, :sz, :sz])
+            for a in t.ancestors(s):
+                ro = int(plan.row_off[lvl, t.level_of(a)])
+                ao = int(plan.sep_offset[a])
+                asz = int(plan.sep_sizes[a])
+                L[ao:ao + asz, off:off + sz] = arr[slot, ro:ro + asz, :sz]
+    return L

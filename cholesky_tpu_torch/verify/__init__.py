@@ -2,9 +2,10 @@
 structured debug log, and the op-by-op replay oracle (the rebuild of
 verify.py + the reference's `-d` debug machinery).
 
-The port's copy of `cholesky_tpu/verify/` (this module, `schedule.py`,
-`debuglog.py`, `replay.py`): the independent NumPy / SciPy oracle of the
-CLI's `-d` / `--debug-dumps`. The JAX package's `oracle.py` stays behind."""
+The port's copy of `cholesky_tpu/verify/`: this module, `schedule.py`,
+`debuglog.py` and `replay.py` (the independent NumPy / SciPy oracle of the
+CLI's `-d` / `--debug-dumps`), and `oracle.py` (`PanelsOracle`, the panel
+engine that cross-checks the production factor, on torch)."""
 
 import numpy as np
 

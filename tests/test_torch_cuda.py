@@ -704,3 +704,51 @@ def test_chol_inv_and_a_two_card_mesh_off_card_zero():
         hk.MIN_B, hk.W_PER_B = rule
     for x in xs[1:]:
         assert np.linalg.norm(x - xs[0]) <= 1e-8 * np.linalg.norm(xs[0])
+
+
+@pytest.mark.cuda
+def test_panels_oracle_on_card_matches_cpu():
+    """The panel oracle engine (cuSOLVER / cuBLAS through torch ops) on
+    the card against the same engine on the CPU at 14^3 L4, f64: factored
+    panels and solutions within 1e-12 relative, residual at the
+    contract."""
+    _require_cuda()
+    from cholesky_tpu_torch.verify.oracle import PanelsOracle
+
+    n, r, c, v, o, cl, b = generate_problem((14, 14, 14), 4)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, device="cpu")
+    card = PanelsOracle(s.plan, s.rows, s.cols, s.vals, device="cuda")
+    host = PanelsOracle(s.plan, s.rows, s.cols, s.vals, device="cpu")
+    x, x_h = card.solve(b), host.solve(b)
+    assert all(p.device.type == "cuda" for p in card.panels)
+    for p, q in zip(card.panels, host.panels):
+        assert _rel(p, q) <= 1e-12
+    assert np.abs(x - x_h).max() <= 1e-12 * np.abs(x_h).max()
+    assert s.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+def test_gp_variance_example_on_card():
+    """examples/torch/gp_variance.py at its default size on the card (its
+    default device), in process: the coverage line tests/test_examples.py
+    asserts of the JAX twin."""
+    _require_cuda()
+    import contextlib
+    import io
+    import os
+    import re
+    import runpy
+    import sys
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "torch", "gp_variance.py")
+    argv, syspath, out = sys.argv, list(sys.path), io.StringIO()
+    sys.argv = [path]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, sys.path[:] = argv, syspath
+    m = re.search(r"coverage of truth: ([0-9.]+)%", out.getvalue())
+    assert m, out.getvalue()[-2000:]
+    assert float(m.group(1)) >= 80.0
