@@ -183,9 +183,13 @@ Phases, each printing one JSON line:
              need), f64 SciPy residual (<= 1e-10), distance from
              the refined f32 production solve (<= 1e-9 relative), and
              2 sum log diag of its pivot blocks against the production f64
-             factor's logdet() (<= 1e-9 relative); at 50^3 L8 f32 its
-             factorize walls and parts and unrefined residual beside the
-             production f32 factor's (printed only).
+             factor's logdet() (<= 1e-9 relative); `profile_factor` on
+             the same f64 panels (per level the POTRF / TRSM / GEMM
+             microseconds and their sum beside the level loop's seconds,
+             the peak memory; the record sequence against the plan's, the
+             caller's panels unchanged); at 50^3 L8 f32 its factorize
+             walls and parts and unrefined residual beside the production
+             f32 factor's (printed only).
  20. examples: the six scripts of examples/torch run in process
              (runpy, stdout captured): gp_variance --dim 512 --levels 10,
              gmrf_learn --dim 256 --levels 9, kkt_solve --nx 300 --m 600,
@@ -196,6 +200,17 @@ Phases, each printing one JSON line:
              the output properties tests/test_examples.py asserts
              (residuals <= 1e-10, KKT <= 1e-8 with its inertia, coverage
              >= 80%, pencil residual <= 1e-6, a printed tau).
+ 21. tools:  the seven profiling tools of tools/torch run in process at
+             their defaults (50^3 L8 where they build a problem): each
+             one's table, JSON line and wall. bench_front_kernels (the
+             kernel route against cuSOLVER + TRSM at the ten level
+             classes) must agree within SLAB_REL_TOL and launch chol_inv
+             at every class with W >= 128; prof_solve_levels prints the
+             per-level solve steps' sum beside the whole chain's wall;
+             prof_solve, exp_solve_profile and prof_scatter print their
+             stages; bench_matvec's three ELL layouts must agree;
+             nd_quality's rows must equal symbolic/quality.py's functions
+             called directly.
 Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
@@ -279,9 +294,6 @@ MESH_ROOT_F = 8192                 # ... of an [F, F] SPD matrix
 MESH_FACTOR_REL = 1e-5             # mesh factor vs the mesh-free one (f32)
 ROOT_REL_TOL = 1e-5                # collective f32 factor vs cuSOLVER f64
 SEED = 0                           # random blocks, slabs and right-hand sides
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate
-FP32_FLOPS = 67e12                 # H100 SXM fp32 rate outside the tensor cores
-TF32_FLOPS = 495e12                # H100 SXM TF32 tensor-core rate, dense
 
 
 CARD = None                        # nvidia-smi's name, power limit
@@ -317,28 +329,6 @@ def cuda_ms_median(fn, batches: int = 7, iters: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def chol_inv_bound(B: int, n: int = 128):
-    """Least time in ms of chol_inv on B blocks, and what bounds it: the
-    lower triangle of each input read once (n(n+1)/2 floats, all the
-    function reads), L and inv(L) written once (2 n^2 floats); ~n^3/3 flops
-    for the Cholesky and ~n^3/3 for the triangular inverse per block."""
-    bytes_ms = B * (n * (n + 1) // 2 + 2 * n * n) * 4 / HBM_BYTES_PER_S * 1e3
-    flops_ms = B * 2 * n ** 3 / 3 / FP32_FLOPS * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
-                                     else "operations")
-
-
-def factor_slab_bound(B: int, F: int, W: int, flops_per_s: float):
-    """Least time in ms of factor_slab on a [B, F, W] slab at a peak rate
-    (the rung's), and what bounds it: the slab read once and the factor
-    written once (B F W f32 each); B (W^3/3 + K W^2) flops with K = F - W
-    (the pivot Cholesky and the boundary strip's triangular solve)."""
-    bytes_ms = B * F * W * 4 * 2 / HBM_BYTES_PER_S * 1e3
-    flops_ms = B * (W ** 3 / 3 + (F - W) * W * W) / flops_per_s * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
-                                     else "operations")
-
-
 def slab_library(a, W: int):
     """The library's partial factorization of slab a [B, F, W]:
     `cholesky_ex` of the pivot block, `solve_triangular` of the boundary
@@ -371,12 +361,10 @@ def check(cond: bool, what: str) -> None:
 def phase_device():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
+    from cholesky_tpu_torch.numeric.profile import card
+
     global CARD
-    CARD = smi.stdout.strip().splitlines()[0]
+    CARD = card("cuda:0")
     print(CARD, flush=True)
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -489,7 +477,7 @@ def phase_kernel():
         x = d[:B].contiguous() if B <= 300 else big[:B].contiguous()
         errs = check_chol_inv(x)
         max_abs = max(max_abs, errs["max_abs_err"])
-        bound_ms, bound_by = chol_inv_bound(B)
+        bound_ms, bound_by = hk.chol_inv_bound(B)
         ms = cuda_ms_median(lambda: hk.chol_inv(x))
         timed[B] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": bound_ms / ms,
@@ -516,7 +504,7 @@ def phase_kernel():
     slab_ms = cuda_ms(lambda: hk.factor_slab(a, W), iters=5)
     slab_plain_ms = cuda_ms(
         lambda: hk.factor_slab(a, W, block_fn=hk.chol_inv_ref), iters=5)
-    bound_ms, bound_by = factor_slab_bound(B, F, W, FP32_FLOPS)
+    bound_ms, bound_by = hk.factor_slab_bound(B, F, W, hk.FP32_FLOPS)
     emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
           "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
           "ms": slab_ms, "plain_ms": slab_plain_ms, "bound_ms": bound_ms,
@@ -2173,9 +2161,10 @@ def phase_precision_kernels():
     y = torch.randn(GEMM_B, 128, 128, generator=gen, device=dev)
     ref = torch.bmm(x.double(), y.double())
     flops = 2 * GEMM_B * 128 ** 3
-    bytes_ms = 3 * GEMM_B * 128 * 128 * 4 / HBM_BYTES_PER_S * 1e3
+    bytes_ms = 3 * GEMM_B * 128 * 128 * 4 / hk.HBM_BYTES_PER_S * 1e3
     gemm = {}
-    for rung, peak in (("highest", FP32_FLOPS), ("default", TF32_FLOPS)):
+    for rung, peak in (("highest", hk.FP32_FLOPS),
+                       ("default", hk.TF32_FLOPS)):
         with precision_ctx(rung):
             flag = fp32_flag()
             err = rel_err(torch.bmm(x, y), ref)
@@ -2260,10 +2249,11 @@ def phase_precision_kernels():
     a = 0.01 * torch.randn(B, F, W, generator=gen, device=dev)
     a[:, :W, :] += 2.0 * torch.eye(W, device=dev)
     slab = {}
-    for rung, peak in (("highest", FP32_FLOPS), ("default", TF32_FLOPS)):
+    for rung, peak in (("highest", hk.FP32_FLOPS),
+                       ("default", hk.TF32_FLOPS)):
         with precision_ctx(rung):
             f = hk.factor_slab(a, W)
-            bound_ms, bound_by = factor_slab_bound(B, F, W, peak)
+            bound_ms, bound_by = hk.factor_slab_bound(B, F, W, peak)
             slab[fp32_flag()] = {
                 "ms": cuda_ms(lambda: hk.factor_slab(a, W), iters=5),
                 "plain_ms": cuda_ms(lambda: hk.factor_slab(
@@ -2567,6 +2557,9 @@ ORACLE_DENSE_TOL = 1e-10            # max abs difference of the three factors
 ORACLE_RES_TOL = 1e-10              # the f64 oracle's residual at 50^3
 ORACLE_X_REL = 1e-9                 # ... its distance from the refined f32
 ORACLE_LOGDET_REL = 1e-9            # ... its logdet vs the production f64's
+# the 50^3 L8 f64 oracle's level loop on the card (chip_smoke, oracle phase,
+# NVIDIA H100 80GB HBM3 at 700 W, before profile_factor was ported)
+ORACLE_LOOP_EARLIER_S = 0.197
 # each example at a size its users would run; solve_mtx reads the
 # ORACLE_PROBLEM matrix from a temporary .mtx (its path is appended)
 EXAMPLES = (("gp_variance", ["--dim", "512", "--levels", "10"]),
@@ -2635,6 +2628,63 @@ def oracle_parts(oracle) -> dict:
     e1.synchronize()
     return {"host_assembly": assembly_s, "upload": upload_s,
             "level_loop": loop_s, "level_loop_event_ms": e0.elapsed_time(e1)}
+
+
+PROFILE_KEYS = ("op", "level", "batch", "n", "m", "k")
+
+
+def expected_profile_ops(plan):
+    """The records' PROFILE_KEYS profile_factor must give for a plan: per
+    level, leaves to root, POTRF, then TRSM and UPDATE where the panel has
+    rows below its pivots (no UPDATE at the root)."""
+    seq = []
+    for lvl in range(plan.levels - 1, -1, -1):
+        W, H, B = int(plan.S[lvl]), int(plan.H[lvl]), 1 << lvl
+        seq.append(("POTRF", lvl, B, W, None, None))
+        if H > W:
+            seq.append(("TRSM", lvl, B, W, H - W, None))
+            if lvl:
+                seq.append(("UPDATE", lvl, B, None, H - W, W))
+    return seq
+
+
+def oracle_profile(plan, s32, what, level_loop_s):
+    """profile_factor on the oracle phase's f64 panels on the card: per
+    level the POTRF / TRSM / UPDATE ('GEMM' lines) microseconds and their
+    sum beside this run's level loop and the earlier reading, the peak
+    memory, and the record sequence against the plan's."""
+    import numpy as np
+    import torch
+
+    from cholesky_tpu_torch.numeric import assemble, profile
+
+    host = assemble.assemble_panels(plan, s32.rows, s32.cols, s32.vals,
+                                    dtype=np.float64)
+    root = host[0].copy()       # the root: written by POTRF and UPDATE
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    recs, wall = timed_sync(lambda: profile.profile_factor(
+        plan, host, emit=lines.append, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() - base
+    got = [tuple(r.get(k) for k in PROFILE_KEYS) for r in recs]
+    per_level = {}
+    for r in recs:
+        per_level.setdefault(r["level"], {})[
+            "GEMM" if r["op"] == "UPDATE" else r["op"]] = r["time_us"]
+    total_us = sum(r["time_us"] for r in recs)
+    emit({"phase": "oracle", "what": f"profile_factor {what} f64",
+          "per_level_us": per_level, "sum_s": total_us / 1e6,
+          "level_loop_s": level_loop_s,
+          "level_loop_earlier_s": ORACLE_LOOP_EARLIER_S,
+          "wall_s": wall, "peak_bytes": peak, "records": len(recs),
+          "lines": lines[:3]})
+    check(got == expected_profile_ops(plan),
+          f"profile_factor records {got} differ from the plan's "
+          f"{expected_profile_ops(plan)}")
+    check(np.array_equal(root, host[0]),
+          "profile_factor wrote into the caller's panels")
+    check(all(r["time_us"] >= 0 for r in recs), "a negative stage time")
 
 
 def _oracle_three_way():
@@ -2746,6 +2796,7 @@ def phase_oracle():
     check(ld_rel <= ORACLE_LOGDET_REL, f"{what} oracle logdet: {ld_rel}")
     del oracle, x
     torch.cuda.empty_cache()
+    oracle_profile(plan, s32, what, parts["level_loop"])
 
     oracle = PanelsOracle(plan, s32.rows, s32.cols, s32.vals,
                           dtype=np.float32, device="cuda")
@@ -2912,6 +2963,109 @@ def phase_examples() -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# The profiling tools of tools/torch
+
+
+# each tool at its defaults (50^3 L8 where it builds a problem); prof_solve
+# with all four of its stages
+TOOLS = (("bench_front_kernels", []),
+         ("prof_solve_levels", []),
+         ("prof_solve", ["solve1", "refine", "api", "resid"]),
+         ("exp_solve_profile", []),
+         ("prof_scatter", []),
+         ("bench_matvec", []),
+         ("nd_quality", []))
+
+
+def run_tool(script, args):
+    """tools/torch/<script>'s main(args) in this process: (its result,
+    stdout, synchronized wall seconds)."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch", script + ".py")
+    syspath, out = list(sys.path), io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            tool = runpy.run_path(path, run_name="tool")
+            result = tool["main"](
+                args if script == "nd_quality" else [*args, "--device",
+                                                     "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        sys.path[:] = syspath
+    return result, out.getvalue(), time.perf_counter() - t
+
+
+def nd_quality_direct(scale: int) -> dict:
+    """compare()'s FLOPs and nnz(L) of every gallery matrix, from the
+    port's symbolic/quality.py called directly."""
+    from cholesky_tpu_torch.symbolic import quality
+    from cholesky_tpu_torch.utils import problems
+
+    out = {}
+    for name, make in problems.make_gallery(scale).items():
+        n, r, c, v = make()
+        f_auto, _ = quality.nd_cost(n, r, c)
+        f_deep, z_deep = quality.nd_cost(n, r, c, levels=8)
+        f_rcm, z_rcm = quality.rcm_cost(n, r, c, v)
+        f_mmd, z_mmd = quality.superlu_cost(n, r, c, v, "MMD_AT_PLUS_A")
+        f_cola, _ = quality.superlu_cost(n, r, c, v, "COLAMD")
+        out[name] = {"n": n, "nd_auto_flops": f_auto,
+                     "nd_deep_flops": f_deep, "rcm_flops": f_rcm,
+                     "mmd_flops": f_mmd, "colamd_flops": f_cola,
+                     "nat_flops": quality.fill_flops(n, r, c)[0],
+                     "nd_deep_nnz": z_deep, "rcm_nnz": z_rcm,
+                     "mmd_nnz": z_mmd}
+    return out
+
+
+def phase_tools() -> int:
+    """The seven tools of tools/torch in process on the card at their
+    defaults: each one's JSON line and wall; bench_front_kernels' routes
+    agree at every class within SLAB_REL_TOL and launch chol_inv at every
+    class with W >= 128; bench_matvec's three layouts agree; nd_quality's
+    rows equal symbolic/quality.py's functions called directly. Returns
+    bench_front_kernels' chol_inv launches."""
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    launches = 0
+    for name, args in TOOLS:
+        for k in hk.LAUNCHES:
+            hk.LAUNCHES[k] = 0
+        result, out, wall = run_tool(name, args)
+        emit({"phase": "tools", "script": f"tools/torch/{name}.py",
+              "args": args, "wall_s": wall,
+              "chol_inv_launches": hk.LAUNCHES["chol_inv"],
+              "table": out.strip().splitlines()[:-1]})
+        print(out.strip().splitlines()[-1], flush=True)
+        if name == "bench_front_kernels":
+            launches = hk.LAUNCHES["chol_inv"]
+            for row in result["classes"]:
+                where = f"class {row['B']},{row['F']},{row['W']}"
+                check(row["W"] < hk.BS or row["chol_inv_launches"] > 0,
+                      f"bench_front_kernels: no chol_inv launch at {where}")
+                check(row["W"] < hk.BS
+                      or row["max_rel_diff"] <= SLAB_REL_TOL,
+                      f"bench_front_kernels: the routes differ by "
+                      f"{row['max_rel_diff']} at {where}")
+        if name == "bench_matvec":
+            check(result["agree"], "bench_matvec: the layouts disagree")
+        if name == "nd_quality":
+            direct = nd_quality_direct(result["scale"])
+            for prob, want in direct.items():
+                got = {k: result["rows"][prob][k] for k in want}
+                check(got == want, f"nd_quality {prob}: {got} != {want}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2951,6 +3105,7 @@ def main() -> int:
         phase_native()
         phase_oracle()
         example_launches = phase_examples()
+        tool_launches = phase_tools()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1
@@ -2969,7 +3124,8 @@ def main() -> int:
             **{f"{k} precision ladder": v for k, v in ladder.items()},
             **mesh_launches,
             "from_scipy gallery (ordering phase)": ordering_launches,
-            **example_launches},
+            **example_launches,
+            "tools/torch/bench_front_kernels.py": tool_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],

@@ -125,6 +125,18 @@ def _with_precision(fn):
     return wrapper
 
 
+def _refine_mode(refine) -> str:
+    """The refinement mode a solve's `refine=` names: one of "auto",
+    "never" and "always", or False for "never" (the JAX package solves once
+    for it). Any other value, True included, raises ValueError."""
+    if refine is False:
+        return "never"
+    if refine not in ("auto", "never", "always"):
+        raise ValueError(f"refine must be 'auto', 'never', 'always' or "
+                         f"False, got {refine!r}")
+    return refine
+
+
 def _resolve_device(device) -> torch.device:
     """torch.device for "cpu" or "cuda[:i]"; raises for CUDA without a
     card (there is no silent CPU default). "cuda" resolves to the current
@@ -799,9 +811,9 @@ class SparseCholesky:
         [n, k]; [n, 0] gives [n, 0].
 
         refine: 'auto' runs mixed-precision iterative refinement when the
-        factor is below float64; 'never' applies the factor once; 'always'
-        refines an f64 factor too (on the host: the device loop's
-        double-float residual is built for f32 solves).
+        factor is below float64; 'never' (or False) applies the factor
+        once; 'always' refines an f64 factor too (on the host: the device
+        loop's double-float residual is built for f32 solves).
 
         An f32 factor (stored f32 or bf16, on the device or in host memory)
         is refined on the device (f32 solves, double-float residuals) to a
@@ -814,9 +826,7 @@ class SparseCholesky:
         finished ("device", "host", or "none" without refinement). A
         quasi-definite solver refines the same way through its signed
         solve."""
-        if refine not in ("auto", "never", "always"):
-            raise ValueError(f"refine must be 'auto', 'never' or 'always', "
-                             f"got {refine!r}")
+        refine = _refine_mode(refine)
         b = np.asarray(b, dtype=np.float64)
         if b.ndim not in (1, 2) or b.shape[0] != self.plan.n:
             raise ValueError(f"b must be [{self.plan.n}] or "
@@ -1732,9 +1742,7 @@ class BatchedFactors:
         dense for ELL, a host loop with f64 CSR residuals. `last_solve`
         records the sweeps of each loop and which loop finished. Runs at
         the parent solver's matmul rung, as the family was factored."""
-        if refine not in ("auto", "never", "always"):
-            raise ValueError(f"refine must be 'auto', 'never' or 'always', "
-                             f"got {refine!r}")
+        refine = _refine_mode(refine)
         with _precision_ctx(self._s.precision):
             return self._solve(self._rhs(b), refine, tol, max_iter)
 

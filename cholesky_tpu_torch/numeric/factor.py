@@ -53,7 +53,7 @@ def factor_panels(plan: SolvePlan,
                   panels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Factor assembled panels in place; returns them holding L: diagonal
     blocks lower-triangular, sub-diagonal blocks solved."""
-    S, H, u_off = _level_meta(plan)
+    S, H, _ = _level_meta(plan)
     panels = list(panels)
     for lvl in range(plan.levels - 1, -1, -1):
         W = S[lvl]
@@ -62,16 +62,23 @@ def factor_panels(plan: SolvePlan,
         if lvl == 0 or H[lvl] == W:
             continue
         A[:, W:] = _solve_lower_t(A[:, :W], A[:, W:])
-        X = A[:, W:]
-        # X's rows are ordered [parent, ..., root], so for a target level
-        # lam the product X[:, u_off:] @ X_lam^T aligns with the whole
-        # target panel: one product, sum and subtraction per ancestor. One
-        # expression, so that no product outlives its subtraction.
-        for lam in range(lvl - 1, -1, -1):
-            co = u_off[lvl][lam]
-            panels[lam] -= _segment_sum(
-                torch.matmul(X[:, co:], X[:, co:co + S[lam]].mT), lvl, lam)
+        update_ancestors(plan, panels, A[:, W:], lvl)
     return panels
+
+
+def update_ancestors(plan: SolvePlan, panels: List[torch.Tensor],
+                     X: torch.Tensor, lvl: int) -> None:
+    """The SYRK step of level `lvl`: subtract its solved sub-diagonal
+    panels X [2^lvl, H - S, S] from every ancestor level's panels, in
+    place. X's rows are ordered [parent, ..., root], so for a target level
+    lam the product X[:, u_off:] @ X_lam^T aligns with the whole target
+    panel: one product, sum and subtraction per ancestor. One expression,
+    so that no product outlives its subtraction."""
+    S, _, u_off = _level_meta(plan)
+    for lam in range(lvl - 1, -1, -1):
+        co = u_off[lvl][lam]
+        panels[lam] -= _segment_sum(
+            torch.matmul(X[:, co:], X[:, co:co + S[lam]].mT), lvl, lam)
 
 
 def solve_forward(plan: SolvePlan, panels: Sequence[torch.Tensor],
@@ -114,10 +121,11 @@ def solve_backward(plan: SolvePlan, panels: Sequence[torch.Tensor],
     return x
 
 
-def _on(arrays, device) -> List[torch.Tensor]:
+def _on(arrays, device, copy: bool = False) -> List[torch.Tensor]:
     """Tensors on `device`: NumPy arrays copied there once (never
-    written), tensors moved only when they live elsewhere."""
-    return [a.to(device) if isinstance(a, torch.Tensor)
+    written), tensors moved only when they live elsewhere, or copied with
+    `copy`."""
+    return [a.to(device, copy=copy) if isinstance(a, torch.Tensor)
             else torch.from_numpy(np.ascontiguousarray(a)).to(device,
                                                               copy=True)
             for a in arrays]

@@ -232,6 +232,14 @@ def _factor_slab(slab: torch.Tensor, Wl: int, route_b: Optional[int] = None,
     if hk.slab_kernel_eligible(b if route_b is None else route_b, Wl,
                                slab.dtype):
         return hk.factor_slab(slab, Wl)
+    return _factor_slab_library(slab, Wl)
+
+
+def _factor_slab_library(slab: torch.Tensor, Wl: int) -> torch.Tensor:
+    """The library route of `_factor_slab`: cuSOLVER's Cholesky of the
+    pivot blocks and cuBLAS's TRSM of the boundary strip, written into one
+    [b, F, W] output."""
+    b, Fl, _ = slab.shape
     if Fl == Wl:
         return _cholesky(slab)
     fac = slab.new_empty((b, Fl, Wl))

@@ -11,6 +11,9 @@
                     blocked partial factorization of a pivot slab.
   * `slab_kernel_eligible` <- `lanes_eligible` (`:191-211`): which levels
                     route through `factor_slab`.
+  * `chol_inv_bound`, `factor_slab_bound` the least time the card could
+                    take for each function's work, from the H100's
+                    published peaks below.
 
 Dispatch is by the tensor's device: a CPU tensor takes `chol_inv_ref` (the
 CPU tests run the same control flow as the card), a CUDA tensor always
@@ -31,6 +34,12 @@ BS = 128                        # panel width = the kernel's block size
 # from timings on the card.
 MIN_B = 32
 W_PER_B = 16
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W),
+# the denominators of the bounds below.
+HBM_BYTES_PER_S = 3.35e12          # memory rate
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
+TF32_FLOPS = 495e12                # TF32 on the tensor cores
 
 # Launches of each kernel, counted where the kernel is launched.
 LAUNCHES = {"chol_inv": 0}
@@ -193,3 +202,27 @@ def slab_kernel_eligible(B: int, W: int, dtype) -> bool:
     rule does not depend on the device."""
     return (dtype == torch.float32 and W >= BS and B >= MIN_B
             and B * W_PER_B >= W)
+
+
+def chol_inv_bound(B: int, n: int = 128):
+    """Least time in ms of chol_inv on B blocks, and what bounds it
+    ("bytes" or "operations"): the lower triangle of each input read once
+    (n(n+1)/2 floats, all the function reads), L and inv(L) written once
+    (2 n^2 floats); ~n^3/3 flops for the Cholesky and ~n^3/3 for the
+    triangular inverse per block, at the fp32 rate."""
+    bytes_ms = B * (n * (n + 1) // 2 + 2 * n * n) * 4 / HBM_BYTES_PER_S * 1e3
+    flops_ms = B * 2 * n ** 3 / 3 / FP32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+
+
+def factor_slab_bound(B: int, F: int, W: int, flops_per_s: float):
+    """Least time in ms of factor_slab on a [B, F, W] f32 slab at a peak
+    rate (the rung's: FP32_FLOPS or TF32_FLOPS), and what bounds it: the
+    slab read once and the factor written once (B F W f32 each); B (W^3/3
+    + K W^2) flops with K = F - W (the pivot Cholesky and the boundary
+    strip's triangular solve)."""
+    bytes_ms = B * F * W * 4 * 2 / HBM_BYTES_PER_S * 1e3
+    flops_ms = B * (W ** 3 / 3 + (F - W) * W * W) / flops_per_s * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")

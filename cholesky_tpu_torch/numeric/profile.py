@@ -1,5 +1,7 @@
 """Per-stage, per-level profiling of the factorization: the port of
-`profile_frontal` (`cholesky_tpu/numeric/profile.py:42-160`).
+`profile_frontal` (`cholesky_tpu/numeric/profile.py:42-160`) and of
+`profile_factor` (`:163-253`), the panel oracle engine's stage profiler
+(POTRF, TRSM and the per-ancestor UPDATE of `numeric/factor.py` per level).
 
 Each level's stages run one by one, each timed on its own, and each emits
 one structured line in the reference's dormant format
@@ -26,40 +28,65 @@ that way.
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import List, Sequence
 
 import torch
 
+from cholesky_tpu_torch.numeric import factor as nfactor
 from cholesky_tpu_torch.numeric import frontal as fr
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.symbolic.plan import SolvePlan
 
 
-def _timed(fn, iters: int, device, prep=None):
-    """(fn's last result, least seconds of fn over `iters` runs after one
-    warm-up). `prep()`, when given, makes fn's argument outside the timed
-    region (a fresh buffer for a stage that writes in place)."""
+def _timed(fn, iters: int, device, prep=None, reps: int = 1):
+    """(fn's last result, least seconds of one fn over `iters` runs after
+    one warm-up). A run is `reps` calls of fn back to back between two
+    CUDA events (on the CPU, `perf_counter` readings), its time divided by
+    `reps`. `prep()`, when given, makes fn's argument outside the timed
+    region, once a run (a fresh buffer for a stage that writes in
+    place)."""
     cuda = torch.device(device).type == "cuda"
     times = []
     out = None
     for i in range(iters + 1):
+        out = None                          # free the last run's result
         arg = prep() if prep is not None else None
+        call = (lambda: fn(arg)) if prep is not None else fn
         if cuda:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            out = fn(arg) if prep is not None else fn()
+            for _ in range(reps):
+                out = call()
             e1.record()
             e1.synchronize()
             dt = e0.elapsed_time(e1) / 1e3
         else:
             t0 = time.perf_counter()
-            out = fn(arg) if prep is not None else fn()
+            for _ in range(reps):
+                out = call()
             dt = time.perf_counter() - t0
         if i:                               # run 0 is the warm-up
-            times.append(dt)
-        del arg
+            times.append(dt / reps)
+        del arg, call
     return out, min(times)
+
+
+def card(device) -> str:
+    """The card a timing ran on, as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` gives it, for a CUDA device; "cpu" for the
+    CPU. "cuda" raises without a card."""
+    from cholesky_tpu_torch.api import _resolve_device
+
+    device = _resolve_device(device)
+    if device.type != "cuda":
+        return device.type
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[device.index]
 
 
 def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
@@ -148,4 +175,70 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
         else:
             U = piv.new_zeros((B, 0, 0)) if lvl > 0 else None
         del full, slab
+    return records
+
+
+def profile_factor(plan: SolvePlan, panels: Sequence, iters: int = 3,
+                   emit=print, device="cuda") -> List[dict]:
+    """Run the panel engine's factorization (`numeric/factor.py`) stage by
+    stage on `device`, leaves to root, timing each: per level the POTRF of
+    the pivot blocks, the TRSM of the boundary rows (when H > W) and the
+    UPDATE of every ancestor's panels (`factor.update_ancestors`, one
+    product at a time). Returns one record per stage and emits one
+    reference-format `BLAS:` line each (the UPDATE as 'GEMM', as the JAX
+    package emits it). The stages work on a copy of `panels` (NumPy arrays
+    or tensors) made once on `device`; the caller's panels are not
+    written. The UPDATE writes in place, so each timed run gets fresh
+    copies of its targets, made outside the timed region. `device`: "cpu"
+    or "cuda[:i]"; "cuda" raises without a card."""
+    from cholesky_tpu_torch.api import _resolve_device
+
+    device = _resolve_device(device)
+    S, H, _ = nfactor._level_meta(plan)
+    panels = nfactor._on(panels, device, copy=True)
+    records = []
+    for lvl in range(plan.levels - 1, -1, -1):
+        W = S[lvl]
+        B = 1 << lvl
+        A = panels[lvl]
+
+        Ld, t = _timed(lambda: fr._cholesky(A[:, :W]), iters, device)
+        rec = {"op": "POTRF", "level": lvl, "batch": B, "n": W,
+               "time_us": int(t * 1e6),
+               "gflops": B * W ** 3 / 3 / max(t, 1e-12) / 1e9}
+        records.append(rec)
+        emit(f"BLAS: {{'op': 'POTRF', 'Level': {lvl}, 'Batch': {B}, "
+             f"'N': {W}, 'Time': {rec['time_us']}}}")
+        A[:, :W] = Ld
+        del Ld
+        if H[lvl] == W:
+            continue
+        m = H[lvl] - W
+        X, t = _timed(lambda: fr._solve_lower_t(A[:, :W], A[:, W:]), iters,
+                      device)
+        rec = {"op": "TRSM", "level": lvl, "batch": B, "m": m, "n": W,
+               "time_us": int(t * 1e6),
+               "gflops": B * m * W * W / max(t, 1e-12) / 1e9}
+        records.append(rec)
+        emit(f"BLAS: {{'op': 'TRSM', 'Level': {lvl}, 'Batch': {B}, "
+             f"'M': {m}, 'N': {W}, 'Time': {rec['time_us']}}}")
+        A[:, W:] = X
+        del X
+        if lvl == 0:
+            continue
+
+        def update(targets, _lvl=lvl, _X=A[:, W:]):
+            nfactor.update_ancestors(plan, targets, _X, _lvl)
+            return targets
+
+        targets, t = _timed(update, iters, device, prep=lambda _lvl=lvl: [
+            p.clone() for p in panels[:_lvl]])
+        panels[:lvl] = targets
+        del targets
+        rec = {"op": "UPDATE", "level": lvl, "batch": B, "m": m, "k": W,
+               "time_us": int(t * 1e6),
+               "gflops": B * (m * (m + 1) / 2) * W * 2 / max(t, 1e-12) / 1e9}
+        records.append(rec)
+        emit(f"BLAS: {{'op': 'GEMM', 'Level': {lvl}, 'Batch': {B}, "
+             f"'M': {m}, 'K': {W}, 'Time': {rec['time_us']}}}")
     return records

@@ -26,6 +26,7 @@ from tests.test_torch_fixtures import port_fixtures  # noqa: F401
 TOL = 1e-10         # the solver's relative-residual contract
 X_REL = 1e-8        # solutions of the two packages, both at <= 1e-10
                     # residual on matrices with kappa <~ 1e2
+UNREFINED_F32_REL = 1e-4    # one f32 solve of each package (f32 factors)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,6 +83,28 @@ def test_host_refinement_when_ell_is_too_dense(monkeypatch):
     x = s.solve(b)
     assert s.residual(b, x) <= TOL
     assert s.last_solve["sweeps"] == 0 and s.last_solve["host_sweeps"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_refine_false_means_never(dtype):
+    """refine=False solves once, as refine="never" does and as the JAX
+    package's solve(b, refine=False) does; True and any other value that
+    is not one of the three modes raise."""
+    n, r, c, v, o, cl, b = generate_problem((12, 12), 3)
+    ts = cholesky_tpu_torch.SparseCholesky.from_coo(n, r, c, v, o, cl,
+                                                    dtype=dtype, device="cpu")
+    js = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=dtype)
+    x = ts.solve(b, refine=False)
+    assert ts.last_solve["loop"] == "none" and ts.last_solve["sweeps"] == 0
+    assert np.array_equal(x, ts.solve(b, refine="never"))
+    xj = js.solve(b, refine=False)
+    rel = UNREFINED_F32_REL if dtype == np.float32 else X_REL
+    assert np.linalg.norm(x - xj) <= rel * np.linalg.norm(xj)
+    if dtype == np.float32:
+        assert ts.residual(b, x) > TOL          # one f32 solve, unrefined
+    for bad in (True, "yes", None, 0):
+        with pytest.raises(ValueError, match="refine"):
+            ts.solve(b, refine=bad)
 
 
 def test_solve_spd_and_input_checks(port_fixtures):
@@ -172,23 +195,31 @@ def test_port_never_imports_jax():
 
 _JAX_PACKAGE_IMPORT = re.compile(
     r"\bfrom\s+cholesky_tpu\.|\bimport\s+cholesky_tpu\.|"
-    r"\bimport\s+cholesky_tpu(?!_torch)\b|\bfrom\s+cholesky_tpu\s+import\b")
+    r"\bimport\s+cholesky_tpu(?!_torch)\b|\bfrom\s+cholesky_tpu\s+import\b|"
+    r"^\s*(?:import|from)\s+jax(?:\.|\s|$)")
 
 
 def _port_sources():
-    root = os.path.join(REPO, "cholesky_tpu_torch")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
-    for d, _, names in os.walk(root):
-        paths += [os.path.join(d, f) for f in names
-                  if f.endswith((".py", ".cu", ".cuh"))]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "torch_walls.py")]
+    for top in ("cholesky_tpu_torch", os.path.join("examples", "torch"),
+                os.path.join("tools", "torch")):
+        for d, _, names in os.walk(os.path.join(REPO, top)):
+            paths += [os.path.join(d, f) for f in names
+                      if f.endswith((".py", ".cu", ".cuh"))]
     return sorted(paths)
 
 
 def test_port_sources_never_name_the_jax_package_in_an_import():
+    """No source of the port (the package, its examples and tools,
+    chip_smoke.py, torch_walls.py) imports jax or the JAX package."""
     paths = _port_sources()
     assert len(paths) > 10
-    for new in ("numeric/ldlt.py", "numeric/eigs.py"):
-        assert os.path.join(REPO, "cholesky_tpu_torch", new) in paths
+    for new in ("cholesky_tpu_torch/numeric/ldlt.py",
+                "cholesky_tpu_torch/numeric/eigs.py",
+                "examples/torch/gp_variance.py",
+                "tools/torch/bench_front_kernels.py", "torch_walls.py"):
+        assert os.path.join(REPO, *new.split("/")) in paths
     bad = []
     for path in paths:
         with open(path) as f:
@@ -206,6 +237,10 @@ def test_port_sources_never_name_the_jax_package_in_an_import():
     ("from cholesky_tpu import SparseCholesky", True),
     ("import cholesky_tpu_torch", False),
     ("from cholesky_tpu_torch.io import mmio", False),
+    ("import jax", True),
+    ("    import jax.numpy as jnp", True),
+    ("from jax import lax", True),
+    ("This module does not import jax; it reads arrays.", False),
     ('"replaces": "cholesky_tpu/numeric/pallas_kernels.py:66"', False)])
 def test_jax_package_import_pattern(line, hit):
     assert bool(_JAX_PACKAGE_IMPORT.search(line)) is hit

@@ -112,6 +112,23 @@ def test_batched_f32_refinement():
     assert np.all(bt.residual(b, X0) > TOL)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_batched_refine_false_means_never(dtype):
+    """BatchedFactors.solve(refine=False) solves once, as "never" does and
+    as the JAX package's family solve does for False; True and "yes"
+    raise."""
+    js, ts, vals, b = _family((7, 7, 7), 4, 3, dtype=dtype)
+    bt, bj = ts.factorize_many(vals), js.factorize_many(vals)
+    X = bt.solve(b, refine=False)
+    assert bt.last_solve["loop"] == "none" and bt.last_solve["sweeps"] == 0
+    assert np.array_equal(X, bt.solve(b, refine="never"))
+    rel = 1e-4 if dtype == np.float32 else X_REL   # one f32 solve each
+    assert _rel(X, bj.solve(b, refine=False)) <= rel
+    for bad in (True, "yes"):
+        with pytest.raises(ValueError, match="refine"):
+            bt.solve(b, refine=bad)
+
+
 def test_batched_host_loop_when_rows_are_too_dense(monkeypatch):
     from cholesky_tpu_torch.numeric import refine as trefine
 

@@ -752,3 +752,55 @@ def test_gp_variance_example_on_card():
     m = re.search(r"coverage of truth: ([0-9.]+)%", out.getvalue())
     assert m, out.getvalue()[-2000:]
     assert float(m.group(1)) >= 80.0
+
+
+@pytest.mark.cuda
+def test_profile_factor_on_card():
+    """The panel engine's stage profiler on the card at 14^3 L4, f64: one
+    record per POTRF / TRSM / UPDATE stage, leaves to root, a device time
+    each, the caller's NumPy panels untouched."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import assemble, profile
+
+    n, r, c, v, o, cl, _ = generate_problem((14, 14, 14), 4)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, device="cpu")
+    host = assemble.assemble_panels(s.plan, s.rows, s.cols, s.vals,
+                                    dtype=np.float64)
+    before = [p.copy() for p in host]
+    lines = []
+    recs = profile.profile_factor(s.plan, host, emit=lines.append)
+    assert [r["level"] for r in recs if r["op"] == "POTRF"] == [3, 2, 1, 0]
+    assert {r["op"] for r in recs} == {"POTRF", "TRSM", "UPDATE"}
+    assert len(lines) == len(recs)
+    assert all(r["time_us"] >= 0 for r in recs)
+    assert all(np.array_equal(p, q) for p, q in zip(host, before))
+
+
+@pytest.mark.cuda
+def test_bench_front_kernels_on_card():
+    """tools/torch/bench_front_kernels.py on two classes on the card: the
+    kernel route launches chol_inv and agrees with cuSOLVER + TRSM within
+    1e-4 of the largest entry; the rule routes [128, 1440, 864] to the
+    kernel."""
+    _require_cuda()
+    import contextlib
+    import io
+    import os
+    import runpy
+    import sys
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools", "torch",
+                        "bench_front_kernels.py")
+    syspath, out = list(sys.path), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = runpy.run_path(path, run_name="tool")["main"](
+                ["--classes", "128,1440,864", "512,256,128", "--reps", "2"])
+    finally:
+        sys.path[:] = syspath
+    assert res["card"] and res["device"] == "cuda"
+    for row in res["classes"]:
+        assert row["chol_inv_launches"] > 0
+        assert row["max_rel_diff"] <= 1e-4
+        assert row["kernel_ms"] > 0 and row["library_ms"] > 0
+    assert res["classes"][0]["routed"] == "kernel"

@@ -271,6 +271,27 @@ def test_family_shards_over_mesh(meshes):
     assert np.all(f32.residual(B, X) <= TOL)
 
 
+def test_three_slot_mesh_matches_jax():
+    """A mesh of 3 slots, a count that divides no level's batch: 16^2 L5
+    f64 solve, a K = 3 family's solve and inv_diag against the JAX
+    package on 3 of its virtual CPU devices and the mesh-free port."""
+    n, r, c, v, o, cl, b = generate_problem((16, 16), 5)
+    t1 = SparseCholesky.from_coo(n, r, c, v, o, cl, device="cpu")
+    tD = SparseCholesky.from_coo(n, r, c, v, o, cl,
+                                 mesh=tmesh.make_mesh(devices=CPU8[:3]))
+    jD = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl,
+                                              mesh=jmesh.make_mesh(3))
+    xD, xj = tD.solve(b), jD.solve(b)
+    assert _rel(xD, xj) <= F64_REL and _rel(xD, t1.solve(b)) <= F64_REL
+    assert tD.residual(b, xD) <= TOL
+    _, vals, B = _family((16, 16), 5, k=3)
+    fD, fj = tD.factorize_many(vals), jD.factorize_many(vals)
+    XD = fD.solve(B)
+    assert _rel(XD, fj.solve(B)) <= F64_REL
+    assert np.all(fD.residual(B, XD) <= TOL)
+    assert _rel(tD.inv_diag(), jD.inv_diag()) <= 1e-11
+
+
 @pytest.fixture(scope="module")
 def regime_case():
     """26 x 22 L6 f32 (levels 3-5 slot-sharded on 8 slots): the JAX
