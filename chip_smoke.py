@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
   1. device: the card (and `nvidia-smi` name + power limit on its own line),
              torch's versions and the float32 matmul flag;
   2. build:  the hand-written kernels built from `cholesky_tpu_torch/kernels/
-             csrc` with nvcc, build seconds and the `-Xptxas -v` report; the
+             csrc` with nvcc (one process per source, all started
+             together), build seconds and the `-Xptxas -v` report; the
              native host core (`cholesky_tpu_torch/native/src/mndio.cc`)
              built with g++: seconds, cached or not, `g++ --version`;
   3. kernel: `chol_inv` vs its plain PyTorch version on [300, 128, 128] SPD
@@ -21,9 +22,16 @@ Phases, each printing one JSON line:
              TFLOP/s, whichever is larger), its share of that bound, its
              plain version and the library pair `cholesky_ex` +
              `solve_triangular`;
-             `factor_slab` with the kernel vs the plain composite at the 50^3
-             leaf slab [128, 1440, 864], timed beside its bound and the
-             library pair `cholesky_ex` + `solve_triangular`;
+             `factor_slab` (the kernels of csrc/factor_slab.cu) vs its plain
+             version `factor_slab_ref` and vs the known factor of the slab
+             (bench_front_kernels' `known_slab` and `slab_err`: each part
+             of the result against its own largest entry) at the 17 level
+             classes of tools/torch/bench_front_kernels.py and at
+             SLAB_CLUSTER_CLASSES, at the IEEE and the TF32 rung (zeros
+             above the diagonal, a repeated call bit-identical),
+             then at the 50^3 leaf slab [128, 1440, 864] timed beside its
+             plain version, the cuBLAS composite it replaced, the library
+             pair `cholesky_ex` + `solve_triangular` and its bound;
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -203,9 +211,12 @@ Phases, each printing one JSON line:
  21. tools:  the seven profiling tools of tools/torch run in process at
              their defaults (50^3 L8 where they build a problem): each
              one's table, JSON line and wall. bench_front_kernels (the
-             kernel route against cuSOLVER + TRSM at the ten level
-             classes) must agree within SLAB_REL_TOL and launch chol_inv
-             at every class with W >= 128; prof_solve_levels prints the
+             kernel route, the composite it replaced and cuSOLVER + TRSM
+             at 17 level classes, at both rungs; kernel and composite
+             timed in three turns) must agree with the
+             library within SLAB_REL_TOL (TF32: SLAB_TF32_REL_TOL) and
+             launch factor_slab once and chol_inv once a panel at every
+             class with W >= 128; prof_solve_levels prints the
              per-level solve steps' sum beside the whole chain's wall;
              prof_solve, exp_solve_profile and prof_scatter print their
              stages; bench_matvec's three ELL layouts must agree;
@@ -232,6 +243,13 @@ L_REL_TOL = 1e-4                   # kernel vs plain, L (f32)
 INV_REL_TOL = 1e-3                 # kernel vs plain, inv(L) (f32)
 F64_REL_TOL = 2e-6                 # kernel vs f64 reference, L and inv(L)
 SLAB_REL_TOL = 1e-4                # factor_slab, kernel vs plain (f32)
+# ... at TF32: both round their products to TF32 (10 significand bits),
+# in different orders
+SLAB_TF32_REL_TOL = 5e-3
+# factor_slab checked beside the shoot-out's classes: batches whose
+# slab_diag clusters are 7, 6, 5 and 3 CTAs wide on a 132-SM H100
+SLAB_CLUSTER_CLASSES = ((9, 700, 512), (11, 1440, 864), (13, 600, 512),
+                        (20, 1008, 384))
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
 # f32-stored regime factors vs the default (square, f32) factor, relative
 # to the level's largest entry: summation order only (two-piece, chunks),
@@ -297,6 +315,8 @@ SEED = 0                           # random blocks, slabs and right-hand sides
 
 
 CARD = None                        # nvidia-smi's name, power limit
+# factor_slab launches of each main path's run, for the kernels line
+SLAB_BY_PATH = {}
 
 
 def emit(obj) -> None:
@@ -374,11 +394,14 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from cholesky_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    for name in build.KERNELS:
-        build.load(name)
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(build.KERNELS)) as pool:
+        list(pool.map(build.build, build.KERNELS))
     seconds = time.perf_counter() - t0
     info = {name: {"nvcc_s": round(build.BUILD_INFO[name]["seconds"], 3),
                    "cached": build.BUILD_INFO[name]["cached"],
@@ -386,6 +409,8 @@ def phase_build():
                              build.BUILD_INFO[name]["ptxas"].splitlines()
                              if "Used" in ln or "spill" in ln]}
             for name in build.KERNELS}
+    for name in build.KERNELS:
+        build.load(name)                # the libraries just built
     emit({"phase": "build", "seconds": round(seconds, 3), "kernels": info,
           "native": native_build()})
 
@@ -490,28 +515,89 @@ def phase_kernel():
     del big
     emit({"phase": "kernel", "name": "chol_inv",
           "ms_B32_over_B128": timed[32]["ms"] / timed[128]["ms"]})
-
-    # factor_slab at the 50^3 leaf level: kernel vs the plain composite
-    B, F, W = 128, 1440, 864
-    a = 0.01 * torch.randn(B, F, W, generator=gen, device=dev)
-    a[:, :W, :] += 2.0 * torch.eye(W, device=dev)
-    f_k = hk.factor_slab(a, W)
-    f_p = hk.factor_slab(a, W, block_fn=hk.chol_inv_ref)
-    torch.cuda.synchronize()
-    slab_err = rel_err(f_k, f_p)
-    check(bool(torch.isfinite(f_k).all()), "factor_slab non-finite")
-    check(slab_err <= SLAB_REL_TOL, f"factor_slab differs: {slab_err}")
-    slab_ms = cuda_ms(lambda: hk.factor_slab(a, W), iters=5)
-    slab_plain_ms = cuda_ms(
-        lambda: hk.factor_slab(a, W, block_fn=hk.chol_inv_ref), iters=5)
-    bound_ms, bound_by = hk.factor_slab_bound(B, F, W, hk.FP32_FLOPS)
-    emit({"phase": "kernel", "name": "factor_slab", "shape": [B, F, W],
-          "rel_err_vs_plain": slab_err, "tol": SLAB_REL_TOL,
-          "ms": slab_ms, "plain_ms": slab_plain_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "flag": fp32_flag(),
-          "library_ms": cuda_ms(lambda: slab_library(a, W), iters=5)})
     return {**timed[128], "max_abs_err": max_abs,
             "per_shape": {f"[{B},128,128]": t for B, t in timed.items()}}
+
+
+def slab_tool():
+    """tools/torch/bench_front_kernels.py's globals (its level classes and
+    slab maker), its main not run."""
+    import runpy
+
+    syspath = list(sys.path)
+    try:
+        return runpy.run_path(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tools", "torch",
+            "bench_front_kernels.py"), run_name="tool")
+    finally:
+        sys.path[:] = syspath
+
+
+def phase_slab_kernel():
+    """factor_slab (the kernels of csrc/factor_slab.cu) on slabs with a
+    known partial factor (bench_front_kernels' `known_slab`) at every
+    level class of the shoot-out and at SLAB_CLUSTER_CLASSES, at both
+    rungs: against its plain version `factor_slab_ref` on the same slab
+    and against the known factor, each within SLAB_REL_TOL (IEEE) or
+    SLAB_TF32_REL_TOL (TF32) by `slab_err` (each part of the result
+    relative to its own largest entry); exact zeros above the diagonal; a
+    repeated call bit-identical. Then at the 50^3 leaf class under
+    "highest" its time beside the plain version, the composite it replaced
+    (`factor_slab_ref(block_fn=chol_inv)`), the library pair and its
+    bound."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tool = slab_tool()
+    err_of = tool["slab_err"]
+    rows, max_abs = [], 0.0
+    for B, F, W in [*tool["CLASSES"], *SLAB_CLUSTER_CLASSES]:
+        a, exact = tool["known_slab"](B, F, W, gen, dev)
+        row = {"shape": [B, F, W]}
+        for rung, tol in (("highest", SLAB_REL_TOL),
+                          ("tensorfloat32", SLAB_TF32_REL_TOL)):
+            with precision_ctx(rung):
+                k = hk.factor_slab(a, W)
+                again = hk.factor_slab(a, W)
+                p = hk.factor_slab_ref(a, W)
+            torch.cuda.synchronize()
+            errs = {"vs_plain": err_of(k, p, W),
+                    "vs_known": err_of(k, exact, W),
+                    "plain_vs_known": err_of(p, exact, W)}
+            diff = float((k - p).abs().max())
+            where = f"factor_slab [{B},{F},{W}] at {rung}"
+            check(bool(torch.isfinite(k).all()), f"{where}: non-finite")
+            for what in ("vs_plain", "vs_known"):
+                check(errs[what] <= tol, f"{where}: {what} {errs[what]} > "
+                      f"{tol}")
+            check(bool((torch.triu(k[:, :W], 1) == 0).all()),
+                  f"{where}: nonzero above the diagonal")
+            check(bool(torch.equal(k, again)), f"{where}: not reproducible")
+            row[rung] = {**errs, "max_abs_err": diff, "tol": tol}
+            max_abs = max(max_abs, diff)
+            del k, again, p
+        rows.append(row)
+        del a, exact
+    emit({"phase": "kernel", "name": "factor_slab", "checks": rows})
+
+    B, F, W = tool["CLASSES"][0]
+    a, _ = tool["known_slab"](B, F, W, gen, dev)
+    with precision_ctx("highest"):
+        out = {"ms": cuda_ms(lambda: hk.factor_slab(a, W), iters=5),
+               "plain_ms": cuda_ms(lambda: hk.factor_slab_ref(a, W), iters=5),
+               "composite_ms": cuda_ms(lambda: hk.factor_slab_ref(
+                   a, W, block_fn=hk.chol_inv), iters=5),
+               "library_ms": cuda_ms(lambda: slab_library(a, W), iters=5)}
+    out["bound_ms"], out["bound_by"] = hk.factor_slab_bound(B, F, W,
+                                                            hk.FP32_FLOPS)
+    out["executed_tflops"] = hk.factor_slab_flops(B, F, W) / out["ms"] / 1e9
+    emit({"phase": "kernel", "name": "factor_slab", "timed_shape": [B, F, W],
+          "precision": "highest", **out})
+    return {**out, "max_abs_err": max_abs, "timed_shape": [B, F, W]}
 
 
 def _scipy_matrix(n, rows, cols, vals):
@@ -622,6 +708,9 @@ def phase_slice():
     check(launches["chol_inv"] == 11 * len(walls),
           f"expected 11 chol_inv launches per factorization, got "
           f"{launches['chol_inv']} in {len(walls)}")
+    check_slab_launches(launches, 3 * len(walls), "50^3 L8 slice")
+    SLAB_BY_PATH[f"50^3 L8 slice ({len(walls)} factorizations)"] = launches[
+        "factor_slab"]
     check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
           "a solve took more than 2 refinement sweeps")
     emit({"phase": "slice", "problem": "50^3 L8", "n": n,
@@ -698,10 +787,18 @@ def profiled(fn) -> dict:
 
 
 
-def expected_chol_inv(fp, plan) -> int:
-    """chol_inv launches of one factorization by the routing rule: per
-    chunk of an eligible level, one launch per 128-wide panel (a family's
-    level holds plan.family 2^lvl fronts)."""
+def per_call(kernel: str, W: int) -> int:
+    """Launches counted by one factor_slab call on a slab of width W:
+    itself once, chol_inv once per 128-wide panel."""
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    return 1 if kernel == "factor_slab" else -(-W // hk.BS)
+
+
+def expected_launches(fp, plan, kernel: str = "chol_inv") -> int:
+    """Launches of `kernel` (chol_inv, or factor_slab) in one factorization
+    by the routing rule: one factor_slab call per chunk of an eligible
+    level (a family's level holds plan.family 2^lvl fronts)."""
     import torch
 
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
@@ -710,8 +807,15 @@ def expected_chol_inv(fp, plan) -> int:
     for lvl, lp in enumerate(plan.levels):
         b = (plan.family << lvl) // lp.chunks
         if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
-            total += lp.chunks * -(-fp.W[lvl] // hk.BS)
+            total += lp.chunks * per_call(kernel, fp.W[lvl])
     return total
+
+
+def check_slab_launches(launches: dict, want: int, what: str) -> None:
+    """factor_slab launches against the routing rule's count."""
+    check(launches["factor_slab"] == want, f"{what}: "
+          f"{launches['factor_slab']} factor_slab launches, the routing rule "
+          f"gives {want}")
 
 
 def level_probe(s, dev):
@@ -892,11 +996,16 @@ def phase_scale():
             "est_peak_bytes"]]
         check(not over, f"{problem} ({run}): measured peak over the "
               f"estimate at levels {over}")
-        want = expected_chol_inv(fp, plan)
+        want = expected_launches(fp, plan)
         check(launches["chol_inv"] == want * len(walls),
               f"{problem} ({run}): {launches['chol_inv']} chol_inv launches "
               f"in {len(walls)} factorizations, the routing rule gives "
               f"{want} each")
+        want_slab = expected_launches(fp, plan, "factor_slab")
+        check_slab_launches(launches, want_slab * len(walls),
+                            f"{problem} ({run})")
+        SLAB_BY_PATH[f"{problem} {run} budget ({len(walls)} "
+                     f"factorizations)"] = launches["factor_slab"]
         if run != "default":
             check(any(lp.two_piece for lp in plan.levels),
                   f"{problem} ({run}): no level took the two-piece path")
@@ -918,12 +1027,14 @@ def phase_scale():
         emit({"phase": "scale", "problem": problem, "run": run,
               "solves": solves, "block_solve": block, "launches": launches,
               "launches_per_factorization": want,
+              "factor_slab_per_factorization": want_slab,
               "factorizations": len(walls),
               "solve_max_memory_allocated":
                   torch.cuda.max_memory_allocated(dev),
               "max_memory_reserved": torch.cuda.max_memory_reserved(dev)})
         results[run] = {"launches": launches["chol_inv"],
-                        "per_factorization": want}
+                        "per_factorization": want,
+                        "factor_slab": launches["factor_slab"]}
         if run == "default":
             # refactorizations after the solves: with no factor alive, the
             # common pool's large segments that a live block pins (the
@@ -1199,12 +1310,17 @@ def phase_family(base):
             walls.append(time.perf_counter() - t)
             peaks.append(torch.cuda.max_memory_allocated() - before)
         launches = dict(hk.LAUNCHES)
-        want = expected_chol_inv(fp, bf.regimes)
+        want = expected_launches(fp, bf.regimes)
         check(want == FAMILY_LAUNCHES[K], f"family K = {K}: the rule gives "
               f"{want} chol_inv launches, expected {FAMILY_LAUNCHES[K]}")
         check(launches["chol_inv"] == 2 * want,
               f"family K = {K}: {launches['chol_inv']} chol_inv launches in "
               f"2 factorizations, the rule gives {want} each")
+        check_slab_launches(
+            launches, 2 * expected_launches(fp, bf.regimes, "factor_slab"),
+            f"family K = {K}")
+        SLAB_BY_PATH[f"50^3 L8 family K={K} (2 factorizations)"] = launches[
+            "factor_slab"]
         est = bf.regimes.peak_bytes
         check(max(peaks) <= est, f"family K = {K}: peak {max(peaks)} > "
               f"estimate {est}")
@@ -1320,7 +1436,7 @@ def phase_ordering():
             s.factorize(check=i == 0)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
-        want = expected_chol_inv(fp, s.regimes)
+        want = expected_launches(fp, s.regimes)
         a = _scipy_matrix(n, s.rows, s.cols, s.vals)
         solves = [block_solve(s, a, k, SEED + 30 + k, name) for k in (1, 4)]
         problem = f"{name} x{scale}"
@@ -1350,6 +1466,8 @@ def phase_ordering():
         check(launches["chol_inv"] == 3 * want,
               f"{problem}: {launches['chol_inv']} chol_inv launches in 3 "
               f"factorizations, the routing rule gives {want} each")
+        check_slab_launches(launches, 3 * expected_launches(
+            fp, s.regimes, "factor_slab"), problem)
         logdet = s.logdet()
         t = time.perf_counter()
         ref = SparseCholesky(s.plan, s.rows, s.cols, new, dtype=np.float64,
@@ -1973,11 +2091,13 @@ def rung_runs(s, a, b, what: str, rungs=PRECISION_RUNGS,
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
         launches = hk.LAUNCHES["chol_inv"]
-        want = expected_chol_inv(s.fplan, s.regimes) * len(walls)
+        want = expected_launches(s.fplan, s.regimes) * len(walls)
         resolved = s.precision
         name = f"{what} at {rung or 'AUTO'}"
         check(launches == want, f"{name}: {launches} chol_inv launches, the "
               f"routing rule gives {want}")
+        check_slab_launches(hk.LAUNCHES, expected_launches(
+            s.fplan, s.regimes, "factor_slab") * len(walls), name)
         check(inside == {_want_flag(resolved)},
               f"{name}: the level loop ran under {inside}")
         solves = []
@@ -2246,8 +2366,8 @@ def phase_precision_kernels():
           "rows": lib})
 
     B, F, W = 128, 1440, 864
-    a = 0.01 * torch.randn(B, F, W, generator=gen, device=dev)
-    a[:, :W, :] += 2.0 * torch.eye(W, device=dev)
+    tool = slab_tool()
+    a, _ = tool["known_slab"](B, F, W, gen, dev)
     slab = {}
     for rung, peak in (("highest", hk.FP32_FLOPS),
                        ("default", hk.TF32_FLOPS)):
@@ -2256,11 +2376,14 @@ def phase_precision_kernels():
             bound_ms, bound_by = hk.factor_slab_bound(B, F, W, peak)
             slab[fp32_flag()] = {
                 "ms": cuda_ms(lambda: hk.factor_slab(a, W), iters=5),
-                "plain_ms": cuda_ms(lambda: hk.factor_slab(
-                    a, W, block_fn=hk.chol_inv_ref), iters=5),
+                "plain_ms": cuda_ms(lambda: hk.factor_slab_ref(a, W),
+                                    iters=5),
+                "composite_ms": cuda_ms(lambda: hk.factor_slab_ref(
+                    a, W, block_fn=hk.chol_inv), iters=5),
                 "library_ms": cuda_ms(lambda: slab_library(a, W), iters=5),
                 "bound_ms": bound_ms, "bound_by": bound_by, "out": f}
-    diff = rel_err(slab["tf32"].pop("out"), slab["ieee"].pop("out"))
+    diff = tool["slab_err"](slab["tf32"].pop("out"), slab["ieee"].pop("out"),
+                            W)
     emit({"phase": "precision", "what": "factor_slab under both flags",
           "shape": [B, F, W], **slab, "tf32_vs_ieee_rel_diff": diff})
 
@@ -2275,8 +2398,9 @@ def mesh_devices(slots: int):
     return [torch.device("cuda", i % count) for i in range(slots)], count
 
 
-def expected_mesh_chol_inv(fp, plan, mesh, paths) -> int:
-    """chol_inv launches of one mesh factorization by the routing rule:
+def expected_mesh_launches(fp, plan, mesh, paths,
+                           kernel: str = "chol_inv") -> int:
+    """Launches of `kernel` in one mesh factorization by the routing rule:
     per level the rule on the level's batch over the whole mesh (a chunk's
     with chunks), one launch per 128-wide panel per chunk, on every slot of
     a slot-sharded level and on the first slot of a replicated one; row
@@ -2292,7 +2416,7 @@ def expected_mesh_chol_inv(fp, plan, mesh, paths) -> int:
         b = (plan.family << lvl) // lp.chunks
         if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
             slots = mesh.size if paths[lvl] == "slot" else 1
-            total += slots * lp.chunks * -(-fp.W[lvl] // hk.BS)
+            total += slots * lp.chunks * per_call(kernel, fp.W[lvl])
     return total
 
 
@@ -2378,9 +2502,12 @@ def phase_mesh(base, b0):
         walls.append(w)
     launches = dict(hk.LAUNCHES)        # read before the probed run
     storage = slot_storage(s.panels, fp, s.regimes, mesh, distinct)
-    want = expected_mesh_chol_inv(fp, s.regimes, mesh, paths)
+    want = expected_mesh_launches(fp, s.regimes, mesh, paths)
     check(launches["chol_inv"] == 2 * want, f"mesh: {launches['chol_inv']} "
           f"chol_inv launches in 2 factorizations, the rule gives {want}")
+    check_slab_launches(launches, 2 * expected_mesh_launches(
+        fp, s.regimes, mesh, paths, "factor_slab"), "mesh")
+    SLAB_BY_PATH["50^3 L8 mesh (2 factorizations)"] = launches["factor_slab"]
     check(want > 0, "mesh: no kernel-routed level")
     # where the warm factor's time goes: the assembly of each slot's slabs
     # on its device alone, then per level by CUDA events
@@ -2469,9 +2596,12 @@ def phase_mesh(base, b0):
     bf, wall = timed_sync(lambda: fs.factorize_many(vals))
     fam_launches = hk.LAUNCHES["chol_inv"]
     fpaths = frontal.level_paths(bf.fp, mesh)
-    fwant = expected_mesh_chol_inv(fp, bf.regimes, mesh, fpaths)
+    fwant = expected_mesh_launches(fp, bf.regimes, mesh, fpaths)
     check(fam_launches == fwant, f"mesh family: {fam_launches} chol_inv "
           f"launches, the rule gives {fwant}")
+    check_slab_launches(hk.LAUNCHES, expected_mesh_launches(
+        fp, bf.regimes, mesh, fpaths, "factor_slab"), "mesh family")
+    SLAB_BY_PATH["50^3 L8 mesh family K=8"] = hk.LAUNCHES["factor_slab"]
     B = rng.standard_normal((K, n))
     X, swall = timed_sync(lambda: bf.solve(B, tol=TOL))
     res = np.array([np.linalg.norm(_scipy_matrix(n, base.rows, base.cols,
@@ -2872,7 +3002,7 @@ class _RuleCount:
 
         if solver.dtype != np.float32 or solver.signs is not None:
             return 0
-        return expected_chol_inv(solver.fplan, plan)
+        return expected_launches(solver.fplan, plan)
 
     def __enter__(self):
         from cholesky_tpu_torch.api import SparseCholesky
@@ -3029,10 +3159,12 @@ def nd_quality_direct(scale: int) -> dict:
 
 def phase_tools() -> int:
     """The seven tools of tools/torch in process on the card at their
-    defaults: each one's JSON line and wall; bench_front_kernels' routes
-    agree at every class within SLAB_REL_TOL and launch chol_inv at every
-    class with W >= 128; bench_matvec's three layouts agree; nd_quality's
-    rows equal symbolic/quality.py's functions called directly. Returns
+    defaults: each one's JSON line and wall; bench_front_kernels' kernel
+    route agrees with the library at every class within SLAB_REL_TOL (TF32:
+    SLAB_TF32_REL_TOL) and launches factor_slab once and chol_inv once a
+    panel at every class with W >= 128; bench_matvec's three layouts agree;
+    nd_quality's rows equal symbolic/quality.py's functions called directly.
+    Returns
     bench_front_kernels' chol_inv launches."""
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
@@ -3049,13 +3181,18 @@ def phase_tools() -> int:
         if name == "bench_front_kernels":
             launches = hk.LAUNCHES["chol_inv"]
             for row in result["classes"]:
-                where = f"class {row['B']},{row['F']},{row['W']}"
-                check(row["W"] < hk.BS or row["chol_inv_launches"] > 0,
-                      f"bench_front_kernels: no chol_inv launch at {where}")
-                check(row["W"] < hk.BS
-                      or row["max_rel_diff"] <= SLAB_REL_TOL,
-                      f"bench_front_kernels: the routes differ by "
-                      f"{row['max_rel_diff']} at {where}")
+                for flag, tol in (("ieee", SLAB_REL_TOL),
+                                  ("tf32", SLAB_TF32_REL_TOL)):
+                    r = row["rungs"][flag]
+                    where = f"class {row['B']},{row['F']},{row['W']} {flag}"
+                    if row["W"] < hk.BS:
+                        continue
+                    check(r["factor_slab_launches"] == 1
+                          and r["chol_inv_launches"] == -(-row["W"] // hk.BS),
+                          f"bench_front_kernels: launches {r} at {where}")
+                    check(r["max_rel_diff"] <= tol, f"bench_front_kernels: "
+                          f"kernel and library differ by "
+                          f"{r['max_rel_diff']} at {where}")
         if name == "bench_matvec":
             check(result["agree"], "bench_matvec: the layouts disagree")
         if name == "nd_quality":
@@ -3083,6 +3220,7 @@ def main() -> int:
         phase_device()
         phase_build()
         kern = phase_kernel()
+        slab = phase_slab_kernel()
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
@@ -3129,7 +3267,15 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-        "timed_shape": [128, 128, 128], "per_shape": kern["per_shape"]}]})
+        "timed_shape": [128, 128, 128], "per_shape": kern["per_shape"]}, {
+        "name": "factor_slab", "route": "cuda",
+        "source": "cholesky_tpu_torch/kernels/csrc/factor_slab.cu",
+        "replaces": "cholesky_tpu/numeric/pallas_kernels.py:119",
+        "launches": scale["default"]["factor_slab"],
+        "launches_by_path": dict(SLAB_BY_PATH),
+        **{k: slab[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "composite_ms", "library_ms",
+            "bound_ms", "bound_by", "executed_tflops", "timed_shape")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

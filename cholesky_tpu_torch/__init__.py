@@ -52,7 +52,8 @@ the six example workflows on this package.
   numeric/selinv.py        selected inversion
   numeric/ldlt.py          quasi-definite signed LDL^T: factor, solve, slogdet
   numeric/eigs.py          Lanczos eigenpairs and kappa_2 (host NumPy)
-  numeric/hopper_kernels.py  chol_inv kernel wrapper, factor_slab
+  numeric/hopper_kernels.py  chol_inv and factor_slab kernel wrappers and
+                           their plain versions
   numeric/refine.py        double-float iterative refinement, single and block
   numeric/profile.py       per-level, per-stage BLAS: timing lines
   kernels/                 CUDA sources and their nvcc build

@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("chol_inv",)
+KERNELS = ("chol_inv", "factor_slab")
 
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
@@ -87,4 +87,3 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(build(name))
         return lib
-

@@ -48,9 +48,10 @@ Ported:
 
 Which regime each level takes comes from one memory budget
 (`regimes.plan_regimes`). Levels that `hopper_kernels.slab_kernel_eligible`
-accepts go through `factor_slab` (the hand-written Cholesky/inverse kernel on
-the card); the others through `torch.linalg.cholesky_ex` +
-`solve_triangular`.
+accepts go through `factor_slab` (the hand-written kernels of
+`kernels/csrc/factor_slab.cu` and `chol_inv.cu` on the card, which read the
+slab in place, the square path's strided view included); the others through
+`torch.linalg.cholesky_ex` + `solve_triangular`.
 
 Eager PyTorch runs one level at a time and frees a tensor when its last
 reference goes, so the level loop bounds its working set by dropping

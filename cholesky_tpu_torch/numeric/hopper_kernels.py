@@ -1,4 +1,4 @@
-"""The factorization's hand-written Hopper kernel and the composite around it
+"""The factorization's hand-written Hopper kernels and their plain versions
 — the port's counterpart of `cholesky_tpu/numeric/pallas_kernels.py`.
 
   * `chol_inv`   <- `chol_inv_lanes` (`pallas_kernels.py:92-116`, kernel
@@ -8,16 +8,27 @@
   * `chol_inv_blocked_ref` the kernel's blocked schedule written out in
                     PyTorch, for the tests (nothing on the main path calls it).
   * `factor_slab` <- `factor_slab_lanes` (`:119-170`): the left-looking
-                    blocked partial factorization of a pivot slab.
+                    blocked partial factorization of a pivot slab, by the
+                    CUDA kernels of `kernels/csrc/factor_slab.cu` (per
+                    128-wide panel: the diagonal tile's update, `chol_inv`,
+                    then the panel's update and inv(L) product in one pass).
+  * `factor_slab_ref` the plain version: per panel a GEMM of the past
+                    column blocks, `block_fn` (Cholesky + inverse) on the
+                    diagonal block, a GEMM with its inverse. With
+                    `block_fn=chol_inv` it is the cuBLAS composite the
+                    kernels replaced, which the tools time beside them.
   * `slab_kernel_eligible` <- `lanes_eligible` (`:191-211`): which levels
                     route through `factor_slab`.
   * `chol_inv_bound`, `factor_slab_bound` the least time the card could
                     take for each function's work, from the H100's
-                    published peaks below.
+                    published peaks below; `factor_slab_flops` the flops
+                    the kernels' schedule executes.
 
-Dispatch is by the tensor's device: a CPU tensor takes `chol_inv_ref` (the
-CPU tests run the same control flow as the card), a CUDA tensor always
-launches the kernel, and a build or launch failure raises.
+Dispatch is by the tensor's device: a CPU tensor takes the plain version
+(the CPU tests run the same control flow as the card), a CUDA tensor always
+launches the kernel, and a build or launch failure raises. The products of
+`factor_slab` follow `torch.backends.cuda.matmul.fp32_precision` as cuBLAS
+does: TF32 tensor cores under "tf32", IEEE f32 otherwise.
 """
 
 from __future__ import annotations
@@ -41,23 +52,35 @@ HBM_BYTES_PER_S = 3.35e12          # memory rate
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 TF32_FLOPS = 495e12                # TF32 on the tensor cores
 
-# Launches of each kernel, counted where the kernel is launched.
-LAUNCHES = {"chol_inv": 0}
+# Launches of each kernel, counted where the kernel is launched
+# (`factor_slab`: one per call, which launches two kernels per panel).
+LAUNCHES = {"chol_inv": 0, "factor_slab": 0}
 
-_FN = None
+_FNS: dict = {}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "chol_inv_f32": ("chol_inv", [_P, _P, _P, _L, _P]),
+    "factor_slab_diag_f32": ("factor_slab", [_P, _L, _L, _P, _I, _I, _I, _I,
+                                             _L, _P, _I, _P]),
+    "factor_slab_panel_f32": ("factor_slab", [_P, _L, _L, _P, _I, _I, _I,
+                                              _I, _L, _P, _P, _I, _P]),
+}
 
 
-def _chol_inv_fn():
-    global _FN
-    if _FN is None:
+def _fn(name: str):
+    """The C entry point `name` of its kernel's library, built at first
+    use."""
+    fn = _FNS.get(name)
+    if fn is None:
         from cholesky_tpu_torch.kernels import build
 
-        fn = build.load("chol_inv").chol_inv_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
+        lib, argtypes = _SIGNATURES[name]
+        fn = getattr(build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
 
 
 def chol_inv_ref(d: torch.Tensor):
@@ -148,7 +171,7 @@ def chol_inv(d: torch.Tensor):
         raise ValueError("chol_inv: input must be contiguous")
     if d.data_ptr() % 16:
         raise ValueError("chol_inv: input must be 16-byte aligned")
-    fn = _chol_inv_fn()
+    fn = _fn("chol_inv_f32")
     l = torch.empty_like(d)
     m = torch.empty_like(d)
     with torch.cuda.device(d.device):
@@ -162,17 +185,20 @@ def chol_inv(d: torch.Tensor):
     return l, m
 
 
-def factor_slab(a: torch.Tensor, W: int, block_fn=chol_inv) -> torch.Tensor:
+def factor_slab_ref(a: torch.Tensor, W: int,
+                    block_fn=chol_inv_ref) -> torch.Tensor:
     """Blocked LEFT-looking partial factorization of the pivot-column slab
-    [B, F, W]: rows [:W] become the pivot Cholesky, rows [W:] the solved
-    boundary strip. Per 128-wide panel: one batched GEMM of all past column
-    blocks, the diagonal block through `block_fn` (Cholesky + inverse), then
-    `below @ inv(d)^T`. A tail panel narrower than 128 is identity-padded to
-    128 (the Cholesky of blockdiag(d, I) is blockdiag(chol(d), I), exactly).
+    [B, F, W] in plain PyTorch: rows [:W] become the pivot Cholesky, rows
+    [W:] the solved boundary strip. Per 128-wide panel: one batched GEMM of
+    all past column blocks, the diagonal block through `block_fn` (Cholesky
+    + inverse), then `below @ inv(d)^T`. A tail panel narrower than 128 is
+    identity-padded to 128 (the Cholesky of blockdiag(d, I) is
+    blockdiag(chol(d), I), exactly).
 
     The factored column blocks are written straight into the output, so
     `out[:, c0:, :c0]` is the JAX version's concatenation of past blocks.
-    `block_fn=chol_inv_ref` gives the plain composite."""
+    `block_fn=chol_inv` on a CUDA tensor is the composite of cuBLAS GEMMs,
+    copies and the `chol_inv` kernel that `factor_slab` replaced."""
     B, F, Wc = a.shape
     if Wc != W:
         raise ValueError(f"factor_slab: slab width {Wc} != W {W}")
@@ -193,6 +219,67 @@ def factor_slab(a: torch.Tensor, W: int, block_fn=chol_inv) -> torch.Tensor:
             ld, dinv = ld[:, :w, :w], dinv[:, :w, :w]
         out[:, c0:c0 + w, c0:c0 + w] = ld
         out[:, c0 + w:, c0:c0 + w] = pan[:, w:, :] @ dinv.transpose(1, 2)
+    return out
+
+
+def _tf32() -> bool:
+    """Whether cuBLAS's float32 products run on TF32 tensor cores: the
+    flag the precision ladder sets, or the global one it defaults to."""
+    flag = torch.backends.cuda.matmul.fp32_precision
+    if flag == "none":
+        flag = torch.backends.fp32_precision
+    return flag == "tf32"
+
+
+def factor_slab(a: torch.Tensor, W: int) -> torch.Tensor:
+    """Partial factorization of pivot slabs [B, F, W]: rows [:W] the pivot
+    Cholesky (zeros above the diagonal), rows [W:] the boundary strip
+    solved against it. A CPU tensor takes `factor_slab_ref`; a CUDA f32
+    tensor the kernels of `kernels/csrc/factor_slab.cu`, per 128-wide panel
+    slab_diag, `chol_inv`, slab_panel, with TF32 or IEEE products as
+    `torch.backends.cuda.matmul.fp32_precision` says. The slab is read in
+    place (a strided view such as `full[:, :F, :W]` is fine); its last
+    stride must be 1 and its other strides, base and W multiples of 16
+    bytes. Anything else raises."""
+    if a.device.type == "cpu":
+        return factor_slab_ref(a, W)
+    if a.device.type != "cuda":
+        raise ValueError(f"factor_slab: unsupported device {a.device}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"factor_slab: kernel takes float32, got {a.dtype}")
+    if a.dim() != 3 or a.shape[2] != W or a.shape[1] < W:
+        raise ValueError(f"factor_slab: expected [B, F >= {W}, {W}], got "
+                         f"{tuple(a.shape)}")
+    sb, sr, sc = a.stride()
+    if sc != 1 or sr % 4 or sb % 4 or W % 4 or a.data_ptr() % 16:
+        raise ValueError(f"factor_slab: the kernel reads rows of 16-byte "
+                         f"aligned float4s; got strides {a.stride()}, W = "
+                         f"{W}, base {a.data_ptr()} mod 16 = "
+                         f"{a.data_ptr() % 16}")
+    B, F, _ = a.shape
+    out = torch.empty((B, F, W), dtype=a.dtype, device=a.device)
+    if B == 0:
+        return out
+    diag_fn = _fn("factor_slab_diag_f32")
+    panel_fn = _fn("factor_slab_panel_f32")
+    d = torch.empty((B, BS, BS), dtype=a.dtype, device=a.device)
+    tf32 = int(_tf32())
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        for c0 in range(0, W, BS):
+            w = min(BS, W - c0)
+            err = diag_fn(a.data_ptr(), sb, sr, out.data_ptr(), F, W, c0, w,
+                          B, d.data_ptr(), tf32, stream)
+            if err != 0:
+                raise RuntimeError(f"factor_slab: slab_diag launch failed "
+                                   f"with CUDA error {err}")
+            ld, dinv = chol_inv(d)
+            err = panel_fn(a.data_ptr(), sb, sr, out.data_ptr(), F, W, c0, w,
+                           B, ld.data_ptr(), dinv.data_ptr(), tf32, stream)
+            if err != 0:
+                raise RuntimeError(f"factor_slab: slab_panel launch failed "
+                                   f"with CUDA error {err}")
+    LAUNCHES["factor_slab"] += 1
     return out
 
 
@@ -226,3 +313,20 @@ def factor_slab_bound(B: int, F: int, W: int, flops_per_s: float):
     flops_ms = B * (W ** 3 / 3 + (F - W) * W * W) / flops_per_s * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
                                      else "operations")
+
+
+def factor_slab_flops(B: int, F: int, W: int) -> float:
+    """Flops the kernels of `factor_slab` execute on a [B, F, W] slab, the
+    padding included: per 128-wide panel (c0, w) the diagonal tile's
+    update 2 128^2 c0, `chol_inv`'s 2 128^3 / 3, and for the m = F - c0 - w
+    rows below, in 128-row tiles, the update 2 m' n c0 and the product
+    with inv(L_kk) 2 m' n w' (m' = m rounded up to 128, n = 32 for a tail
+    of at most 32 columns else 128, w' = w rounded up to 8)."""
+    total = 0.0
+    for c0 in range(0, W, BS):
+        w = min(BS, W - c0)
+        m = -(-(F - c0 - w) // BS) * BS
+        n = 32 if w <= 32 else BS
+        total += (2 * BS * BS * c0 + 2 * BS ** 3 / 3 + 2 * m * n * c0
+                  + 2 * m * n * (-(-w // 8) * 8))
+    return B * total

@@ -12,8 +12,11 @@ an H100 the ladder has these two rungs. The context sets that one flag and
 nothing else: not `torch.set_float32_matmul_precision` (global across
 backends, and on the CPU it steers oneDNN) and not the legacy
 `allow_tf32` (reading a legacy flag after the new one is set raises). CPU
-products and f64 products do not read the flag. Only cuBLAS GEMMs follow
-it; the hand kernel `chol_inv` computes in scalar f32 FMAs at every rung.
+products and f64 products do not read the flag. cuBLAS GEMMs follow it,
+and so do the products of the hand kernels behind
+`hopper_kernels.factor_slab` (TF32 tensor cores under "tf32", scalar f32
+FMAs otherwise); the hand kernel `chol_inv` computes in scalar f32 FMAs at
+every rung.
 """
 
 from __future__ import annotations

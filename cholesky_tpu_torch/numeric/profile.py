@@ -11,8 +11,9 @@ record dict:
   * EXTADD      the extend-add the port runs on the square path
                 (`frontal._extend_add_fused_`);
   * FACTOR_SLAB the blocked partial factorization through
-                `hopper_kernels.factor_slab` (the hand-written Cholesky /
-                inverse kernel on the card) on the levels that
+                `hopper_kernels.factor_slab` (the hand-written kernels of
+                `factor_slab.cu` and `chol_inv.cu` on the card) on the
+                levels that
                 `slab_kernel_eligible` routes there: it fuses POTRF and the
                 boundary TRSM;
   * POTRF, TRSM `cholesky_ex` and `solve_triangular` on the other levels;

@@ -239,9 +239,11 @@ def _factor_temps(b: int, F: int, W: int, fi: int, dtype,
     """Bytes `frontal._factor_slab` allocates beyond its output (the route
     decided on `route_b`, default b)."""
     if hk.slab_kernel_eligible(b if route_b is None else route_b, W, dtype):
-        # factor_slab: per panel the updated panel [b, F - c0, w], the
-        # boundary product [b, F - c0 - w, w], the diagonal block, the
-        # kernel's L and inv(L)
+        # factor_slab: the composite it replaced held per panel the
+        # updated panel [b, F - c0, w], the boundary product
+        # [b, F - c0 - w, w], the diagonal block and chol_inv's L and
+        # inv(L); its kernels hold only the [b, 128, 128] diagonal scratch
+        # and L and inv(L), so this stays an upper bound
         bs = hk.BS
         return 2 * b * F * min(W, bs) * fi + 3 * b * bs * bs * fi
     if F == W:

@@ -9,6 +9,11 @@ where jax is not installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
 
+import functools
+import os
+import runpy
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +26,12 @@ from cholesky_tpu_torch.utils.laplacian import generate_problem
 L_REL = 1e-4        # kernel vs plain, L, f32 (rsqrt vs cuSOLVER rounding)
 INV_REL = 1e-3      # kernel vs plain, inv(L), f32
 F64_REL = 2e-6      # kernel vs an f64 reference, f32 (a few ulps)
+# factor_slab kernels vs plain and vs the known factor, each part of the
+# result relative to its own largest entry (`slab_err`), IEEE f32
+SLAB_REL = 1e-4
+# ... at TF32: both round their products to TF32 (10 significand bits),
+# in different orders
+SLAB_TF32_REL = 5e-3
 TOL = 1e-10         # the solver's relative-residual contract
 
 
@@ -33,6 +44,23 @@ def _require_cuda():
 def _rel(x, ref):
     x, ref = x.double().cpu(), ref.double().cpu()
     return float((x - ref).abs().max() / ref.abs().max())
+
+
+@functools.lru_cache(maxsize=None)
+def _bench_tool():
+    """tools/torch/bench_front_kernels.py's globals (`known_slab`,
+    `slab_err`, `main`), its main not run, sys.path restored."""
+    syspath = list(sys.path)
+    try:
+        return runpy.run_path(os.path.join(
+            os.path.dirname(__file__), "..", "tools", "torch",
+            "bench_front_kernels.py"), run_name="tool")
+    finally:
+        sys.path[:] = syspath
+
+
+def _slab_err(x, ref, W):
+    return _bench_tool()["slab_err"](x, ref, W)
 
 
 def _spd_blocks(rng, B, N):
@@ -105,13 +133,85 @@ def test_chol_inv_kernel_rejects_bad_input():
 @pytest.mark.cuda
 def test_factor_slab_kernel_matches_plain():
     _require_cuda()
-    rng = np.random.default_rng(3)
-    a = 0.01 * rng.standard_normal((32, 400, 200))
-    a[:, :200, :] += 2.0 * np.eye(200)
-    a = torch.from_numpy(a.astype(np.float32)).cuda()
+    a, exact = _slab_on_card(32, 400, 200, seed=3)
+    before = hk.LAUNCHES["factor_slab"]
     f_k = hk.factor_slab(a, 200)
-    f_p = hk.factor_slab(a, 200, block_fn=hk.chol_inv_ref)
-    assert _rel(f_k, f_p) <= L_REL
+    assert hk.LAUNCHES["factor_slab"] == before + 1
+    f_p = hk.factor_slab_ref(a, 200)
+    assert _slab_err(f_k, f_p, 200) <= SLAB_REL
+    assert _slab_err(f_k, exact, 200) <= SLAB_REL
+
+
+def _slab_on_card(B, F, W, seed, view=False):
+    """A [B, F, W] f32 slab on the card with a known partial factor
+    (`known_slab`), and that factor; with `view`, the slab as the square
+    path's strided view full[:, :F, :W] of a [B, F + 1, F + 4] front (row
+    stride F + 4)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, exact = _bench_tool()["known_slab"](B, F, W, gen, "cuda")
+    if not view:
+        return a, exact
+    full = torch.zeros(B, F + 1, F + 4, device="cuda")
+    full[:, :F, :W] = a
+    return full[:, :F, :W], exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung,tol", [("highest", SLAB_REL),
+                                      ("tensorfloat32", SLAB_TF32_REL)])
+@pytest.mark.parametrize("B", [1, 3, 11, 20, 128])
+@pytest.mark.parametrize("F,W", [(300, 100), (400, 200), (1440, 864),
+                                 (512, 512)])
+def test_factor_slab_kernel_at_each_rung(F, W, B, rung, tol):
+    """The kernels against the plain version on the same slab and against
+    the slab's known factor: a tail panel only (W = 100), a two-panel slab
+    with a 72-wide tail, the 50^3 leaf width, and a root-like slab (F = W);
+    exact zeros above the diagonal, the same bits on a repeated call. On a
+    132-SM H100, B = 11 and 20 split each diagonal tile's K over clusters
+    of 6 and 3 CTAs (unevenly), B = 3 over 8, B = 1 over up to 8, B = 128
+    not at all."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    a, exact = _slab_on_card(B, F, W, seed=F + W + B)
+    with precision_ctx(rung):
+        f_k = hk.factor_slab(a, W)
+        again = hk.factor_slab(a, W)
+        f_p = hk.factor_slab_ref(a, W)
+    torch.cuda.synchronize()
+    assert _slab_err(f_k, f_p, W) <= tol
+    assert _slab_err(f_k, exact, W) <= tol
+    assert torch.all(torch.triu(f_k[:, :W], 1) == 0)
+    assert torch.equal(f_k, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung,tol", [("highest", SLAB_REL),
+                                      ("tensorfloat32", SLAB_TF32_REL)])
+def test_factor_slab_kernel_reads_a_strided_view(rung, tol):
+    _require_cuda()
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    view, exact = _slab_on_card(32, 700, 296, seed=9, view=True)
+    assert not view.is_contiguous()
+    with precision_ctx(rung):
+        f_k = hk.factor_slab(view, 296)
+        f_p = hk.factor_slab_ref(view.contiguous(), 296)
+    assert _slab_err(f_k, f_p, 296) <= tol
+    assert _slab_err(f_k, exact, 296) <= tol
+
+
+@pytest.mark.cuda
+def test_factor_slab_kernel_rejects_bad_input():
+    _require_cuda()
+    a, _ = _slab_on_card(2, 300, 200, seed=1)
+    with pytest.raises(ValueError):
+        hk.factor_slab(a.double(), 200)
+    full = torch.zeros(2, 300, 301, device="cuda")       # row stride 301
+    with pytest.raises(ValueError):
+        hk.factor_slab(full[:, :, :200], 200)
+    with pytest.raises(ValueError):
+        hk.factor_slab(a.transpose(1, 2), 200)
 
 
 @pytest.mark.cuda
@@ -778,29 +878,31 @@ def test_profile_factor_on_card():
 
 @pytest.mark.cuda
 def test_bench_front_kernels_on_card():
-    """tools/torch/bench_front_kernels.py on two classes on the card: the
-    kernel route launches chol_inv and agrees with cuSOLVER + TRSM within
-    1e-4 of the largest entry; the rule routes [128, 1440, 864] to the
-    kernel."""
+    """tools/torch/bench_front_kernels.py on two classes on the card: at
+    both rungs the kernel route launches factor_slab once and chol_inv
+    once a panel and agrees with cuSOLVER + TRSM (`slab_err` within
+    SLAB_REL, TF32 SLAB_TF32_REL); the three routes are timed, the kernel
+    and the composite in turns; the rule routes [128, 1440, 864]
+    to the kernel."""
     _require_cuda()
     import contextlib
     import io
-    import os
-    import runpy
-    import sys
 
-    path = os.path.join(os.path.dirname(__file__), "..", "tools", "torch",
-                        "bench_front_kernels.py")
-    syspath, out = list(sys.path), io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            res = runpy.run_path(path, run_name="tool")["main"](
-                ["--classes", "128,1440,864", "512,256,128", "--reps", "2"])
-    finally:
-        sys.path[:] = syspath
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = _bench_tool()["main"](
+            ["--classes", "128,1440,864", "512,256,128", "--reps", "2"])
     assert res["card"] and res["device"] == "cuda"
     for row in res["classes"]:
-        assert row["chol_inv_launches"] > 0
-        assert row["max_rel_diff"] <= 1e-4
-        assert row["kernel_ms"] > 0 and row["library_ms"] > 0
+        for flag, tol in (("ieee", SLAB_REL), ("tf32", SLAB_TF32_REL)):
+            r = row["rungs"][flag]
+            assert r["factor_slab_launches"] == 1
+            assert r["chol_inv_launches"] == -(-row["W"] // 128)
+            assert r["max_rel_diff"] <= tol
+            assert min(r["kernel_ms"], r["composite_ms"],
+                       r["library_ms"]) > 0
+            assert len(r["kernel_ms_rounds"]) == res["rounds"]
+            assert len(r["composite_ms_rounds"]) == res["rounds"]
+            assert 0 <= r["kernel_ahead_rounds"] <= res["rounds"]
+            assert r["executed_tflops"] > 0 and 0 < r["share"] < 1
     assert res["classes"][0]["routed"] == "kernel"

@@ -1,13 +1,17 @@
-"""The port's Cholesky/inverse kernel and slab composite
+"""The port's Cholesky/inverse kernel and slab factorization
 (cholesky_tpu_torch/numeric/hopper_kernels.py) against the JAX package.
 
-On the CPU the wrapper runs its plain PyTorch version, which is held here
+On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the Pallas kernel in interpret mode (N = 16, 32; the 128-step
 unrolled kernel takes minutes to interpret at N = 128) and against an f64
 `lax.linalg.cholesky` at N = 128. So is `chol_inv_blocked_ref`, the CUDA
 kernel's blocked schedule written out in PyTorch (panel widths 4, 8 and
-32). The CUDA kernel itself is held against the plain version on the card
-in test_torch_cuda.py.
+32). `factor_slab_ref` is held against the JAX package's
+`factor_slab_lanes` with its Pallas kernel replaced by a plain reference
+(interpreting it at N = 128 takes about ten minutes a two-panel slab on a
+CPU) and
+against the JAX blocked route. The CUDA kernels themselves are held
+against the plain versions on the card in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -133,6 +137,75 @@ def test_factor_slab_matches_jax_blocked(W, dtype, tol):
     assert out.dtype == torch.from_numpy(a).dtype
     assert _rel(out, ref) <= tol
     assert np.all(np.triu(out[:, :W, :].numpy(), 1) == 0)
+
+
+def _lax_chol_inv(d, interpret=False):
+    """A plain reference of `chol_inv_lanes`: (L, inv(L)) by lax."""
+    L = lax.linalg.cholesky(d, symmetrize_input=False)
+    eye = jnp.broadcast_to(jnp.eye(d.shape[-1], dtype=d.dtype), d.shape)
+    return L, lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
+
+
+def test_factor_slab_ref_matches_factor_slab_lanes(monkeypatch):
+    """The plain version against the JAX package's left-looking schedule
+    (its products, concatenations and identity-padded tail) on a
+    two-panel slab with a 72-wide tail, the Pallas kernel through a plain
+    reference."""
+    monkeypatch.setattr(pk, "chol_inv_lanes", _lax_chol_inv)
+    a = _slab(np.random.default_rng(12), 2, 300, 200, np.float32)
+    ref = np.asarray(pk.factor_slab_lanes(jnp.asarray(a), 200))
+    out = hk.factor_slab_ref(torch.from_numpy(a), 200)
+    assert _rel(out, ref) <= F32_REL
+    assert np.all(np.triu(out[:, :200, :].numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("W", [136, 200])
+def test_factor_slab_reads_a_strided_view(W):
+    """factor_slab on the square path's view full[:, :F, :W] of a
+    [B, F + 1, F] front against the JAX blocked route on the same
+    values."""
+    F = 320
+    a = _slab(np.random.default_rng(W + 1), 3, F, W, np.float32)
+    full = torch.zeros(3, F + 1, F)
+    full[:, :F, :W] = torch.from_numpy(a)
+    view = full[:, :F, :W]
+    assert not view.is_contiguous()
+    aj = jnp.asarray(a)
+    ld = jfrontal._blocked_cholesky(aj[:, :W, :])
+    x = jfrontal._tri_solve(ld, aj[:, W:, :], left_side=False, lower=True,
+                            transpose_a=True)
+    ref = np.concatenate([np.asarray(ld), np.asarray(x)], axis=1)
+    assert _rel(hk.factor_slab(view, W), ref) <= F32_REL
+
+
+def test_factor_slab_on_cpu_is_plain_and_uncounted():
+    a = torch.from_numpy(_slab(np.random.default_rng(4), 2, 300, 200,
+                               np.float32))
+    before = dict(hk.LAUNCHES)
+    assert torch.equal(hk.factor_slab(a, 200), hk.factor_slab_ref(a, 200))
+    assert hk.LAUNCHES == before
+    with pytest.raises(ValueError):
+        hk.factor_slab(torch.empty(2, 300, 200, device="meta"), 200)
+
+
+def test_factor_slab_flops_cover_the_bound():
+    """The kernels' executed flops are at least the bound's: the padding
+    of tail panels, row tiles and the diagonal tile only adds."""
+    for B, F, W in [(128, 1440, 864), (1024, 1264, 136), (64, 1008, 144),
+                    (1, 2504, 2504), (512, 256, 128)]:
+        bound = B * (W ** 3 / 3 + (F - W) * W * W)
+        assert bound <= hk.factor_slab_flops(B, F, W) <= 3 * bound
+
+
+def test_tf32_flag_follows_the_precision_ladder():
+    """The kernels' rung is the flag `precision_ctx` sets."""
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    for rung, want in (("highest", False), ("float32", False),
+                       ("default", True), ("tensorfloat32", True),
+                       (None, True)):
+        with precision_ctx(rung):
+            assert hk._tf32() is want
 
 
 @pytest.mark.parametrize("B,W,routed", [
