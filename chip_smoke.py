@@ -222,6 +222,17 @@ Phases, each printing one JSON line:
              stages; bench_matvec's three ELL layouts must agree;
              nd_quality's rows must equal symbolic/quality.py's functions
              called directly.
+ 22. bench:  tools/torch/bench.py in process at its defaults (50^3 L8:
+             factor_gflops at the TF32 "default" chain and the AUTO
+             production row, with the peak, fixture, irregular 44^3 x 3 and
+             warm-start rows), then --measure-baseline --quick and
+             --kernel-rates: no row failed or missed 1e-10, each first
+             factorization's peak under its plan's estimate, useful FLOPs
+             equal schedule_flops called directly, each row's launches of
+             one warm factorization (the primary's at both rungs) equal the
+             routing rule's over the row's own plan, the warm-start process
+             returned 0; one line with the three JSON results and the
+             phase's wall.
 Every phase line carries the card's name and power limit (`card`).
 Then the kernels' summary line and, last, {"ok": true, "device": ...}.
 
@@ -795,20 +806,25 @@ def per_call(kernel: str, W: int) -> int:
     return 1 if kernel == "factor_slab" else -(-W // hk.BS)
 
 
-def expected_launches(fp, plan, kernel: str = "chol_inv") -> int:
+def rule_launches(levels, kernel: str = "chol_inv") -> int:
     """Launches of `kernel` (chol_inv, or factor_slab) in one factorization
-    by the routing rule: one factor_slab call per chunk of an eligible
-    level (a family's level holds plan.family 2^lvl fronts)."""
+    by the routing rule, over (fronts, W, chunks) of each level: one
+    factor_slab call per chunk of an eligible level."""
     import torch
 
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
-    total = 0
-    for lvl, lp in enumerate(plan.levels):
-        b = (plan.family << lvl) // lp.chunks
-        if hk.slab_kernel_eligible(b, fp.W[lvl], torch.float32):
-            total += lp.chunks * per_call(kernel, fp.W[lvl])
-    return total
+    return sum(chunks * per_call(kernel, W)
+               for fronts, W, chunks in levels
+               if hk.slab_kernel_eligible(fronts // chunks, W,
+                                          torch.float32))
+
+
+def expected_launches(fp, plan, kernel: str = "chol_inv") -> int:
+    """rule_launches of a regime plan (a family's level holds plan.family
+    2^lvl fronts)."""
+    return rule_launches([(plan.family << lvl, fp.W[lvl], lp.chunks)
+                          for lvl, lp in enumerate(plan.levels)], kernel)
 
 
 def check_slab_launches(launches: dict, want: int, what: str) -> None:
@@ -3203,6 +3219,107 @@ def phase_tools() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The bench of tools/torch
+
+
+# after the bench at its defaults (50^3 L8 with every row): the host
+# replay's rate at 20^3 L5 and the library yardsticks alone
+BENCH_MORE = (["--measure-baseline", "--quick"], ["--kernel-rates"])
+BENCH_PROBLEM = ((50, 50, 50), 8, 16)   # its shape, levels, cluster size
+
+
+def schedule_flops_direct(shape, levels, cluster_size) -> float:
+    """verify/schedule.schedule_flops of a grid problem's fill, called
+    directly."""
+    import numpy as np
+
+    from cholesky_tpu_torch import SparseCholesky
+    from cholesky_tpu_torch.symbolic.fill import analyze_fill
+    from cholesky_tpu_torch.utils.laplacian import generate_problem
+    from cholesky_tpu_torch.verify import schedule
+
+    n, r, c, v, o, cl, _ = generate_problem(shape, levels,
+                                            cluster_size=cluster_size)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    return schedule.schedule_flops(schedule.generate_schedule(
+        analyze_fill(s.plan, s.rows, s.cols, s.vals)))
+
+
+def check_bench(result) -> None:
+    """The default run: no row failed or missed its residual, each first
+    factorization's peak under its plan's estimate, useful FLOPs equal
+    schedule_flops called directly, the launches of one warm factorization
+    of each row (the primary at both rungs) equal the routing rule's over
+    that row's own plan, and the warm-start process returned 0."""
+    check(result["failed"] == [], f"bench: failed rows {result['failed']}")
+    rows = {"primary": result}
+    rows.update({k: result[k] for k in ("peak", "fixture_3375",
+                                        "irregular_elasticity",
+                                        "warm_start")})
+    for name, r in rows.items():
+        check("error" not in r, f"bench {name}: {r.get('error')}")
+        check(r.get("residual_ok", True), f"bench {name}: residual "
+              f"{r.get('residual')} (production "
+              f"{r.get('residual_production')})")
+        if "factor_peak_bytes" in r:
+            check(r["factor_peak_bytes"] <= r["plan_peak_estimate_bytes"],
+                  f"bench {name}: factor peak {r['factor_peak_bytes']} > "
+                  f"estimate {r['plan_peak_estimate_bytes']}")
+        if "regime_plan" in r:
+            levels = [(lv["B"], lv["W"], lv["chunks"])
+                      for lv in r["regime_plan"]]
+            rule = {k: rule_launches(levels, k)
+                    for k in ("chol_inv", "factor_slab")}
+            for key in ("launches", "launches_production"):
+                check(r.get(key, rule) == rule, f"bench {name}: {key} "
+                      f"{r.get(key)} of one warm factorization, the "
+                      f"routing rule gives {rule}")
+    want = schedule_flops_direct(*BENCH_PROBLEM)
+    check(result["useful_flops"] == want, f"bench: useful FLOPs "
+          f"{result['useful_flops']} != schedule_flops {want}")
+    check(result["launches"]["chol_inv"] > 0,
+          "bench: no level of the primary row is kernel-routed")
+    check(result["warm_start"]["returncode"] == 0,
+          f"bench: warm_start returned {result['warm_start']}")
+
+
+def phase_bench() -> int:
+    """tools/torch/bench.py in process on the card, at its defaults and
+    then BENCH_MORE: the default run's rows checked by check_bench, the
+    host replay's rate positive, the yardsticks finite; one phase line
+    with the three JSON results and the phase's wall. Returns the default
+    run's chol_inv launches (factor_slab's go to SLAB_BY_PATH)."""
+    import math
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    t = time.perf_counter()
+    for k in hk.LAUNCHES:
+        hk.LAUNCHES[k] = 0
+    runs, walls = {}, {}
+    runs["defaults"], _, walls["defaults"] = run_tool("bench", [])
+    launches = dict(hk.LAUNCHES)
+    for args in BENCH_MORE:
+        runs[" ".join(args)], _, walls[" ".join(args)] = run_tool("bench",
+                                                                  args)
+    check_bench(runs["defaults"])
+    base = runs["--measure-baseline --quick"]
+    check(base["value"] > 0 and base["key"] == "20x20x20_L5",
+          f"bench --measure-baseline: {base}")
+    rates = {k: x for k, x in runs["--kernel-rates"].items()
+             if k.endswith(("_tflops_ieee", "_tflops_tf32"))}
+    check(len(rates) == 6 and all(math.isfinite(x) and x > 0
+                                  for x in rates.values()),
+          f"bench --kernel-rates: {rates}")
+    SLAB_BY_PATH["tools/torch/bench.py"] = launches["factor_slab"]
+    emit({"phase": "bench", "script": "tools/torch/bench.py",
+          "wall_s": time.perf_counter() - t, "run_walls_s": walls,
+          "launches": launches, "runs": runs})
+    return launches["chol_inv"]
+
+
 def main() -> int:
     import torch
 
@@ -3244,6 +3361,7 @@ def main() -> int:
         phase_oracle()
         example_launches = phase_examples()
         tool_launches = phase_tools()
+        bench_launches = phase_bench()
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         return 1
@@ -3263,7 +3381,8 @@ def main() -> int:
             **mesh_launches,
             "from_scipy gallery (ordering phase)": ordering_launches,
             **example_launches,
-            "tools/torch/bench_front_kernels.py": tool_launches},
+            "tools/torch/bench_front_kernels.py": tool_launches,
+            "tools/torch/bench.py": bench_launches},
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
