@@ -783,9 +783,12 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    # the solver's spans (`cholesky_tpu_torch.trace`) show on the device
+    # as user annotations over its kernels: not work of their own
     rows = sorted(((e.key, _device_us(e) / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda x: -x[1])
     busy_ms = sum(r[1] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,

@@ -89,6 +89,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
 from cholesky_tpu_torch.numeric import devmem, frontal, ldlt, regimes, selinv
@@ -455,35 +456,36 @@ class SparseCholesky:
         deduplicated lower triangle). With `rows`/`cols`, any COO layout of
         the SAME pattern is accepted (either triangle, duplicates dropped as
         at construction) and checked against the stored pattern."""
-        if (rows is None) != (cols is None):
-            raise ValueError("pass both rows and cols, or neither")
-        if rows is not None:
-            r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
-            # dedup_lower preserves input entry order, so compare patterns
-            # canonically and realign the values to the stored entry order
-            n = int(self.plan.n)
-            key_new = r2 * n + c2
-            key_old = self.rows * n + self.cols
-            order_new = np.argsort(key_new)
-            order_old = np.argsort(key_old)
-            if (len(r2) != len(self.rows)
-                    or not np.array_equal(key_new[order_new],
-                                          key_old[order_old])):
-                raise ValueError(
-                    "sparsity pattern differs from the planned matrix — "
-                    "build a new SparseCholesky for a new pattern")
-            vals = np.empty_like(v2)
-            vals[order_old] = v2[order_new]
-        else:
-            vals = np.asarray(vals, dtype=np.float64)
-            if vals.shape != self.vals.shape:
-                raise ValueError(
-                    f"expected {self.vals.shape[0]} values aligned with "
-                    f"coo_pattern(), got {vals.shape}")
-        self.vals = vals
-        self.panels, self.factored = None, False
-        self._inv = self._csr = self._ell = None
-        self._ell_dev = {}
+        with trace.span("chol.update_values", self.device):
+            if (rows is None) != (cols is None):
+                raise ValueError("pass both rows and cols, or neither")
+            if rows is not None:
+                r2, c2, v2 = mmio.dedup_lower(rows, cols, vals)
+                # dedup_lower preserves input entry order, so compare patterns
+                # canonically and realign the values to the stored entry order
+                n = int(self.plan.n)
+                key_new = r2 * n + c2
+                key_old = self.rows * n + self.cols
+                order_new = np.argsort(key_new)
+                order_old = np.argsort(key_old)
+                if (len(r2) != len(self.rows)
+                        or not np.array_equal(key_new[order_new],
+                                              key_old[order_old])):
+                    raise ValueError(
+                        "sparsity pattern differs from the planned matrix — "
+                        "build a new SparseCholesky for a new pattern")
+                vals = np.empty_like(v2)
+                vals[order_old] = v2[order_new]
+            else:
+                vals = np.asarray(vals, dtype=np.float64)
+                if vals.shape != self.vals.shape:
+                    raise ValueError(
+                        f"expected {self.vals.shape[0]} values aligned with "
+                        f"coo_pattern(), got {vals.shape}")
+            self.vals = vals
+            self.panels, self.factored = None, False
+            self._inv = self._csr = self._ell = None
+            self._ell_dev = {}
 
     def _budget_bytes(self) -> int:
         """The factorization's budget; under a mesh one slot's: the
@@ -535,20 +537,22 @@ class SparseCholesky:
             # drop the previous factor and its inverses before the budget
             # is read: the new factorization replaces them
             self.panels, self.factored, self._inv = None, False, None
-        with _precision_ctx(self.precision):
+        with _precision_ctx(self.precision), \
+                trace.span("chol.factorize", self.device):
             return self._factorize(check, level_hook)
 
     def _factorize(self, check: bool, level_hook):
         """The body of `factorize`, under the solver's rung."""
         # slabs the caller assembled (or None); only `pre` holds them now
         pre, self.panels, self._inv = self.panels, None, None
-        t0 = time.perf_counter()
-        budget = self._budget_bytes()
-        kept = self._plans[1] if self._plans is not None else None
-        plan = self._plan_override or self._plan(budget)
-        reused = plan is kept
-        self.regimes = plan
-        plan_s = time.perf_counter() - t0
+        with trace.span("chol.factorize.plan", self.device):
+            t0 = time.perf_counter()
+            budget = self._budget_bytes()
+            kept = self._plans[1] if self._plans is not None else None
+            plan = self._plan_override or self._plan(budget)
+            reused = plan is kept
+            self.regimes = plan
+            plan_s = time.perf_counter() - t0
         # long-lived state, built once the plan fits, before the baseline
         self._assembler()
         if self.signs is not None:
@@ -571,8 +575,9 @@ class SparseCholesky:
             "released_cache": released,
             "allocated_at_start": (torch.cuda.memory_allocated(self.device)
                                    if self.device.type == "cuda" else None)}
-        fronts = pre if pre is not None else self._fronts(self.vals,
-                                                           plan.lazy)
+        with trace.span("chol.factorize.fronts", self.device):
+            fronts = pre if pre is not None else self._fronts(self.vals,
+                                                               plan.lazy)
         del pre                 # the level loop consumes the slabs
         if self.signs is not None:
             self.panels = ldlt.factor_qd(self.fplan, fronts,
@@ -708,7 +713,8 @@ class SparseCholesky:
         """Per-level pivot inverses, cached with the factorization."""
         if self._inv is None or self._inv[0] != id(self.panels):
             self._inv = None            # free stale inverses first
-            with _precision_ctx(self.precision):
+            with _precision_ctx(self.precision), \
+                    trace.span("chol.solve.inv_pivots", self.device):
                 inv = frontal.invert_pivots(self.fplan, self.panels,
                                             device=self.device)
             self._inv = (id(self.panels), inv)
@@ -718,9 +724,11 @@ class SparseCholesky:
         """Double-float ELL planes of the symmetrized PERMUTED matrix on the
         host (None when a row is too dense)."""
         if self._ell is None:
-            r, c, v = mmio.symmetrize_coo(self.rows, self.cols, self.vals)
-            ell = refine_mod.build_ell(self.plan.n, self.plan.iperm[r],
-                                   self.plan.iperm[c], v)
+            with trace.span("chol.solve.ell_build", self.device):
+                r, c, v = mmio.symmetrize_coo(self.rows, self.cols,
+                                              self.vals)
+                ell = refine_mod.build_ell(self.plan.n, self.plan.iperm[r],
+                                           self.plan.iperm[c], v)
             self._ell = (ell,) if ell is not None else False
             self._ell_dev = {}
         return self._ell[0] if self._ell else None
@@ -732,9 +740,11 @@ class SparseCholesky:
         if ell is None:
             return None
         if banded not in self._ell_dev:
-            planes = refine_mod.pad_ell(self.fplan, ell) if banded else ell
+            with trace.span("chol.solve.ell_build", self.device):
+                planes = refine_mod.pad_ell(self.fplan, ell) if banded else ell
             self._ell_dev = {}
-            with devmem.persistent(self.device):
+            with devmem.persistent(self.device), \
+                    trace.span("chol.solve.ell_upload", self.device):
                 self._ell_dev[banded] = (
                     torch.from_numpy(planes[0].astype(np.int64)).to(
                         self.device),
@@ -826,6 +836,12 @@ class SparseCholesky:
         finished ("device", "host", or "none" without refinement). A
         quasi-definite solver refines the same way through its signed
         solve."""
+        with trace.span("chol.solve", self.device):
+            return self._solve(b, refine, tol, max_iter)
+
+    def _solve(self, b: np.ndarray, refine, tol: float,
+               max_iter: int) -> np.ndarray:
+        """The body of `solve`, under the solver's rung."""
         refine = _refine_mode(refine)
         b = np.asarray(b, dtype=np.float64)
         if b.ndim not in (1, 2) or b.shape[0] != self.plan.n:
@@ -869,17 +885,18 @@ class SparseCholesky:
                                    loop="device")
             if rn_rel <= tol:
                 return x
-        a = self._matrix_csr()
-        bnorm = np.linalg.norm(b, axis=0)
-        if x is None:
-            x = self._solve_once(b)
-        self.last_solve["loop"] = "host"
-        for _ in range(max_iter):
-            r = b - a @ x
-            if np.all(np.linalg.norm(r, axis=0) <= tol * bnorm):
-                break
-            x = x + self._solve_once(r)
-            self.last_solve["host_sweeps"] += 1
+        with trace.span("chol.solve.host_loop", self.device):
+            a = self._matrix_csr()
+            bnorm = np.linalg.norm(b, axis=0)
+            if x is None:
+                x = self._solve_once(b)
+            self.last_solve["loop"] = "host"
+            for _ in range(max_iter):
+                r = b - a @ x
+                if np.all(np.linalg.norm(r, axis=0) <= tol * bnorm):
+                    break
+                x = x + self._solve_once(r)
+                self.last_solve["host_sweeps"] += 1
         return x
 
     def _matrix_csr(self):

@@ -69,6 +69,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.numeric import devmem, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric.assemble import LazyFronts
@@ -645,96 +646,93 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
     pieces = counts = None
     xxt = False                  # pieces hold a leaf's X (deferred X X^T)
     for lvl in range(fp.levels - 1, -1, -1):
-        if level_hook is not None:
-            level_hook(lvl, "start")
-        lp = plan.levels[lvl]
-        B, Fl, Wl = K << lvl, fp.F[lvl], fp.W[lvl]
-        place = level_placement(fp, lvl, mesh)
-        if (place is not None and place.kind == "rows" and pieces is not None
-                and dist_level.eligible(fp, lvl, B, mesh)):
-            child = _Child(pieces, counts, xxt)
-            pieces = None
-            fac, nxt = dist_level.factor_level_sharded(
-                fp, lvl, fronts[lvl], child, mesh, lp.update_dtype)
-            del child
+        with trace.level(lvl, level_hook, devices[0]):
+            lp = plan.levels[lvl]
+            B, Fl, Wl = K << lvl, fp.F[lvl], fp.W[lvl]
+            place = level_placement(fp, lvl, mesh)
+            if (place is not None and place.kind == "rows"
+                    and pieces is not None
+                    and dist_level.eligible(fp, lvl, B, mesh)):
+                child = _Child(pieces, counts, xxt)
+                pieces = None
+                fac, nxt = dist_level.factor_level_sharded(
+                    fp, lvl, fronts[lvl], child, mesh, lp.update_dtype)
+                del child
+                if not lazy:
+                    fronts[lvl] = None
+                out[lvl] = fac.map(lambda p: _store(p, lp))
+                del fac
+                pieces = [nxt.map(torch.Tensor.cpu) if lp.spill else nxt]
+                counts, xxt = [B], False
+                del nxt
+                continue
+            nc = lp.chunks
+            # the stored factor stays the compute-dtype tensor on the device:
+            # a leaf's X can then be a view of it
+            keep = not lp.offload and lp.store_dtype == dtype
+            x_view = keep and lp.update_dtype == dtype
+            # the kernel route reads the batch of a chunk over the whole mesh
+            route_b = B // nc
+            lroot = root if (lvl == 0 and root is not None
+                             and root.scheme != "off") else None
+            new_pieces, new_counts, parts = [], [], []
+
+            def slab(s, b0, c0, c1, device):
+                if lazy:
+                    return (fronts[lvl] if nc == 1
+                            else fronts.chunk(lvl, c0, c1))
+                return _slab_of(fronts[lvl], s, b0, c0, c1, device)
+
+            def update(c0, c1, device):
+                """Rows [2 c0, 2 c1) of the children's update; pieces that this
+                chunk consumes to their end leave the list, so they are freed
+                when the level drops the update."""
+                if pieces is None:
+                    return None
+                U = _take_child_rows(pieces, counts, 2 * c0, 2 * c1, device)
+                off = 0
+                for i, cnt in enumerate(counts):
+                    if off + cnt <= 2 * c1:
+                        pieces[i] = None
+                    off += cnt
+                return ("xxt", U) if xxt else U
+
+            for s, dev, b0, b1 in _spans(place, devices, B):
+                cb = (b1 - b0) // nc
+                stored = None if nc == 1 else torch.empty(
+                    (b1 - b0, Fl, Wl), dtype=lp.store_dtype,
+                    device="cpu" if lp.offload else dev)
+                for c in range(nc):
+                    c0, c1 = b0 + c * cb, b0 + (c + 1) * cb
+                    view = (fp if (c0, c1) == (0, B)
+                            else _BatchView(fp, lvl, c0, c1))
+                    # slab and update are passed as call expressions, not
+                    # names, so that the level can free them as soon as it is
+                    # done with them
+                    fac, nxt = _factor_level(
+                        view, lvl, slab(s, b0, c0, c1, dev),
+                        update(c0, c1, dev), lp, route_b, lroot)
+                    if nc == 1:
+                        stored = fac if keep else _store(fac, lp)
+                    else:
+                        stored[c0 - b0:c1 - b0] = fac
+                    if isinstance(nxt, tuple):                # the leaf's X
+                        nxt = (stored[c0 - b0:c1 - b0, Wl:, :] if x_view else
+                               nxt[1].to(lp.update_dtype).contiguous())
+                    del fac
+                    if nxt is not None:
+                        new_pieces.append(nxt.cpu() if lp.spill else nxt)
+                        new_counts.append(cb)
+                    del nxt
+                parts.append(stored)
+                del stored
             if not lazy:
                 fronts[lvl] = None
-            out[lvl] = fac.map(lambda p: _store(p, lp))
-            del fac
-            pieces = [nxt.map(torch.Tensor.cpu) if lp.spill else nxt]
-            counts, xxt = [B], False
-            del nxt
-            if level_hook is not None:
-                level_hook(lvl, "end")
-            continue
-        nc = lp.chunks
-        # the stored factor stays the compute-dtype tensor on the device:
-        # a leaf's X can then be a view of it
-        keep = not lp.offload and lp.store_dtype == dtype
-        x_view = keep and lp.update_dtype == dtype
-        # the kernel route reads the batch of a chunk over the whole mesh
-        route_b = B // nc
-        lroot = root if (lvl == 0 and root is not None
-                         and root.scheme != "off") else None
-        new_pieces, new_counts, parts = [], [], []
-
-        def slab(s, b0, c0, c1, device):
-            if lazy:
-                return fronts[lvl] if nc == 1 else fronts.chunk(lvl, c0, c1)
-            return _slab_of(fronts[lvl], s, b0, c0, c1, device)
-
-        def update(c0, c1, device):
-            """Rows [2 c0, 2 c1) of the children's update; pieces that this
-            chunk consumes to their end leave the list, so they are freed
-            when the level drops the update."""
-            if pieces is None:
-                return None
-            U = _take_child_rows(pieces, counts, 2 * c0, 2 * c1, device)
-            off = 0
-            for i, cnt in enumerate(counts):
-                if off + cnt <= 2 * c1:
-                    pieces[i] = None
-                off += cnt
-            return ("xxt", U) if xxt else U
-
-        for s, dev, b0, b1 in _spans(place, devices, B):
-            cb = (b1 - b0) // nc
-            stored = None if nc == 1 else torch.empty(
-                (b1 - b0, Fl, Wl), dtype=lp.store_dtype,
-                device="cpu" if lp.offload else dev)
-            for c in range(nc):
-                c0, c1 = b0 + c * cb, b0 + (c + 1) * cb
-                view = fp if (c0, c1) == (0, B) else _BatchView(fp, lvl, c0,
-                                                                c1)
-                # slab and update are passed as call expressions, not
-                # names, so that the level can free them as soon as it is
-                # done with them
-                fac, nxt = _factor_level(view, lvl, slab(s, b0, c0, c1, dev),
-                                         update(c0, c1, dev), lp,
-                                         route_b, lroot)
-                if nc == 1:
-                    stored = fac if keep else _store(fac, lp)
-                else:
-                    stored[c0 - b0:c1 - b0] = fac
-                if isinstance(nxt, tuple):                # the leaf's X
-                    nxt = (stored[c0 - b0:c1 - b0, Wl:, :] if x_view else
-                           nxt[1].to(lp.update_dtype).contiguous())
-                del fac
-                if nxt is not None:
-                    new_pieces.append(nxt.cpu() if lp.spill else nxt)
-                    new_counts.append(cb)
-                del nxt
-            parts.append(stored)
-            del stored
-        if not lazy:
-            fronts[lvl] = None
-        out[lvl] = (parts[0] if place is None or place.kind != "slot" else
-                    Sharded(parts, place, (B, Fl, Wl), devices))
-        del parts
-        xxt = lvl == fp.levels - 1 and Fl > Wl
-        pieces, counts = new_pieces, new_counts
-        if level_hook is not None:
-            level_hook(lvl, "end")
+            out[lvl] = (parts[0] if place is None or place.kind != "slot" else
+                        Sharded(parts, place, (B, Fl, Wl), devices))
+            del parts
+            xxt = lvl == fp.levels - 1 and Fl > Wl
+            pieces, counts = new_pieces, new_counts
     return tuple(out)
 
 

@@ -39,6 +39,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.numeric import frontal
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 
@@ -186,34 +187,34 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
     mesh's first device."""
     out: List = [None] * fp.levels
     devices = mesh.flat if mesh is not None else [None]
+    home = devices[0] or fronts[-1].device
     pieces, counts = None, None
     for lvl in range(fp.levels - 1, -1, -1):
-        if level_hook is not None:
-            level_hook(lvl, "start")
-        B = 1 << lvl
-        place = frontal.level_placement(fp, lvl, mesh)
-        spans = frontal._spans(place, devices, B)
-        parts, new_pieces = [], []
-        for s, dev, b0, b1 in spans:
-            dev = dev or fronts[lvl].device
-            view = fp if (b0, b1) == (0, B) else frontal._BatchView(
-                fp, lvl, b0, b1)
-            # the update is passed as a call expression, so that the level
-            # frees it once it is extend-added
-            fac, nxt = _factor_level_qd(
-                view, lvl, frontal._slab_of(fronts[lvl], s, b0, b0, b1, dev),
-                None if pieces is None else frontal._take_child_rows(
-                    pieces, counts, 2 * b0, 2 * b1, dev),
-                sig.slabs[lvl][b0:b1].to(dev))
-            parts.append(fac)
-            new_pieces.append(nxt)
-        fronts[lvl] = None
-        out[lvl] = (parts[0] if place is None or place.kind != "slot" else
-                    frontal.Sharded(parts, place, (B,) + parts[0].shape[1:],
-                                    devices))
-        pieces, counts = new_pieces, [b1 - b0 for _, _, b0, b1 in spans]
-        if level_hook is not None:
-            level_hook(lvl, "end")
+        with trace.level(lvl, level_hook, home):
+            B = 1 << lvl
+            place = frontal.level_placement(fp, lvl, mesh)
+            spans = frontal._spans(place, devices, B)
+            parts, new_pieces = [], []
+            for s, dev, b0, b1 in spans:
+                dev = dev or fronts[lvl].device
+                view = fp if (b0, b1) == (0, B) else frontal._BatchView(
+                    fp, lvl, b0, b1)
+                # the update is passed as a call expression, so that the level
+                # frees it once it is extend-added
+                fac, nxt = _factor_level_qd(
+                    view, lvl,
+                    frontal._slab_of(fronts[lvl], s, b0, b0, b1, dev),
+                    None if pieces is None else frontal._take_child_rows(
+                        pieces, counts, 2 * b0, 2 * b1, dev),
+                    sig.slabs[lvl][b0:b1].to(dev))
+                parts.append(fac)
+                new_pieces.append(nxt)
+            fronts[lvl] = None
+            out[lvl] = (parts[0] if place is None or place.kind != "slot"
+                        else frontal.Sharded(parts, place,
+                                             (B,) + parts[0].shape[1:],
+                                             devices))
+            pieces, counts = new_pieces, [b1 - b0 for _, _, b0, b1 in spans]
     return tuple(out)
 
 

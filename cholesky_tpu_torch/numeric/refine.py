@@ -47,6 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.numeric import frontal, ldlt, regimes
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 from cholesky_tpu_torch.numeric.precision import precision_ctx
@@ -216,11 +217,23 @@ def _rnorm(r_hi: torch.Tensor) -> float:
     return float(m * torch.linalg.vector_norm(r_hi / m))
 
 
+def _traced(name: str, fn, device):
+    """`fn` inside the span `name` (`trace.span`) at each call."""
+    def call(*args):
+        with trace.span(name, device):
+            return fn(*args)
+    return call
+
+
 def _iterate(solve, resid, b_hi, norm, tol: float, max_iter: int):
     """The refinement loop of every solve here: x = solve(b), then, while
     norm(r) is above tol and each sweep at least halves it, x += solve(r)
-    with x kept as a double-float pair. Returns (x_hi, x_lo, sweeps, the
-    last norm)."""
+    with x kept as a double-float pair. Each application, residual and
+    norm is a span (`chol.refine.apply`, `.resid`, `.norm`). Returns
+    (x_hi, x_lo, sweeps, the last norm)."""
+    solve = _traced("chol.refine.apply", solve, b_hi.device)
+    resid = _traced("chol.refine.resid", resid, b_hi.device)
+    norm = _traced("chol.refine.norm", norm, b_hi.device)
     x0 = solve(b_hi)
     x_hi, x_lo = _two_sum(x0, torch.zeros_like(x0))
     r_hi, _ = resid(x_hi, x_lo)

@@ -906,3 +906,46 @@ def test_bench_front_kernels_on_card():
             assert 0 <= r["kernel_ahead_rounds"] <= res["rounds"]
             assert r["executed_tflops"] > 0 and 0 < r["share"] < 1
     assert res["classes"][0]["routed"] == "kernel"
+
+
+@pytest.mark.cuda
+def test_spans_carry_device_extents_on_the_card():
+    """Under torch.profiler a cycle on the card records the solver's spans
+    (`cholesky_tpu_torch.trace`) with a device extent each: a level's and
+    an application's extents are positive and the factorization's holds
+    its levels'; the profiler's device-side annotations of the spans are
+    user annotations, not kernels; off, nothing is recorded."""
+    _require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_tpu_torch import trace
+
+    n, r, c, v, o, cl, b = generate_problem((16, 16, 16), 4)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                device="cuda")
+    s.factorize()
+    s.solve(b)
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s.update_values(v * 2.0)
+        s.factorize()
+        x = s.solve(b)
+        torch.cuda.synchronize()
+    assert s.residual(b, x) <= TOL
+    spans = trace.spans()
+    dev = {sp.name: 0.0 for sp in spans}
+    for sp in spans:
+        assert sp.device_ms is not None and sp.device_ms >= 0, sp.name
+        dev[sp.name] += sp.device_ms
+    levels = [sp for sp in spans if sp.name.startswith("chol.level.")]
+    assert len(levels) == s.fplan.levels
+    assert all(sp.device_ms > 0 for sp in levels)
+    assert dev["chol.factorize"] >= sum(sp.device_ms for sp in levels)
+    assert dev["chol.refine.apply"] > 0 and dev["chol.solve.inv_pivots"] > 0
+    rows = [e for e in prof.key_averages() if e.key.startswith("chol.")
+            and str(e.device_type).endswith("CUDA")]
+    assert rows and all(e.is_user_annotation for e in rows)
+    trace.clear()
+    s.solve(b)
+    assert trace.spans() == []
