@@ -229,8 +229,9 @@ class SparseCholesky:
         self._fplan: Optional[FrontalPlan] = None
         self._fasm = None
         self._inv = None            # (panels id, pivot inverses)
-        self._ell = None            # (host ELL planes,) or False
-        self._ell_dev = {}          # {banded: ELL planes on the device}
+        self._ell = None            # the pattern's ELL layout, or False
+        self._ell_dev = {}          # {banded: the layout on the device}
+        self._ell_vals = None       # the device ELL planes of `vals`
         self.factor_stats = {}      # budget and baseline of factorize()
         self.ordering_info = {}     # from_matrix: what the ordering decided
 
@@ -447,10 +448,12 @@ class SparseCholesky:
         """Replace the matrix's numeric values, keeping the sparsity pattern
         and every symbolic artifact: the ordering and plan, the frontal
         plan, the assembler's scatter indices and the regime plan of the
-        budget. The next factorize()/solve() re-runs only the numeric phase
-        (time stepping, Newton iterations). Everything derived from the old
-        values goes, on the host and on the device: the factor, the pivot
-        inverses, the CSR matrix and the ELL planes of the residual.
+        budget, and the residual's ELL index. The next factorize()/solve()
+        re-runs only the numeric phase (time stepping, Newton iterations).
+        Everything derived from the old values goes, on the host and on the
+        device: the factor, the pivot inverses, the CSR matrix and the ELL
+        value planes of the residual (the next solve refills them on the
+        device).
 
         With only `vals`, entries must align with `coo_pattern()` (the
         deduplicated lower triangle). With `rows`/`cols`, any COO layout of
@@ -484,8 +487,7 @@ class SparseCholesky:
                         f"coo_pattern(), got {vals.shape}")
             self.vals = vals
             self.panels, self.factored = None, False
-            self._inv = self._csr = self._ell = None
-            self._ell_dev = {}
+            self._inv = self._csr = self._ell_vals = None
 
     def _budget_bytes(self) -> int:
         """The factorization's budget; under a mesh one slot's: the
@@ -690,8 +692,8 @@ class SparseCholesky:
         level)."""
         fp = self.fplan
         tdt = TORCH_DTYPES[self.dtype]
-        ell = self._ell_host()
-        ell_k = ell[0].shape[1] if ell is not None else regimes.ELL_MAX_K
+        lay = self._ell_pattern()
+        ell_k = lay[0].shape[1] if lay is not None else regimes.ELL_MAX_K
         need = (self._solve_residency(use_inv) + regimes.solve_bytes(
             fp.F, fp.W, tdt, ell_k, host_level=self._promote_bytes(), k=k))
         return need <= self._solve_budget()
@@ -720,37 +722,77 @@ class SparseCholesky:
             self._inv = (id(self.panels), inv)
         return self._inv[1]
 
-    def _ell_host(self):
-        """Double-float ELL planes of the symmetrized PERMUTED matrix on the
-        host (None when a row is too dense)."""
+    def _ell_pattern(self):
+        """The ELL layout of the symmetrized PERMUTED pattern on the host,
+        built once per solver (`update_values` keeps the pattern): (idx
+        [n, K_ell] int32 with sentinel n, src [n, K_ell] int64: the position
+        in `vals` of the entry each slot holds, nnz in a sentinel slot).
+        None when a row is too dense."""
         if self._ell is None:
-            with trace.span("chol.solve.ell_build", self.device):
-                r, c, v = mmio.symmetrize_coo(self.rows, self.cols,
-                                              self.vals)
-                ell = refine_mod.build_ell(self.plan.n, self.plan.iperm[r],
-                                           self.plan.iperm[c], v)
-            self._ell = (ell,) if ell is not None else False
-            self._ell_dev = {}
-        return self._ell[0] if self._ell else None
+            with trace.span("chol.solve.ell_index", self.device):
+                nnz = self.vals.shape[0]
+                r, c, ent = mmio.symmetrize_coo(self.rows, self.cols,
+                                                np.arange(nnz))
+                pr = self.plan.iperm[r]
+                lay = refine_mod.ell_slots(self.plan.n, pr,
+                                           self.plan.iperm[c])
+                if lay is not None:
+                    idx, slot = lay
+                    src = np.full(idx.shape, nnz, dtype=np.int64)
+                    src[pr, slot] = ent
+                    lay = (idx, src)
+            self._ell = lay if lay is not None else False
+        return self._ell or None
 
     def _ell_device(self, banded: bool):
-        """The ELL planes for one refinement engine, on the device: in the
-        banded padded basis (banded) or the permuted basis (plain)."""
-        ell = self._ell_host()
-        if ell is None:
+        """The ELL planes (idx, a_hi, a_lo) of `vals` for one refinement
+        engine, on the device: in the banded padded basis (banded) or the
+        permuted basis (plain). The index, the source map and a buffer of
+        the values with a trailing zero are uploaded once per engine and
+        kept across `update_values`; after an update the value planes are
+        refilled on the device (the values' upload, one gather,
+        `split_f64`'s arithmetic), bitwise equal to `pad_ell(build_ell(...))`
+        (banded) or `build_ell(...)` of the same values. Records in
+        `last_solve["ell"]` whether the layout was built ("index"), the
+        planes refilled ("refill") or kept ("kept")."""
+        lay = self._ell_pattern()
+        if lay is None:
             return None
+        how = "kept"
         if banded not in self._ell_dev:
+            self._ell_dev, self._ell_vals = {}, None
+            with trace.span("chol.solve.ell_index", self.device):
+                idx, src = lay
+                nnz = self.vals.shape[0]
+                if banded:
+                    idx = refine_mod.pad_ell_index(self.fplan, idx)
+                    src = refine_mod.pad_rows(self.fplan, src, nnz)
+                with devmem.persistent(self.device):
+                    self._ell_dev[banded] = (
+                        torch.from_numpy(idx.astype(np.int64)).to(
+                            self.device),
+                        torch.from_numpy(src).to(self.device),
+                        torch.zeros(nnz + 1, dtype=torch.float64,
+                                    device=self.device))
+            how = "index"
+        if self._ell_vals is None:
+            idx, src, ext = self._ell_dev[banded]
+            with trace.span("chol.solve.ell_upload", self.device):
+                ext[:-1].copy_(torch.from_numpy(
+                    np.ascontiguousarray(self.vals, dtype=np.float64)))
             with trace.span("chol.solve.ell_build", self.device):
-                planes = refine_mod.pad_ell(self.fplan, ell) if banded else ell
-            self._ell_dev = {}
-            with devmem.persistent(self.device), \
-                    trace.span("chol.solve.ell_upload", self.device):
-                self._ell_dev[banded] = (
-                    torch.from_numpy(planes[0].astype(np.int64)).to(
-                        self.device),
-                    torch.from_numpy(planes[1]).to(self.device),
-                    torch.from_numpy(planes[2]).to(self.device))
-        return self._ell_dev[banded]
+                # only the planes go to the long-lived pool, not the f64
+                # temporaries of the split
+                a64 = ext[src]
+                with devmem.persistent(self.device):
+                    hi = a64.to(torch.float32)
+                a64 -= hi.to(torch.float64)
+                with devmem.persistent(self.device):
+                    lo = a64.to(torch.float32)
+            self._ell_vals = (idx, hi, lo)
+            how = "refill" if how == "kept" else how
+        self.last_solve["ell"] = how
+        return self._ell_vals
 
     def _solve_once(self, b: np.ndarray) -> np.ndarray:
         """One solve against the factor: b [n] or [n, k] -> x of the same
@@ -833,9 +875,12 @@ class SparseCholesky:
         residual and block device solves continues. `last_solve` records
         the sweeps of each loop, the inner engine ("banded" with pivot
         inverses, "plain" without), the block width and which loop
-        finished ("device", "host", or "none" without refinement). A
-        quasi-definite solver refines the same way through its signed
-        solve."""
+        finished ("device", "host", or "none" without refinement), and
+        what the device loop did with its ELL planes ("ell": "index" when
+        it built the pattern's layout, "refill" when it refilled the value
+        planes after `update_values`, "kept" when it reused them, None
+        without the device loop). A quasi-definite solver refines the same
+        way through its signed solve."""
         with trace.span("chol.solve", self.device):
             return self._solve(b, refine, tol, max_iter)
 
@@ -855,7 +900,7 @@ class SparseCholesky:
         use_inv = self._want_inv_pivots()
         self.last_solve = {"sweeps": 0, "host_sweeps": 0, "k": k,
                            "engine": "banded" if use_inv else "plain",
-                           "loop": "none"}
+                           "loop": "none", "ell": None}
         if k == 0:
             return np.zeros((self.plan.n, 0))
         want_ir = refine == "always" or (

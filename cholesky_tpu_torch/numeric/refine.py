@@ -153,26 +153,34 @@ def build_ell(n: int, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray):
     return idx, a_hi, a_lo
 
 
+def pad_rows(fp: FrontalPlan, plane: np.ndarray, fill) -> np.ndarray:
+    """The rows of an [n, K] plane of the PERMUTED basis at their positions
+    in the banded padded basis (`frontal_plan._banded_maps`): `fill` in
+    the pad rows and in one extra row n_pad, so the refinement loop's
+    state vectors carry their zero slot inline."""
+    n_pad, _, inv_map, _, _ = _banded_maps(fp)
+    out = np.full((n_pad + 1,) + plane.shape[1:], fill, dtype=plane.dtype)
+    real = inv_map < plane.shape[0]                    # [n_pad]
+    out[:-1][real] = plane[inv_map[real]]
+    return out
+
+
+def pad_ell_index(fp: FrontalPlan, idx: np.ndarray) -> np.ndarray:
+    """An ELL index of the permuted matrix in the banded padded basis: rows
+    at their padded positions, column ids relabeled, sentinel n_pad (pad
+    rows and the extra row all-sentinel)."""
+    n_pad, _, _, pad_of, _ = _banded_maps(fp)
+    pad_ext = np.concatenate([pad_of, [n_pad]]).astype(np.int32)  # sent n
+    return pad_rows(fp, pad_ext[idx], n_pad)
+
+
 def pad_ell(fp: FrontalPlan, ell):
     """Relabel ELL planes of the symmetrized PERMUTED matrix into the banded
-    padded basis (`frontal_plan._banded_maps`): rows reordered to padded
-    positions (pad rows all-sentinel/zero), column ids relabeled, one extra
-    all-sentinel row n_pad so the refinement loop's state vectors carry
-    their zero slot inline."""
+    padded basis: the index by `pad_ell_index`, the value planes by
+    `pad_rows` (pad rows and the extra row n_pad zero)."""
     idx, a_hi, a_lo = ell
-    n, K = idx.shape
-    n_pad, _, inv_map, pad_of, _ = _banded_maps(fp)
-    pad_ext = np.concatenate([pad_of, [n_pad]]).astype(np.int32)  # sent n
-    idx_p = np.full((n_pad + 1, K), n_pad, dtype=np.int32)
-    a_hi_p = np.zeros((n_pad + 1, K), dtype=np.float32)
-    a_lo_p = np.zeros((n_pad + 1, K), dtype=np.float32)
-    real = inv_map < n                                 # [n_pad]
-    src = inv_map[real]
-    rows = np.nonzero(real)[0]
-    idx_p[rows] = pad_ext[idx[src]]
-    a_hi_p[rows] = a_hi[src]
-    a_lo_p[rows] = a_lo[src]
-    return idx_p, a_hi_p, a_lo_p
+    return (pad_ell_index(fp, idx), pad_rows(fp, a_hi, 0),
+            pad_rows(fp, a_lo, 0))
 
 
 def df_matvec(idx, a_hi, a_lo, x_hi, x_lo):

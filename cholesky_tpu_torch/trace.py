@@ -28,9 +28,12 @@ The spans (their names are the contract the benchmark's readers rely on):
                               (`frontal.frontal_factor_streamed`,
                               `ldlt.factor_qd`), inside `level_hook`
   chol.solve                  SparseCholesky.solve
-  chol.solve.ell_build        the residual's ELL planes built on the host
-                              (`symmetrize_coo`, `build_ell`, `pad_ell`)
-  chol.solve.ell_upload       the planes' upload
+  chol.solve.ell_index        the residual's ELL layout (index and source
+                              map) built on the host and uploaded, once
+                              per solver and engine
+  chol.solve.ell_build        the ELL value planes refilled on the device
+                              after an update (a gather and the f64 split)
+  chol.solve.ell_upload       the values' upload for that refill
   chol.solve.inv_pivots       the pivot inverses built
   chol.solve.host_loop        the host refinement loop
   chol.refine.apply           each application of the factor in a

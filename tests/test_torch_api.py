@@ -75,14 +75,18 @@ def test_state_from_jax_round_trip(dtype, port_fixtures):
 
 def test_host_refinement_when_ell_is_too_dense(monkeypatch):
     """Rows denser than ELL_MAX_K skip the device loop; the host loop with
-    an f64 residual still meets the contract."""
+    an f64 residual still meets the contract, after an update too."""
     monkeypatch.setattr(trefine, "ELL_MAX_K", 0)
     n, r, c, v, o, cl, b = generate_problem((12, 12, 12), 4)
     s = cholesky_tpu_torch.SparseCholesky.from_coo(
         n, r, c, v, o, cl, dtype=np.float32, device="cpu")
-    x = s.solve(b)
-    assert s.residual(b, x) <= TOL
-    assert s.last_solve["sweeps"] == 0 and s.last_solve["host_sweeps"] >= 1
+    for scale in (1.0, 2.0):
+        s.update_values(scale * v)
+        x = s.solve(b)
+        assert s.residual(b, x) <= TOL
+        assert s.last_solve["sweeps"] == 0 and s.last_solve["host_sweeps"] >= 1
+        assert s.last_solve["loop"] == "host" and s.last_solve["ell"] is None
+        assert s._ell is False and s._ell_dev == {}
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

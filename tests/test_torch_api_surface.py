@@ -1,5 +1,6 @@
 """The port's ordering-free entry points and factor read-outs
-(`from_matrix`, `from_scipy`, `spsolve`, `update_values`,
+(`from_matrix`, `from_scipy`, `spsolve`, `update_values` and the residual's
+ELL planes it refills,
 `factorize(check=)`, `logdet`, `factor_dense` / `factor_coo`,
 `permuted_dense`, `aslinearoperator`) and its file writers, against the JAX
 package on the same inputs, on the CPU.
@@ -21,7 +22,7 @@ from cholesky_tpu.io import mmio as jmmio, ordering as jordio
 from cholesky_tpu.utils import problems
 from cholesky_tpu_torch import SparseCholesky
 from cholesky_tpu_torch.io import mmio as tmmio, ordering as tordio
-from cholesky_tpu_torch.numeric import regimes
+from cholesky_tpu_torch.numeric import refine as trefine, regimes
 from tests.conftest import FIXTURES
 from tests.test_torch_fixtures import port_fixtures  # noqa: F401
 
@@ -142,7 +143,8 @@ def test_spsolve_dense_and_sparse_rhs(dtype):
 def test_update_values_follows_the_new_values(dtype):
     """New coefficients on the same pattern: every value-derived cache goes
     (a stale ELL plane would refine towards the old matrix's solution),
-    every symbolic object stays the same object."""
+    every symbolic object stays the same object, the residual's ELL layout
+    (index and source map, on the host and on the device) among them."""
     n, r, c, v, _, _ = _gallery()
     ts = SparseCholesky.from_matrix(n, r, c, v, dtype=dtype, device="cpu")
     js = cholesky_tpu.SparseCholesky.from_matrix(n, r, c, v, dtype=dtype)
@@ -150,6 +152,8 @@ def test_update_values_follows_the_new_values(dtype):
     x_old = ts.solve(b)
     kept = (ts.plan, ts.fplan, ts._fasm, ts._plans)
     assert all(k is not None for k in kept)
+    ell, ell_dev = ts._ell, dict(ts._ell_dev)
+    assert ell and (dtype == np.float64 or ell_dev)
     rng = np.random.default_rng(4)
     new = ts.vals * rng.uniform(0.5, 1.5, size=len(ts.vals))
     diag = ts.rows == ts.cols
@@ -159,8 +163,9 @@ def test_update_values_follows_the_new_values(dtype):
     ts.update_values(new)
     js.update_values(new)
     assert not ts.factored and ts.panels is None
-    assert ts._inv is None and ts._csr is None and ts._ell is None
-    assert ts._ell_dev == {}
+    assert ts._inv is None and ts._csr is None and ts._ell_vals is None
+    assert ts._ell is ell and ts._ell_dev.keys() == ell_dev.keys()
+    assert all(ts._ell_dev[k] is lay for k, lay in ell_dev.items())
     x = ts.solve(b)
     assert all(a is k for a, k in zip(
         (ts.plan, ts.fplan, ts._fasm, ts._plans), kept))
@@ -176,6 +181,97 @@ def test_update_values_follows_the_new_values(dtype):
     ts.update_values(2.0 * new[p], rows=pc[p], cols=pr[p])
     assert np.array_equal(ts.vals, 2.0 * new)
     assert _rel(ts.solve(b), 0.5 * x) <= X_REL
+
+
+def _new_values(ts, v, rng, step):
+    """Values on the solver's pattern that keep it positive definite."""
+    new = v * rng.uniform(0.5, 1.5, size=len(v))
+    diag = ts.rows == ts.cols
+    new[diag] = v[diag] * 3.0 + 1.0 + step
+    return new
+
+
+@pytest.mark.parametrize("by", ["vals", "coo_shuffled"])
+@pytest.mark.parametrize("engine", ["banded", "plain"])
+def test_refilled_ell_planes_equal_a_fresh_host_build(engine, by,
+                                                      monkeypatch):
+    """After each of three updates in a row, the ELL planes the solve
+    refilled on the device are bitwise those the host builds from the new
+    values (`build_ell`, then `pad_ell` for the banded engine), and the
+    solve meets the contract."""
+    n, r, c, v, _, _ = _gallery()
+    ts = SparseCholesky.from_matrix(n, r, c, v, dtype=np.float32,
+                                    device="cpu")
+    if engine == "plain":
+        monkeypatch.setattr(ts, "_want_inv_pivots", lambda: False)
+    b = np.random.default_rng(3).standard_normal(n)
+    ts.solve(b)
+    rng = np.random.default_rng(6)
+    pr, pc = ts.coo_pattern()
+    for step in range(3):
+        new = _new_values(ts, v, rng, step)
+        if by == "vals":
+            ts.update_values(new)
+        else:
+            p = rng.permutation(len(new))
+            ts.update_values(new[p], rows=pc[p], cols=pr[p])
+        x = ts.solve(b)
+        assert ts.last_solve["engine"] == engine
+        assert ts.last_solve["ell"] == "refill"
+        assert ts.residual(b, x) <= TOL
+        sr, sc, sv = tmmio.symmetrize_coo(pr, pc, new)
+        want = trefine.build_ell(n, ts.plan.iperm[sr], ts.plan.iperm[sc], sv)
+        if engine == "banded":
+            want = trefine.pad_ell(ts.fplan, want)
+        idx, a_hi, a_lo = ts._ell_device(engine == "banded")
+        assert np.array_equal(idx.numpy(), want[0])
+        for got, ref in ((a_hi, want[1]), (a_lo, want[2])):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            assert np.array_equal(got.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+
+
+def _no_host_build(*args, **kwargs):
+    raise AssertionError("the ELL rebuilt on the host after an update")
+
+
+def test_ell_layout_is_kept_across_updates(monkeypatch):
+    """The ELL layout is built on the first solve and kept: each update
+    refills the value planes on the device (no host rebuild: no
+    symmetrize_coo, build_ell, ell_slots or pad_ell), repeated solves keep
+    them, and the index stays the same tensor."""
+    n, r, c, v, _, _ = _gallery()
+    ts = SparseCholesky.from_matrix(n, r, c, v, dtype=np.float32,
+                                    device="cpu")
+    b = np.random.default_rng(3).standard_normal(n)
+    ts.solve(b)
+    assert ts.last_solve["ell"] == "index"
+    banded = ts.last_solve["engine"] == "banded"
+    idx, src, ext = ts._ell_dev[banded]
+    ts.solve(b)
+    assert ts.last_solve["ell"] == "kept"
+    for name in ("symmetrize_coo",):
+        monkeypatch.setattr(tmmio, name, _no_host_build)
+    for name in ("build_ell", "ell_slots", "pad_ell", "pad_ell_index",
+                 "pad_rows"):
+        monkeypatch.setattr(trefine, name, _no_host_build)
+    rng = np.random.default_rng(7)
+    solved = []
+    for step in range(3):
+        new = _new_values(ts, v, rng, step)
+        ts.update_values(new)
+        for how in ("refill", "kept"):
+            solved.append((new, ts.solve(b)))
+            assert ts.last_solve["ell"] == how
+            assert ts.last_solve["loop"] == "device"
+        assert ts._ell_dev[banded][0] is idx
+        assert ts._ell_dev[banded][1] is src and ts._ell_dev[banded][2] is ext
+    monkeypatch.undo()
+    pr, pc = ts.coo_pattern()
+    for new, x in solved:
+        a = sp.csr_matrix((new, (pr, pc)), shape=(n, n))
+        a = a + sp.tril(a, -1).T
+        assert np.linalg.norm(a @ x - b) <= TOL * np.linalg.norm(b)
 
 
 def test_update_values_refuses_another_pattern():

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from cholesky_tpu_torch import SparseCholesky
-from cholesky_tpu_torch.numeric import devmem, regimes
+from cholesky_tpu_torch.io import mmio
+from cholesky_tpu_torch.numeric import devmem, refine, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.utils.laplacian import generate_problem
 
@@ -293,7 +294,8 @@ def test_offloaded_bf16_factor_solve_on_card():
 @pytest.mark.cuda
 def test_long_lived_state_lives_in_its_own_pool():
     """The plan's index maps, the assembler's scatter indices (per chunk
-    too) and the ELL planes come from the pool of long-lived state
+    too), the ELL layout (index, source map, values buffer) and its value
+    planes come from the pool of long-lived state
     (`devmem`), never from a segment that fronts and factors use; a
     refactorization after solves meets the contract."""
     _require_cuda()
@@ -311,6 +313,7 @@ def test_long_lived_state_lives_in_its_own_pool():
     fasm = s._assembler()
     long_lived = [t for t in s.fplan.cache.values() if torch.is_tensor(t)]
     long_lived += [t for planes in s._ell_dev.values() for t in planes]
+    long_lived += list(s._ell_vals)
     long_lived += [t for lvl in fasm.idx for t in lvl]
     long_lived += [t for idx in fasm._chunk_idx.values() for t in idx]
     long_lived = [t for t in long_lived if t.numel()]
@@ -339,6 +342,40 @@ def test_refactorize_after_releasing_cached_memory(monkeypatch):
     assert s._ell_dev[True] is ell
     x = s.solve(b)
     assert s.residual(b, x) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("banded", [True, False])
+def test_ell_planes_refilled_on_card_equal_a_host_build(banded, monkeypatch):
+    """The ELL value planes refilled on the card after an update (a gather
+    and the f64 split, rounded by the card) are bitwise those the host
+    builds from the new values; the index stays the same tensor."""
+    _require_cuda()
+    s, b = _regime_solver({})
+    if not banded:
+        monkeypatch.setattr(s, "_want_inv_pivots", lambda: False)
+    s.solve(b)
+    idx = s._ell_dev[banded][0]
+    rng = np.random.default_rng(11)
+    pr, pc = s.coo_pattern()
+    v0, diag = s.vals.copy(), pr == pc
+    for step in range(2):
+        new = v0 * rng.uniform(0.5, 1.5, size=len(v0))
+        new[diag] = v0[diag] * 3.0 + 1.0 + step   # diagonally dominant
+        s.update_values(new)
+        x = s.solve(b)
+        assert s.last_solve["ell"] == "refill"
+        assert s.residual(b, x) <= TOL
+        r, c, v = mmio.symmetrize_coo(pr, pc, new)
+        want = refine.build_ell(s.plan.n, s.plan.iperm[r], s.plan.iperm[c], v)
+        if banded:
+            want = refine.pad_ell(s.fplan, want)
+        got = s._ell_device(banded)
+        assert got[0] is idx and got[1].is_cuda
+        assert np.array_equal(got[0].cpu().numpy(), want[0])
+        for g, w in zip(got[1:], want[1:]):
+            assert np.array_equal(g.cpu().numpy().view(np.uint32),
+                                  w.view(np.uint32))
 
 
 @pytest.mark.cuda

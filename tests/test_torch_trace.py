@@ -137,18 +137,44 @@ def test_spans_of_a_cycle(traced_cycles):
             first = tops[i - 1][0].name == "chol.factorize"
             last = lasts[[t.name for t, _ in tops[:i]].count("chol.solve")]
             assert last["engine"] == "banded" and last["loop"] == "device"
-            # the banded engine: the ELL built (build_ell, then pad_ell),
-            # uploaded, the pivot inverses, on the first solve after the
-            # update only
-            rebuild = (["chol.solve.ell_build", "chol.solve.ell_build",
-                        "chol.solve.ell_upload", "chol.solve.inv_pivots"]
-                       if first else [])
+            # the banded engine, on the first solve after the update only:
+            # the values uploaded, the ELL value planes refilled on the
+            # device, the pivot inverses; the ELL layout (chol.solve.
+            # ell_index) was built on the solver's first solve, before
+            assert last["ell"] == ("refill" if first else "kept")
+            rebuild = (["chol.solve.ell_upload", "chol.solve.ell_build",
+                        "chol.solve.inv_pivots"] if first else [])
             sweeps = ["chol.refine.apply", "chol.refine.resid",
                       "chol.refine.norm"] * (last["sweeps"] + 1)
             assert names == rebuild + sweeps
             assert names.count("chol.refine.apply") == last["sweeps"] + 1
         else:
             assert names == []
+
+
+def test_ell_index_on_a_solvers_first_solve_only():
+    """The ELL layout is built once, on a solver's first solve (its host
+    pattern, then the engine's index on the device), and kept across
+    update_values: the next cycle's solve only refills the value planes."""
+    s, v, b = _solver()
+    s.factorize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        s.solve(b)
+        first = dict(s.last_solve)
+        (_, again), = _cycle(s, v * 2.0, b, solves=1)
+    tops = [(t.name, [k.name for k in kids])
+            for t, kids in _by_top(trace.spans()).items()]
+    solves = [kids for name, kids in tops if name == "chol.solve"]
+    assert len(solves) == 2
+    assert solves[0][:5] == ["chol.solve.ell_index", "chol.solve.ell_index",
+                             "chol.solve.ell_upload", "chol.solve.ell_build",
+                             "chol.solve.inv_pivots"]
+    assert solves[1][:3] == ["chol.solve.ell_upload", "chol.solve.ell_build",
+                             "chol.solve.inv_pivots"]
+    assert [n for _, kids in tops for n in kids].count(
+        "chol.solve.ell_index") == 2
+    assert (first["ell"], again["ell"]) == ("index", "refill")
 
 
 def test_each_record_lies_in_its_top_level_call(traced_cycles):
