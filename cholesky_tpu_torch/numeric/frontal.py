@@ -87,6 +87,11 @@ from cholesky_tpu_torch.parallel.mesh import Sharded
 # Setting a width (the JAX package's default is 2048) forces it.
 ROOT_DIST_MIN: Optional[int] = None
 
+# The spans of a level's steps in `_factor_level`, one each per chunk
+PIVOT = "chol.step.pivot"
+SCHUR = "chol.step.schur"
+EXTEND_ADD = "chol.step.extend_add"
+
 
 def _acc(dtype) -> torch.dtype:
     """Accumulation dtype of a stored dtype: f64 stays f64, else f32."""
@@ -442,15 +447,18 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
     (None when lvl == 0). `lp` is the level's regime (square front or two
     piece, xxt tier, update dtype); None is the in-core square path with
     updates in the factor's dtype. `route_b` and `root` as in
-    `_factor_slab` (the root only where children feed the level)."""
+    `_factor_slab` (the root only where children feed the level). Its
+    steps open the spans PIVOT, SCHUR and EXTEND_ADD (`trace.py`)."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
     B = piv.shape[0]
     udt = piv.dtype if lp is None else lp.update_dtype
+    dev = piv.device
 
     if U is None:
         # leaf levels: no children, so the square front is never needed —
         # factor the [B, F, W] pivot slab directly
-        fac = _factor_slab(piv, Wl, route_b)
+        with trace.span(PIVOT, dev):
+            fac = _factor_slab(piv, Wl, route_b)
         if lvl == 0:
             return fac, None
         if Fl > Wl:
@@ -464,33 +472,42 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
         # built
         E_T = None
         if isinstance(U, tuple) and not lp.xxt_tier:
-            U = _rows_product(U[1], U[1].dtype)     # X X^T; frees X
+            with trace.span(SCHUR, dev):
+                U = _rows_product(U[1], U[1].dtype)     # X X^T; frees X
         if isinstance(U, tuple) or U.shape[1] > 0:
-            piv, E_T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, udt)
+            with trace.span(EXTEND_ADD, dev):
+                piv, E_T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, udt)
         del U
-        fac = _factor_slab(piv, Wl, route_b, root)
+        with trace.span(PIVOT, dev):
+            fac = _factor_slab(piv, Wl, route_b, root)
         del piv
         if lvl == 0:
             return fac, None
         if Fl > Wl:
-            return fac, _schur_update_cast(fac[:, Wl:, :], E_T, udt, fp=fp,
-                                           child_lvl=lvl + 1)
+            with trace.span(SCHUR, dev):
+                return fac, _schur_update_cast(fac[:, Wl:, :], E_T, udt,
+                                               fp=fp, child_lvl=lvl + 1)
         return fac, fac.new_zeros((B, 0, 0))
 
     full = piv.new_zeros((B, Fl + 1, Fl))             # row Fl: sentinel
     full[:, :Fl, :Wl] = piv
     del piv
     if isinstance(U, tuple):
-        U = _rows_product(U[1], U[1].dtype)
+        with trace.span(SCHUR, dev):
+            U = _rows_product(U[1], U[1].dtype)
     if U.shape[1] > 0:
-        _extend_add_fused_(fp, full, U, lvl + 1)
+        with trace.span(EXTEND_ADD, dev):
+            _extend_add_fused_(fp, full, U, lvl + 1)
     del U
-    fac = _factor_slab(full[:, :Fl, :Wl], Wl, route_b, root)
+    with trace.span(PIVOT, dev):
+        fac = _factor_slab(full[:, :Fl, :Wl], Wl, route_b, root)
     if lvl == 0:
         return fac, None
     if Fl > Wl:
-        return fac, _schur_update_cast(fac[:, Wl:, :], full[:, Wl:Fl, Wl:],
-                                       udt, beta=-1.0)
+        with trace.span(SCHUR, dev):
+            return fac, _schur_update_cast(fac[:, Wl:, :],
+                                           full[:, Wl:Fl, Wl:], udt,
+                                           beta=-1.0)
     return fac, fac.new_zeros((B, 0, 0))
 
 

@@ -27,6 +27,16 @@ The spans (their names are the contract the benchmark's readers rely on):
   chol.level.L<lvl:02d>       each level of the level loops
                               (`frontal.frontal_factor_streamed`,
                               `ldlt.factor_qd`), inside `level_hook`
+  chol.step.pivot             inside a level of `frontal._factor_level`,
+                              per chunk: the partial front factorization
+                              (`_factor_slab`)
+  chol.step.schur             there: the Schur update of the boundary
+                              block (`_schur_update_cast`, and the leaves'
+                              deferred X X^T, `_rows_product`)
+  chol.step.extend_add        there: the children's updates added into the
+                              fronts (`_extend_add_fused_`,
+                              `_apply_extadd_two_piece`; its leaf tier
+                              forms the leaves' products in it)
   chol.solve                  SparseCholesky.solve
   chol.solve.ell_index        the residual's ELL layout (index and source
                               map) built on the host and uploaded, once
@@ -57,7 +67,7 @@ from torch.profiler import record_function
 # records kept; older ones are dropped (and counted) past it. A record on
 # the card holds its CUDA event pair until its extent is read, so the bound
 # also bounds the events alive (a 5 s traced window of a refactor loop
-# opens ~1,000 spans, of a solve loop ~3,000)
+# opens ~1,000 spans, ~3,700 with the level steps, of a solve loop ~3,000)
 LIMIT = 1 << 16
 
 

@@ -6,6 +6,7 @@ benchmark's readers of those spans (`cholbench/metrics/_program.py`) give
 their numbers through a traced run of the harness.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -19,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import cholesky_tpu_torch
 from cholesky_tpu_torch import trace
+from cholesky_tpu_torch.numeric import frontal, regimes
 from cholesky_tpu_torch.utils.laplacian import generate_problem
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +37,18 @@ PROGRAM_METRICS = [("ell_build_ms.cycle", "refactor", True),
                    ("inv_pivots_ms.cycle", "refactor", False),
                    ("factor_issue_ms.cycle", "refactor", True),
                    ("apply_host_ms.solve", "solve", True),
-                   ("apply_dev_ms.solve", "solve", False)]
+                   ("apply_dev_ms.solve", "solve", False),
+                   ("extadd_ms.cycle", "refactor", False),
+                   ("pivot_ms.cycle", "refactor", False),
+                   ("schur_ms.cycle", "refactor", False),
+                   ("pivot_roofline_pct.cycle", "refactor", False),
+                   ("schur_roofline_pct.cycle", "refactor", False)]
+# the refactor cells; the step rooflines read a configuration's step_work,
+# which only the elasticity configuration has
+ELAST = "elast_q1_64.newmark"
+CELLS = {"pivot_roofline_pct.cycle": [ELAST],
+         "schur_roofline_pct.cycle": [ELAST]}
+STEPS = (frontal.PIVOT, frontal.SCHUR, frontal.EXTEND_ADD)
 
 
 def _solver(signs=False):
@@ -128,7 +141,7 @@ def test_spans_of_a_cycle(traced_cycles):
         "chol.solve"] * 2
     L = s.fplan.levels
     for i, (top, kids) in enumerate(tops):
-        names = [k.name for k in kids]
+        names = [k.name for k in kids if k.name not in STEPS]
         if top.name == "chol.factorize":
             assert names == (["chol.factorize.plan", "chol.factorize.fronts"]
                              + [f"chol.level.L{lvl:02d}"
@@ -225,6 +238,135 @@ def test_level_spans_of_the_signed_factorization():
     assert seen == ["start", "end"] * L
 
 
+def _regime(s, kind):
+    """The regime plan `kind` of an 8^3 L3 solver: the default (square
+    fronts), two-piece fronts fed by the leaves' X (xxt tier) or by their
+    X X^T (gather tier), or square fronts in two batch chunks below the
+    root."""
+    if kind == "square":
+        return regimes.plan_regimes(s.fplan, s.dtype, 1 << 40,
+                                    two_piece=False)
+    if kind == "chunks":
+        return regimes.plan_regimes(s.fplan, s.dtype, 1 << 40,
+                                    two_piece=False, chunks={2: 2, 1: 2})
+    plan = regimes.plan_regimes(s.fplan, s.dtype, 1 << 40, two_piece=True)
+    if kind == "gather":
+        plan.levels = [dataclasses.replace(lp, xxt_tier=False)
+                       for lp in plan.levels]
+    return plan
+
+
+def _expected_steps(fp, lp, lvl):
+    """The step spans `_factor_level` opens in one chunk of level `lvl`:
+    the leaves' deferred X X^T (unless a two-piece level's xxt tier forms
+    it inside its extend-add), the extend-add where the children emit an
+    update, the partial factorization, and the Schur update below the
+    root where the front has a boundary."""
+    L = fp.levels
+    if lvl == L - 1:
+        return [frontal.PIVOT]
+    leaf_x = lvl == L - 2 and fp.F[L - 1] > fp.W[L - 1]
+    out = []
+    if leaf_x and not (lp.two_piece and lp.xxt_tier):
+        out.append(frontal.SCHUR)
+    if fp.F[lvl + 1] > fp.W[lvl + 1]:
+        out.append(frontal.EXTEND_ADD)
+    out.append(frontal.PIVOT)
+    if lvl > 0 and fp.F[lvl] > fp.W[lvl]:
+        out.append(frontal.SCHUR)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["square", "xxt", "gather", "chunks"])
+def test_step_spans_of_each_level(kind):
+    """A traced factorization opens, inside each level's span, the spans
+    of that level's steps, once per chunk, in the order the steps run."""
+    s, v, b = _solver()
+    s._plan_override = _regime(s, kind)
+    s.factorize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        s.factorize()
+    spans = trace.spans()
+    levels = [sp for sp in spans if sp.name.startswith("chol.level.")]
+    steps = [sp for sp in spans if sp.name in STEPS]
+    fp = s.fplan
+    assert [sp.name for sp in levels] == [
+        f"chol.level.L{lvl:02d}" for lvl in range(fp.levels - 1, -1, -1)]
+    seen = 0
+    for sp in levels:
+        lvl = int(sp.name[-2:])
+        lp = s.regimes.levels[lvl]
+        inside = [st for st in steps if sp.t0_ns <= st.t0_ns <= sp.t1_ns]
+        assert [st.name for st in inside] == (
+            _expected_steps(fp, lp, lvl) * lp.chunks)
+        assert all(st.t1_ns <= sp.t1_ns and st.parent == sp.parent
+                   for st in inside)
+        seen += len(inside)
+    assert seen == len(steps) > 0
+    assert [lp.chunks for lp in s.regimes.levels] == (
+        [1, 2, 2] if kind == "chunks" else [1, 1, 1])
+    assert s.residual(b, s.solve(b)) <= 1e-10
+
+
+@pytest.mark.parametrize("kind", ["square", "xxt", "gather", "chunks"])
+def test_step_spans_off_record_nothing(kind, monkeypatch):
+    s, v, b = _solver()
+    s._plan_override = _regime(s, kind)
+    s.factorize()
+    monkeypatch.setattr(trace, "record_function", _raise)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    trace.clear()
+    s.update_values(v * 2.0)
+    s.factorize()
+    assert trace.spans() == [] and trace.dropped() == 0
+    assert s.residual(b, s.solve(b)) <= 1e-10
+
+
+class _FakeSpan:
+    def __init__(self, name, t0, device_ms):
+        self.name, self.t0_ns, self.t1_ns = name, int(t0 * 1e9), int(
+            t0 * 1e9) + 1
+        self.device_ms, self.host_ms = device_ms, 1e-6
+
+
+def test_step_readers_sum_per_cycle_and_divide_the_step_work(monkeypatch):
+    """The step metrics sum a cycle's device extents of their span; the
+    rooflines divide the step's least time by that sum, and read nothing
+    in a configuration without `step_work`."""
+    from cholbench.metrics import _program
+
+    with open(os.path.join(REPO, "cholbench/configs/elast_q1_64.json")) as f:
+        cfg = json.load(f)
+    rec = harness.Record(cfg, {"request": "cycle"})
+    rec.requests = [{"t0": 1.0, "t1": 2.0, "spans": {}},
+                    {"t0": 3.0, "t1": 4.0, "spans": {}}]
+    fake = [_FakeSpan(frontal.PIVOT, 1.1, 100.0),
+            _FakeSpan(frontal.PIVOT, 1.2, 20.0),
+            _FakeSpan(frontal.SCHUR, 1.3, 300.0),
+            _FakeSpan(frontal.PIVOT, 2.5, 999.0),      # between cycles
+            _FakeSpan(frontal.PIVOT, 3.1, 80.0),
+            _FakeSpan(frontal.SCHUR, 3.2, 500.0)]
+    monkeypatch.setattr(_program, "_recorded", lambda: fake)
+
+    def read(name, r=rec):
+        path = os.path.join(REPO, "cholbench/metrics", name + ".py")
+        return yardstick.load_module(path, "m").read(r)
+
+    assert read("pivot_ms.cycle") == pytest.approx(100.0)
+    assert read("schur_ms.cycle") == pytest.approx(400.0)
+    assert read("extadd_ms.cycle") is None
+    work = cfg["step_work"]
+    for step, ms in (("pivot", 100.0), ("schur", 400.0)):
+        least, _ = yardstick.least_seconds(work[step + "_flops"],
+                                           work[step + "_bytes"], "ieee")
+        assert read(f"{step}_roofline_pct.cycle") == pytest.approx(
+            100.0 * least / (ms / 1e3))
+    del rec.cfg["step_work"]
+    assert read("pivot_roofline_pct.cycle") is None
+    assert read("pivot_ms.cycle") == pytest.approx(100.0)
+
+
 def test_a_raising_level_closes_its_span_and_skips_the_end_hook():
     s, v, b = _solver()
     trace.clear()
@@ -266,7 +408,8 @@ def test_program_metric_declared_with_a_reader(name, kind, on_cpu):
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     m, = [m for m in bench["per_layer"] if m["name"] == name]
-    assert m["workloads"] == [f"lapl7_50.{kind}"]
+    assert m["workloads"] == CELLS.get(name, [f"lapl7_50.{kind}"] + (
+        [ELAST] if kind == "refactor" else []))
     assert m["moves"] == ("cycle_ms" if kind == "refactor" else "solve_ms")
     assert m["source"] == ("host_clock" if on_cpu else "device_trace")
     path = os.path.join(REPO, "cholbench/metrics", name + ".py")
