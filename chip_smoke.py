@@ -32,6 +32,13 @@ Phases, each printing one JSON line:
              then at the 50^3 leaf slab [128, 1440, 864] timed beside its
              plain version, the cuBLAS composite it replaced, the library
              pair `cholesky_ex` + `solve_triangular` and its bound;
+             `form_front` (csrc/form_front.cu) at the shape of every level
+             with children of the benchmark's two configurations
+             (FRONT_LEVELS, seeded values and maps), f32: bitwise equal to
+             its plain version `form_front_ref` and to itself on a second
+             launch, zero sentinel row, then timed beside its byte bound
+             at 3.35 TB/s, its plain version and the path it replaced
+             (zero-fill + slab copy + `frontal._extend_add_fused_`);
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -248,6 +255,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 
 TOL = 1e-10                        # the solver's relative-residual contract
 L_REL_TOL = 1e-4                   # kernel vs plain, L (f32)
@@ -261,6 +269,27 @@ SLAB_TF32_REL_TOL = 5e-3
 # slab_diag clusters are 7, 6, 5 and 3 CTAs wide on a 132-SM H100
 SLAB_CLUSTER_CLASSES = ((9, 700, 512), (11, 1440, 864), (13, 600, 512),
                         (20, 1008, 384))
+# (level, B, F, W, K, mean rows of a child's update that land in the
+# front) of every level with children of the benchmark's configurations,
+# from the port's plan of each (`cholbench/configs`); K is the update's
+# padded width
+FRONT_LEVELS = {
+    "lapl7_50": (
+        (0, 1, 2504, 2504, 2504, 2500), (1, 2, 3760, 1256, 2504, 2450),
+        (2, 4, 3136, 632, 1880, 1801), (3, 8, 2512, 632, 1856, 1467),
+        (4, 16, 2160, 304, 1344, 998), (5, 32, 1488, 144, 864, 621),
+        (6, 64, 1008, 144, 576, 429), (7, 128, 648, 72, 360, 263),
+        (8, 256, 400, 40, 216, 152), (9, 512, 256, 40, 144, 94),
+        (10, 1024, 168, 24, 96, 52)),
+    "elast_q1_64": (
+        (0, 1, 12480, 12480, 12480, 12480), (1, 2, 18624, 6144, 12480, 12480),
+        (2, 4, 15552, 3072, 9512, 9410), (3, 8, 12584, 3072, 9656, 7826),
+        (4, 16, 11192, 1536, 7296, 5474), (5, 32, 8064, 768, 5008, 3531),
+        (6, 64, 5776, 768, 3424, 2534), (7, 128, 3808, 384, 2224, 1662),
+        (8, 256, 2416, 192, 1360, 1033), (9, 512, 1552, 192, 952, 709),
+        (10, 1024, 1048, 96, 640, 456), (11, 2048, 688, 48, 400, 281),
+        (12, 4096, 448, 48, 288, 191), (13, 8192, 312, 24, 208, 123)),
+}
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
 # f32-stored regime factors vs the default (square, f32) factor, relative
 # to the level's largest entry: summation order only (two-piece, chunks),
@@ -611,6 +640,102 @@ def phase_slab_kernel():
     return {**out, "max_abs_err": max_abs, "timed_shape": [B, F, W]}
 
 
+def front_inputs(B, F, W, K, m, gen, dev):
+    """Seeded f32 pivot slabs [B, F, W], child updates [2B, K, K] and maps
+    [2B, F]: each child's first m update rows land on sorted random rows of
+    the parent, the others nowhere (K)."""
+    import torch
+
+    piv = torch.randn(B, F, W, generator=gen, device=dev)
+    U = torch.randn(2 * B, K, K, generator=gen, device=dev)
+    pos = torch.rand(2 * B, F, generator=gen, device=dev).argsort(1)
+    pos = pos[:, :m].sort(1).values
+    inv = torch.full((2 * B, F), K, dtype=torch.int64, device=dev)
+    inv.scatter_(1, pos, torch.arange(m, device=dev).expand(2 * B, m)
+                 .contiguous())
+    return piv, U, inv
+
+
+def phase_form_front():
+    """form_front (csrc/form_front.cu) at every level shape of FRONT_LEVELS:
+    bitwise against `form_front_ref` and a second launch, the sentinel row
+    zero; its time beside the least the card could take (each front element
+    written once, the slab, the landing update entries and the maps read
+    once, at 3.35 TB/s), the plain version's and the path it replaced
+    (zero-fill, slab copy, `frontal._extend_add_fused_`), per level and
+    summed per configuration."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import frontal
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def maps_plan(inv, K):
+        """A plan that holds only the child maps `_extend_add_fused_`
+        reads, inv and its inverse fwd, in the cache that
+        `frontal._device_index` looks in."""
+        F = inv.shape[1]
+        fwd = torch.full((inv.shape[0], K), F, dtype=torch.int64, device=dev)
+        hit = (inv < K).nonzero(as_tuple=True)
+        fwd[hit[0], inv[hit]] = hit[1]
+        key = str(inv.device)
+        return types.SimpleNamespace(cache={("inv_child", 1, key, 1): inv,
+                                            ("fwd_child", 1, key, 1): fwd})
+
+    def old_path(plan, piv, U):
+        """Zeros, the slab copied in, `_extend_add_fused_`."""
+        B, F, W = piv.shape
+        full = piv.new_zeros((B, F + 1, F))
+        full[:, :F, :W] = piv
+        frontal._extend_add_fused_(plan, full, U, 1)
+        return full
+
+    summary = {}
+    for cfg, levels in FRONT_LEVELS.items():
+        rows = []
+        for lvl, B, F, W, K, m in levels:
+            piv, U, inv = front_inputs(B, F, W, K, m, gen, dev)
+            k = hk.form_front(piv, U, inv, F, W)
+            again = hk.form_front(piv, U, inv, F, W)
+            p = hk.form_front_ref(piv, U, inv, F, W)
+            plan = maps_plan(inv, K)
+            old = old_path(plan, piv, U)
+            torch.cuda.synchronize()
+            where = f"form_front {cfg} L{lvl} [{B}, {F}, {W}], K {K}"
+            check(bool(torch.equal(k, p)), f"{where}: differs from plain")
+            check(bool(torch.equal(k, again)), f"{where}: not reproducible")
+            check(not bool(k[:, F].any()), f"{where}: sentinel row not 0")
+            old_diff = float((k[:, :F] - old[:, :F]).abs().max())
+            del again, p, old
+            nbytes = 4 * (B * (F + 1) * F + B * F * W + 2 * B * m * m
+                          + 2 * B * F * 2)
+            bound_ms = nbytes / hk.HBM_BYTES_PER_S * 1e3
+            row = {"level": lvl, "shape": [B, F, W, K, m], "bytes": nbytes,
+                   "bound_ms": bound_ms,
+                   "ms": cuda_ms(lambda: hk.form_front(piv, U, inv, F, W),
+                                 iters=5, warmup=1),
+                   "plain_ms": cuda_ms(lambda: hk.form_front_ref(
+                       piv, U, inv, F, W), iters=3, warmup=1),
+                   "old_ms": cuda_ms(lambda: old_path(plan, piv, U),
+                                     iters=3, warmup=1),
+                   "old_max_abs_diff": old_diff}
+            row["share"] = bound_ms / row["ms"]
+            emit({"phase": "kernel", "name": "form_front", "config": cfg,
+                  **row})
+            rows.append(row)
+            del piv, U, inv, k, plan
+            torch.cuda.empty_cache()
+        tot = {key: sum(r[key] for r in rows)
+               for key in ("bytes", "bound_ms", "ms", "plain_ms", "old_ms")}
+        tot["share"] = tot["bound_ms"] / tot["ms"]
+        emit({"phase": "kernel", "name": "form_front", "config": cfg,
+              "levels": len(rows), "total": tot})
+        summary[cfg] = tot
+    return summary
+
+
 def _scipy_matrix(n, rows, cols, vals):
     import numpy as np
     import scipy.sparse as sp
@@ -720,6 +845,10 @@ def phase_slice():
           f"expected 11 chol_inv launches per factorization, got "
           f"{launches['chol_inv']} in {len(walls)}")
     check_slab_launches(launches, 3 * len(walls), "50^3 L8 slice")
+    # every level with children is square: one front formed a level
+    check(launches["form_front"] == 7 * len(walls),
+          f"expected 7 form_front launches per factorization, got "
+          f"{launches['form_front']} in {len(walls)}")
     SLAB_BY_PATH[f"50^3 L8 slice ({len(walls)} factorizations)"] = launches[
         "factor_slab"]
     check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
@@ -3275,6 +3404,9 @@ def check_bench(result) -> None:
                       for lv in r["regime_plan"]]
             rule = {k: rule_launches(levels, k)
                     for k in ("chol_inv", "factor_slab")}
+            # one front formed a chunk of every square level with children
+            rule["form_front"] = sum(lv["chunks"] for lv in r["regime_plan"]
+                                     if lv["path"] == "square")
             for key in ("launches", "launches_production"):
                 check(r.get(key, rule) == rule, f"bench {name}: {key} "
                       f"{r.get(key)} of one warm factorization, the "
@@ -3341,6 +3473,7 @@ def main() -> int:
         phase_build()
         kern = phase_kernel()
         slab = phase_slab_kernel()
+        front = phase_form_front()
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
@@ -3397,7 +3530,15 @@ def main() -> int:
         "launches_by_path": dict(SLAB_BY_PATH),
         **{k: slab[k] for k in (
             "max_abs_err", "ms", "plain_ms", "composite_ms", "library_ms",
-            "bound_ms", "bound_by", "executed_tflops", "timed_shape")}}]})
+            "bound_ms", "bound_by", "executed_tflops", "timed_shape")}}, {
+        "name": "form_front", "route": "cuda",
+        "source": "cholesky_tpu_torch/kernels/csrc/form_front.cu",
+        "replaces": "no TPU kernel: the torch indexing of "
+                    "frontal._extend_add_fused_ (zero-fill, slab copy, "
+                    "gather, accumulating index_put_)",
+        "launches": launches["form_front"],
+        "launches_by_path": {"50^3 L8 slice": launches["form_front"]},
+        "per_config": front}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,8 +5,12 @@ Ported:
   * `_factor_level` (`:1249`): the leaf branch (`:1274-1299`, with the
     deferred ("xxt", X) Schur product), the two-piece branch (`:1314-1362`)
     and the square-front branch (`:1364-1431`).
-  * The square path's extend-add `_apply_child_updates_fused` (`:857`), as
-    `_extend_add_fused_`, in place and in row chunks.
+  * The square path's extend-add `_apply_child_updates_fused` (`:857`):
+    `_form_front` forms each level's square fronts from the pivot slabs and
+    the children's updates in one pass (`hopper_kernels.form_front`, a
+    hand-written kernel on the card). `_extend_add_fused_`, the torch
+    indexing it replaced (in place, in row chunks), is kept as the tests'
+    reference.
   * The two-piece extend-add: `_expand_xxt_2` (`:603`), `_apply_gather_2`
     (`:755`), `_schur_update_cast` / `_einsum_rows_cast` (`:646-752`) and
     the dispatcher `_apply_extadd_two_piece` (`:824`).
@@ -292,9 +296,10 @@ def _extadd_rows(U: torch.Tensor, inv: torch.Tensor, r0: int, r1: int,
 
 def _extend_add_fused_(fp, fullpad: torch.Tensor, U: torch.Tensor,
                        child_lvl: int) -> None:
-    """The square path's extend-add (`_apply_child_updates_fused`,
-    `frontal.py:857`): subtract both children's updates U [2B, K, K] from
-    the parent's square fronts, in place on the padded buffer
+    """The square path's extend-add that `_form_front` replaced, kept as
+    the tests' reference (`_apply_child_updates_fused`, `frontal.py:857`):
+    subtract both children's updates U [2B, K, K] from the parent's square
+    fronts, in place on the padded buffer
     [B, Fp + 1, Fp] (row Fp is the sentinel). Per chunk of child rows, the
     update's columns are gathered into parent column coordinates (sentinel
     columns read zero) and the rows scatter-added at their parent
@@ -312,6 +317,25 @@ def _extend_add_fused_(fp, fullpad: torch.Tensor, U: torch.Tensor,
         fullpad.index_put_((seg.expand(B2, k1 - k0), fwd[:, k0:k1]), e1,
                            accumulate=True)
         del e1
+
+
+def _form_front(fp, piv: torch.Tensor, U, child_lvl: int) -> torch.Tensor:
+    """The square fronts [B, F + 1, F] of level child_lvl - 1 (row F the
+    sentinel, zero) from its pivot slabs piv [B, F, W] and the children's
+    updates U: a [2B, K, K] tensor; the leaves' ("xxt", X), whose X X^T is
+    formed first (`_rows_product`, in the span SCHUR); or None or K = 0,
+    no update. One `hopper_kernels.form_front` (the kernel on the card),
+    in the span EXTEND_ADD; the maps are cut to a batch view's rows."""
+    dev = piv.device
+    lvl = child_lvl - 1
+    if isinstance(U, tuple):
+        with trace.span(SCHUR, dev):
+            U = _rows_product(U[1], U[1].dtype)
+    with trace.span(EXTEND_ADD, dev):
+        if U is None or U.shape[1] == 0:
+            return hk.form_front(piv, None, None, fp.F[lvl], fp.W[lvl])
+        inv, _ = _child_maps(fp, child_lvl, dev)
+        return hk.form_front(piv, U, inv, fp.F[lvl], fp.W[lvl])
 
 
 def _rows_product(A: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -489,16 +513,8 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
                                                fp=fp, child_lvl=lvl + 1)
         return fac, fac.new_zeros((B, 0, 0))
 
-    full = piv.new_zeros((B, Fl + 1, Fl))             # row Fl: sentinel
-    full[:, :Fl, :Wl] = piv
-    del piv
-    if isinstance(U, tuple):
-        with trace.span(SCHUR, dev):
-            U = _rows_product(U[1], U[1].dtype)
-    if U.shape[1] > 0:
-        with trace.span(EXTEND_ADD, dev):
-            _extend_add_fused_(fp, full, U, lvl + 1)
-    del U
+    full = _form_front(fp, piv, U, lvl + 1)           # row Fl: sentinel
+    del piv, U
     with trace.span(PIVOT, dev):
         fac = _factor_slab(full[:, :Fl, :Wl], Wl, route_b, root)
     if lvl == 0:

@@ -19,6 +19,13 @@
                     kernels replaced, which the tools time beside them.
   * `slab_kernel_eligible` <- `lanes_eligible` (`:191-211`): which levels
                     route through `factor_slab`.
+  * `form_front`  replaces no TPU kernel: a level's square fronts
+                    [B, F + 1, F] formed in one pass from the pivot slabs
+                    and both children's updates, by the CUDA kernel
+                    `kernels/csrc/form_front.cu` (the port's torch
+                    indexing for it reached ~8% of the memory rate).
+  * `form_front_ref` its plain version, the same output-stationary
+                    algorithm and subtraction order in PyTorch.
   * `chol_inv_bound`, `factor_slab_bound` the least time the card could
                     take for each function's work, from the H100's
                     published peaks below; `factor_slab_flops` the flops
@@ -34,6 +41,7 @@ does: TF32 tensor cores under "tf32", IEEE f32 otherwise.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -54,7 +62,7 @@ TF32_FLOPS = 495e12                # TF32 on the tensor cores
 
 # Launches of each kernel, counted where the kernel is launched
 # (`factor_slab`: one per call, which launches two kernels per panel).
-LAUNCHES = {"chol_inv": 0, "factor_slab": 0}
+LAUNCHES = {"chol_inv": 0, "factor_slab": 0, "form_front": 0}
 
 _FNS: dict = {}
 
@@ -65,7 +73,13 @@ _SIGNATURES = {
                                              _L, _P, _I, _P]),
     "factor_slab_panel_f32": ("factor_slab", [_P, _L, _L, _P, _I, _I, _I,
                                               _I, _L, _P, _P, _I, _P]),
+    "form_front": ("form_front", [_P, _P, _L, _L, _L, _P, _L, _L, _L, _P,
+                                  _L, _L, _L, _I, _I, _I, _I, _I, _P]),
 }
+
+# dtype codes of form_front's C interface: the front's, the updates'
+_FRONT_CODES = {torch.float32: 0, torch.float64: 1}
+_UPDATE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 def _fn(name: str):
@@ -280,6 +294,103 @@ def factor_slab(a: torch.Tensor, W: int) -> torch.Tensor:
                 raise RuntimeError(f"factor_slab: slab_panel launch failed "
                                    f"with CUDA error {err}")
     LAUNCHES["factor_slab"] += 1
+    return out
+
+
+def form_front_ref(piv: torch.Tensor, U: Optional[torch.Tensor],
+                   inv: Optional[torch.Tensor], Fl: int,
+                   Wl: int) -> torch.Tensor:
+    """The square fronts of a level in plain PyTorch, by the algorithm of
+    `form_front`: the output [B, Fl + 1, Fl] in the pivot slabs' dtype
+    starts as the slabs piv [B, Fl, Wl] padded with zeros (row Fl, the
+    sentinel, stays zero), then, chunk of parent rows by chunk, each
+    sibling's update U[2b + s] (s = 0, then 1) is gathered into parent
+    coordinates through inv [2B, Fl] (entries >= Kc read zero) and
+    subtracted in the front's dtype. U None or with Kc = 0 leaves the
+    padded slabs. A chunk takes half the rows `regimes.fused_rows` gives
+    the square path's extend-add, so its gathers ([B, r, Kc] and
+    [B, r, Fl], Kc <= Fl) take at most half the temporaries the capacity
+    planner budgets for it: the slabs, which stay alive here, fit beside
+    them."""
+    from cholesky_tpu_torch.numeric import regimes
+    from cholesky_tpu_torch.numeric.frontal import _cols_gather, _rows_gather
+
+    B = piv.shape[0]
+    out = piv.new_zeros((B, Fl + 1, Fl))
+    out[:, :Fl, :Wl] = piv
+    if U is None or U.shape[1] == 0:
+        return out
+    Kc = U.shape[1]
+    ch = max(1, regimes.fused_rows(2 * B, Kc, Fl, U.element_size(),
+                                   out.element_size()) // 2)
+    for r0 in range(0, Fl, ch):
+        rows = out[:, r0:min(r0 + ch, Fl)]
+        for s in (0, 1):
+            Us, inv_s = U[s::2], inv[s::2]
+            rows.sub_(_cols_gather(_rows_gather(Us, inv_s[:, r0:r0 + ch]),
+                                   inv_s, Kc).to(out.dtype))
+    return out
+
+
+def form_front(piv: torch.Tensor, U: Optional[torch.Tensor],
+               inv: Optional[torch.Tensor], Fl: int,
+               Wl: int) -> torch.Tensor:
+    """A level's square fronts [B, Fl + 1, Fl] (row Fl the sentinel, zero)
+    from its pivot slabs piv [B, Fl, Wl] and the children's updates U
+    [2B, Kc, Kc] (None, or Kc = 0: no update) mapped by inv [2B, Fl]
+    (int64, the row of child c's update at parent row f, Kc where none):
+
+        out[b, f, g] = (g < Wl ? piv[b, f, g] : 0)
+                       - U[2b, inv[2b, f], inv[2b, g]]   (both < Kc)
+                       - U[2b+1, inv[2b+1, f], inv[2b+1, g]]
+
+    in piv's dtype (f32 or f64; U f32, bf16 or f64). A CPU tensor takes
+    `form_front_ref`; a CUDA tensor the kernel of
+    `kernels/csrc/form_front.cu`, one launch, bitwise equal to
+    `form_front_ref` on the same inputs. piv and U are read through their
+    strides. Anything the kernel does not take raises."""
+    if piv.device.type == "cpu":
+        return form_front_ref(piv, U, inv, Fl, Wl)
+    if piv.device.type != "cuda":
+        raise ValueError(f"form_front: unsupported device {piv.device}")
+    if piv.dtype not in _FRONT_CODES:
+        raise ValueError(f"form_front: fronts are float32 or float64, got "
+                         f"{piv.dtype}")
+    B = piv.shape[0]
+    if piv.dim() != 3 or tuple(piv.shape[1:]) != (Fl, Wl) or Wl > Fl:
+        raise ValueError(f"form_front: expected pivot slabs [B, {Fl}, "
+                         f"{Wl}], got {tuple(piv.shape)}")
+    Kc = 0 if U is None else U.shape[1]
+    if Kc > 0:
+        if U.dtype not in _UPDATE_CODES:
+            raise ValueError(f"form_front: updates are float32, bfloat16 or "
+                             f"float64, got {U.dtype}")
+        if U.dim() != 3 or tuple(U.shape) != (2 * B, Kc, Kc):
+            raise ValueError(f"form_front: expected updates [{2 * B}, K, K],"
+                             f" got {tuple(U.shape)}")
+        if (inv is None or inv.dtype != torch.int64
+                or tuple(inv.shape) != (2 * B, Fl)):
+            got = None if inv is None else (inv.dtype, tuple(inv.shape))
+            raise ValueError(f"form_front: expected an int64 map "
+                             f"[{2 * B}, {Fl}], got {got}")
+        if U.device != piv.device or inv.device != piv.device:
+            raise ValueError("form_front: slabs, updates and map on "
+                             "different devices")
+    out = torch.empty((B, Fl + 1, Fl), dtype=piv.dtype, device=piv.device)
+    if B == 0:
+        return out
+    fn = _fn("form_front")
+    u_args = ((U.data_ptr(), *U.stride(), inv.data_ptr(), *inv.stride())
+              if Kc > 0 else (None, 0, 0, 0, None, 0, 0))
+    with torch.cuda.device(piv.device):
+        stream = torch.cuda.current_stream(piv.device).cuda_stream
+        err = fn(out.data_ptr(), piv.data_ptr(), *piv.stride(), *u_args, B,
+                 Fl, Wl, Kc, _FRONT_CODES[piv.dtype],
+                 _UPDATE_CODES[U.dtype] if Kc > 0 else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"form_front: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES["form_front"] += 1
     return out
 
 

@@ -150,12 +150,8 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
     if U is None:
         blk = piv
     else:
-        full = piv.new_zeros((B, Fl + 1, Fl))         # row Fl: sentinel
-        full[:, :Fl, :Wl] = piv
-        del piv
-        if U.shape[1] > 0:
-            frontal._extend_add_fused_(fp, full, U, lvl + 1)
-        del U
+        full = frontal._form_front(fp, piv, U, lvl + 1)   # row Fl: sentinel
+        del piv, U
         blk = full[:, :Fl, :Wl]
     ld = blocked_signed_cholesky(blk[:, :Wl, :], s)
     fac = blk.new_empty((B, Fl, Wl))

@@ -8,8 +8,9 @@ one structured line in the reference's dormant format
 (`BLAS: {'op': ..., 'Level': ..., 'Time': ...}`, microseconds) and one
 record dict:
 
-  * EXTADD      the extend-add the port runs on the square path
-                (`frontal._extend_add_fused_`);
+  * EXTADD      the square fronts formed from the pivot slabs and the
+                children's updates (`frontal._form_front`: on the card the
+                kernel of `form_front.cu`);
   * FACTOR_SLAB the blocked partial factorization through
                 `hopper_kernels.factor_slab` (the hand-written kernels of
                 `factor_slab.cu` and `chol_inv.cu` on the card) on the
@@ -106,24 +107,16 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
         piv = fronts[lvl]
         B = piv.shape[0]            # 2^lvl, or K 2^lvl for a family view
 
-        def padded():
-            full = piv.new_zeros((B, Fl + 1, Fl))     # row Fl: sentinel
-            full[:, :Fl, :Wl] = piv
-            return full
-
         if U is not None and U.shape[1] > 0:
-            def extadd(full, _U=U, _lvl=lvl):
-                fr._extend_add_fused_(fp, full, _U, _lvl + 1)
-                return full
-
-            full, t = _timed(extadd, iters, device, prep=padded)
+            full, t = _timed(lambda: fr._form_front(fp, piv, U, lvl + 1),
+                             iters, device)
             rec = {"op": "EXTEND_ADD", "level": lvl, "batch": B,
                    "time_us": int(t * 1e6)}
             records.append(rec)
             emit(f"BLAS: {{'op': 'EXTADD', 'Level': {lvl}, 'Batch': {B}, "
                  f"'F': {Fl}, 'Time': {rec['time_us']}}}")
         else:
-            full = padded()
+            full = fr._form_front(fp, piv, U, lvl + 1)  # row Fl: sentinel
         del U
 
         slab = full[:, :Fl, :Wl]

@@ -34,8 +34,10 @@ The spans (their names are the contract the benchmark's readers rely on):
                               block (`_schur_update_cast`, and the leaves'
                               deferred X X^T, `_rows_product`)
   chol.step.extend_add        there: the children's updates added into the
-                              fronts (`_extend_add_fused_`,
-                              `_apply_extadd_two_piece`; its leaf tier
+                              fronts: the square fronts formed from the
+                              pivot slabs and the updates in one pass
+                              (`_form_front`, also in `ldlt.factor_qd`),
+                              or `_apply_extadd_two_piece` (its leaf tier
                               forms the leaves' products in it)
   chol.solve                  SparseCholesky.solve
   chol.solve.ell_index        the residual's ELL layout (index and source

@@ -215,6 +215,124 @@ def test_factor_slab_kernel_rejects_bad_input():
         hk.factor_slab(a.transpose(1, 2), 200)
 
 
+# (B, F, W, K, mapped rows of a child) of the narrowest and the widest
+# level with children of each configuration's plan (`cholbench/configs`),
+# cut in B where the memory needs it; K is the children's update width
+FRONT_SHAPES = {
+    "lapl7_50 L10": (1024, 168, 24, 96, 52),
+    "lapl7_50 L1": (2, 3760, 1256, 2504, 2450),
+    "elast_q1_64 L13": (8192, 312, 24, 208, 123),
+    "elast_q1_64 L1": (2, 18624, 6144, 12480, 12480),
+}
+
+
+def _front_inputs(shape, fdt, udt, seed):
+    """Seeded pivot slabs, child updates and maps on the card: each child's
+    `mapped` rows land on sorted random rows of the parent."""
+    B, F, W, K, m = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    piv = torch.randn(B, F, W, generator=gen, device="cuda").to(fdt)
+    U = torch.randn(2 * B, K, K, generator=gen, device="cuda").to(udt)
+    pos = torch.rand(2 * B, F, generator=gen, device="cuda").argsort(1)
+    pos = pos[:, :m].sort(1).values
+    inv = torch.full((2 * B, F), K, dtype=torch.int64, device="cuda")
+    inv.scatter_(1, pos, torch.arange(m, device="cuda").expand(2 * B, m)
+                 .contiguous())
+    return piv, U, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fdt,udt", [(torch.float32, torch.float32),
+                                     (torch.float64, torch.float64),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", sorted(FRONT_SHAPES))
+def test_form_front_kernel_bitwise_equals_plain(shape, fdt, udt):
+    _require_cuda()
+    B, F, W, K, _ = FRONT_SHAPES[shape]
+    piv, U, inv = _front_inputs(FRONT_SHAPES[shape], fdt, udt, seed=11)
+    before = hk.LAUNCHES["form_front"]
+    k = hk.form_front(piv, U, inv, F, W)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["form_front"] == before + 1
+    assert k.shape == (B, F + 1, F) and k.dtype == fdt
+    assert torch.equal(k, hk.form_front_ref(piv, U, inv, F, W))
+    assert not k[:, F].any()
+
+
+@pytest.mark.cuda
+def test_form_front_kernel_reads_views_and_empty_updates():
+    """Strided slabs and updates (the kernel reads their strides), no
+    update (None or K = 0: the padded slab), and an empty batch."""
+    _require_cuda()
+    piv, U, inv = _front_inputs((6, 200, 64, 150, 140), torch.float32,
+                                torch.float32, seed=12)
+    pv = torch.zeros(6, 201, 204, device="cuda")
+    pv[:, :200, :64] = piv
+    uv = torch.zeros(12, 150, 153, device="cuda")
+    uv[:, :, :150] = U
+    k = hk.form_front(pv[:, :200, :64], uv[:, :, :150], inv, 200, 64)
+    assert torch.equal(k, hk.form_front_ref(piv, U, inv, 200, 64))
+    for none in (None, U[:, :0, :0]):
+        k = hk.form_front(piv, none, None, 200, 64)
+        assert torch.equal(k, hk.form_front_ref(piv, None, None, 200, 64))
+    assert hk.form_front(piv[:0], U[:0], inv[:0], 200, 64).shape == (
+        0, 201, 200)
+
+
+@pytest.mark.cuda
+def test_form_front_kernel_is_deterministic():
+    _require_cuda()
+    shape = FRONT_SHAPES["lapl7_50 L1"]
+    piv, U, inv = _front_inputs(shape, torch.float32, torch.float32, seed=13)
+    a = hk.form_front(piv, U, inv, shape[1], shape[2])
+    b = hk.form_front(piv, U, inv, shape[1], shape[2])
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_form_front_never_takes_the_plain_path(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain version is
+    never called, and inputs the kernel does not take raise."""
+    _require_cuda()
+    piv, U, inv = _front_inputs((4, 100, 20, 60, 50), torch.float32,
+                                torch.float32, seed=14)
+
+    def plain(*a):
+        raise AssertionError("form_front_ref called on a CUDA tensor")
+
+    monkeypatch.setattr(hk, "form_front_ref", plain)
+    hk.form_front(piv, U, inv, 100, 20)
+    with pytest.raises(ValueError):
+        hk.form_front(piv.half(), U, inv, 100, 20)
+    with pytest.raises(ValueError):
+        hk.form_front(piv, U.half(), inv, 100, 20)
+    with pytest.raises(ValueError):
+        hk.form_front(piv, U, inv.int(), 100, 20)
+    with pytest.raises(ValueError):
+        hk.form_front(piv, U[:4], inv, 100, 20)
+    with pytest.raises(ValueError):
+        hk.form_front(piv, U, inv.cpu(), 100, 20)
+
+
+@pytest.mark.cuda
+def test_form_front_launches_once_per_square_level():
+    """A lapl7_50-shaped factorization (50^3, 12 levels) forms the fronts
+    of every square level with children with one launch a level, or a
+    chunk where the plan chunks the level, and meets the contract."""
+    _require_cuda()
+    n, r, c, v, o, cl, b = generate_problem((50, 50, 50), 12)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
+    s.factorize()
+    plan = s.regimes.levels
+    want = sum(plan[lvl].chunks for lvl in range(len(plan) - 1)
+               if not plan[lvl].two_piece)
+    assert want == 11
+    before = hk.LAUNCHES["form_front"]
+    s.factorize()
+    assert hk.LAUNCHES["form_front"] - before == want
+    assert s.residual(b, s.solve(b)) <= TOL
+
+
 @pytest.mark.cuda
 def test_slice_on_card_matches_cpu():
     """15^3 with every W >= 128 level forced through the CUDA kernel: the

@@ -23,7 +23,9 @@ from jax import lax
 
 from cholesky_tpu.numeric import frontal as jfrontal
 from cholesky_tpu.numeric import pallas_kernels as pk
+import cholesky_tpu_torch
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.utils.laplacian import generate_problem
 
 # f32 Cholesky/inverse of well-conditioned (kappa < 10) blocks: a few ulps
 # of accumulated rounding, relative to the largest entry
@@ -176,6 +178,31 @@ def test_factor_slab_reads_a_strided_view(W):
                             transpose_a=True)
     ref = np.concatenate([np.asarray(ld), np.asarray(x)], axis=1)
     assert _rel(hk.factor_slab(view, W), ref) <= F32_REL
+
+
+def test_form_front_on_cpu_is_plain_and_uncounted():
+    rng = np.random.default_rng(6)
+    piv = torch.from_numpy(rng.standard_normal((2, 24, 8)))
+    U = torch.from_numpy(rng.standard_normal((4, 16, 16)))
+    inv = torch.from_numpy(rng.integers(0, 17, (4, 24)))
+    before = dict(hk.LAUNCHES)
+    assert torch.equal(hk.form_front(piv, U, inv, 24, 8),
+                       hk.form_front_ref(piv, U, inv, 24, 8))
+    assert hk.LAUNCHES == before
+    with pytest.raises(ValueError):
+        hk.form_front(torch.empty(2, 24, 8, device="meta"), None, None, 24, 8)
+
+
+def test_factorization_on_cpu_counts_no_launch():
+    """A factorization on the CPU takes every plain version: no kernel's
+    count moves."""
+    n, r, c, v, o, cl, b = generate_problem((8, 8, 8), 3)
+    s = cholesky_tpu_torch.SparseCholesky.from_coo(
+        n, r, c, v, o, cl, dtype=np.float32, device="cpu")
+    before = dict(hk.LAUNCHES)
+    s.factorize()
+    assert hk.LAUNCHES == before
+    assert s.residual(b, s.solve(b)) <= 1e-10
 
 
 def test_factor_slab_on_cpu_is_plain_and_uncounted():
