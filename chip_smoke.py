@@ -37,8 +37,7 @@ Phases, each printing one JSON line:
              (FRONT_LEVELS, seeded values and maps), f32: bitwise equal to
              its plain version `form_front_ref` and to itself on a second
              launch, zero sentinel row, then timed beside its byte bound
-             at 3.35 TB/s, its plain version and the path it replaced
-             (zero-fill + slab copy + `frontal._extend_add_fused_`);
+             at 3.35 TB/s and its plain version;
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -255,7 +254,6 @@ import sys
 import tempfile
 import time
 import traceback
-import types
 
 TOL = 1e-10                        # the solver's relative-residual contract
 L_REL_TOL = 1e-4                   # kernel vs plain, L (f32)
@@ -661,36 +659,14 @@ def phase_form_front():
     bitwise against `form_front_ref` and a second launch, the sentinel row
     zero; its time beside the least the card could take (each front element
     written once, the slab, the landing update entries and the maps read
-    once, at 3.35 TB/s), the plain version's and the path it replaced
-    (zero-fill, slab copy, `frontal._extend_add_fused_`), per level and
-    summed per configuration."""
+    once, at 3.35 TB/s) and the plain version's, per level and summed per
+    configuration."""
     import torch
 
-    from cholesky_tpu_torch.numeric import frontal
     from cholesky_tpu_torch.numeric import hopper_kernels as hk
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
-
-    def maps_plan(inv, K):
-        """A plan that holds only the child maps `_extend_add_fused_`
-        reads, inv and its inverse fwd, in the cache that
-        `frontal._device_index` looks in."""
-        F = inv.shape[1]
-        fwd = torch.full((inv.shape[0], K), F, dtype=torch.int64, device=dev)
-        hit = (inv < K).nonzero(as_tuple=True)
-        fwd[hit[0], inv[hit]] = hit[1]
-        key = str(inv.device)
-        return types.SimpleNamespace(cache={("inv_child", 1, key, 1): inv,
-                                            ("fwd_child", 1, key, 1): fwd})
-
-    def old_path(plan, piv, U):
-        """Zeros, the slab copied in, `_extend_add_fused_`."""
-        B, F, W = piv.shape
-        full = piv.new_zeros((B, F + 1, F))
-        full[:, :F, :W] = piv
-        frontal._extend_add_fused_(plan, full, U, 1)
-        return full
 
     summary = {}
     for cfg, levels in FRONT_LEVELS.items():
@@ -700,15 +676,12 @@ def phase_form_front():
             k = hk.form_front(piv, U, inv, F, W)
             again = hk.form_front(piv, U, inv, F, W)
             p = hk.form_front_ref(piv, U, inv, F, W)
-            plan = maps_plan(inv, K)
-            old = old_path(plan, piv, U)
             torch.cuda.synchronize()
             where = f"form_front {cfg} L{lvl} [{B}, {F}, {W}], K {K}"
             check(bool(torch.equal(k, p)), f"{where}: differs from plain")
             check(bool(torch.equal(k, again)), f"{where}: not reproducible")
             check(not bool(k[:, F].any()), f"{where}: sentinel row not 0")
-            old_diff = float((k[:, :F] - old[:, :F]).abs().max())
-            del again, p, old
+            del again, p
             nbytes = 4 * (B * (F + 1) * F + B * F * W + 2 * B * m * m
                           + 2 * B * F * 2)
             bound_ms = nbytes / hk.HBM_BYTES_PER_S * 1e3
@@ -717,18 +690,15 @@ def phase_form_front():
                    "ms": cuda_ms(lambda: hk.form_front(piv, U, inv, F, W),
                                  iters=5, warmup=1),
                    "plain_ms": cuda_ms(lambda: hk.form_front_ref(
-                       piv, U, inv, F, W), iters=3, warmup=1),
-                   "old_ms": cuda_ms(lambda: old_path(plan, piv, U),
-                                     iters=3, warmup=1),
-                   "old_max_abs_diff": old_diff}
+                       piv, U, inv, F, W), iters=3, warmup=1)}
             row["share"] = bound_ms / row["ms"]
             emit({"phase": "kernel", "name": "form_front", "config": cfg,
                   **row})
             rows.append(row)
-            del piv, U, inv, k, plan
+            del piv, U, inv, k
             torch.cuda.empty_cache()
         tot = {key: sum(r[key] for r in rows)
-               for key in ("bytes", "bound_ms", "ms", "plain_ms", "old_ms")}
+               for key in ("bytes", "bound_ms", "ms", "plain_ms")}
         tot["share"] = tot["bound_ms"] / tot["ms"]
         emit({"phase": "kernel", "name": "form_front", "config": cfg,
               "levels": len(rows), "total": tot})
@@ -3533,8 +3503,8 @@ def main() -> int:
             "bound_ms", "bound_by", "executed_tflops", "timed_shape")}}, {
         "name": "form_front", "route": "cuda",
         "source": "cholesky_tpu_torch/kernels/csrc/form_front.cu",
-        "replaces": "no TPU kernel: the torch indexing of "
-                    "frontal._extend_add_fused_ (zero-fill, slab copy, "
+        "replaces": "no TPU kernel: the port's torch indexing for the "
+                    "square path's extend-add (zero-fill, slab copy, "
                     "gather, accumulating index_put_)",
         "launches": launches["form_front"],
         "launches_by_path": {"50^3 L8 slice": launches["form_front"]},

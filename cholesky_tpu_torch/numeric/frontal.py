@@ -2,18 +2,20 @@
 the single-device part of `cholesky_tpu/numeric/frontal.py`.
 
 Ported:
-  * `_factor_level` (`:1249`): the leaf branch (`:1274-1299`, with the
-    deferred ("xxt", X) Schur product), the two-piece branch (`:1314-1362`)
-    and the square-front branch (`:1364-1431`).
+  * `_factor_level` (`:1249`): the leaf branch (`:1274-1299`), the
+    two-piece branch (`:1314-1362`) and the square-front branch
+    (`:1364-1431`). The update a level hands its parent is a tensor or
+    None; its form is `frontal_plan.hands_x`'s: the leaves' boundary
+    strips X, whose Schur product X X^T the parent forms (the deferred
+    leaf product), else the dense update.
   * The square path's extend-add `_apply_child_updates_fused` (`:857`):
     `_form_front` forms each level's square fronts from the pivot slabs and
     the children's updates in one pass (`hopper_kernels.form_front`, a
-    hand-written kernel on the card). `_extend_add_fused_`, the torch
-    indexing it replaced (in place, in row chunks), is kept as the tests'
-    reference.
+    hand-written kernel on the card; `form_front_ref` its plain version).
   * The two-piece extend-add: `_expand_xxt_2` (`:603`), `_apply_gather_2`
-    (`:755`), `_schur_update_cast` / `_einsum_rows_cast` (`:646-752`) and
-    the dispatcher `_apply_extadd_two_piece` (`:824`).
+    (`:755`), `_schur_update_cast` / `_schur_gather_2` /
+    `_einsum_rows_cast` (`:646-752`) and the dispatcher
+    `_apply_extadd_two_piece` (`:824`).
   * `_BatchView` (`:1603`), `_take_child_rows` (`:1687`) and
     `frontal_factor_streamed` (`:1704`), the one level loop: lazily
     assembled levels, batch-chunked levels, the stored factor's dtype, offload
@@ -77,7 +79,8 @@ from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.numeric import devmem, regimes
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric.assemble import LazyFronts
-from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
+from cholesky_tpu_torch.numeric.frontal_plan import (FrontalPlan, _banded_maps,
+                                                     hands_x)
 from cholesky_tpu_torch.parallel import dist_cholesky, dist_level
 from cholesky_tpu_torch.parallel import mesh as mesh_mod
 from cholesky_tpu_torch.parallel.mesh import Sharded
@@ -259,27 +262,6 @@ def _factor_slab_library(slab: torch.Tensor, Wl: int) -> torch.Tensor:
     return fac
 
 
-def _rows_gather(U: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[j, i] = U[j, idx[j, i]] for U [B2, n, C], idx [B2, r]; rows with
-    the sentinel idx >= n read zero (a masked gather instead of a padded
-    copy of U)."""
-    n = U.shape[1]
-    ar = torch.arange(U.shape[0], device=U.device)[:, None]
-    g = U[ar, idx.clamp(max=n - 1)]
-    g.masked_fill_((idx >= n)[:, :, None], 0)
-    return g
-
-
-def _cols_gather(G: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """out[j, :, i] = G[j, :, idx[j, i]] for G [B2, r, n]; sentinel columns
-    idx >= n read zero."""
-    B2, r, _ = G.shape
-    out = torch.gather(G, 2, idx.clamp(max=n - 1)[:, None, :].expand(
-        B2, r, idx.shape[1]))
-    out.masked_fill_((idx >= n)[:, None, :], 0)
-    return out
-
-
 def _extadd_rows(U: torch.Tensor, inv: torch.Tensor, r0: int, r1: int,
                  cols: torch.Tensor, acc) -> torch.Tensor:
     """Rows [r0, r1) of the children's extend-add in parent coordinates,
@@ -289,52 +271,22 @@ def _extadd_rows(U: torch.Tensor, inv: torch.Tensor, r0: int, r1: int,
 
     -> [b, r1 - r0, |cols|] in `acc` (sentinel positions read zero)."""
     Kc = U.shape[1]
-    E = _cols_gather(_rows_gather(U, inv[:, r0:r1]), cols, Kc)
+    E = hk.cols_gather(hk.rows_gather(U, inv[:, r0:r1]), cols, Kc)
     B2 = E.shape[0]
     return E.view(B2 // 2, 2, r1 - r0, E.shape[2]).sum(1, dtype=acc)
 
 
-def _extend_add_fused_(fp, fullpad: torch.Tensor, U: torch.Tensor,
-                       child_lvl: int) -> None:
-    """The square path's extend-add that `_form_front` replaced, kept as
-    the tests' reference (`_apply_child_updates_fused`, `frontal.py:857`):
-    subtract both children's updates U [2B, K, K] from the parent's square
-    fronts, in place on the padded buffer
-    [B, Fp + 1, Fp] (row Fp is the sentinel). Per chunk of child rows, the
-    update's columns are gathered into parent column coordinates (sentinel
-    columns read zero) and the rows scatter-added at their parent
-    positions. Sibling pairs share a batch index, so the scatter
-    accumulates."""
-    inv, fwd = _child_maps(fp, child_lvl, fullpad.device)
-    B2, Kc = fwd.shape
-    Fp = fullpad.shape[2]
-    seg = (torch.arange(B2, device=fullpad.device) >> 1)[:, None]
-    ch = regimes.fused_rows(B2, Kc, Fp, U.element_size(),
-                            fullpad.element_size())
-    for k0 in range(0, Kc, ch):
-        k1 = min(k0 + ch, Kc)
-        e1 = _cols_gather(U[:, k0:k1], inv, Kc).to(fullpad.dtype).neg_()
-        fullpad.index_put_((seg.expand(B2, k1 - k0), fwd[:, k0:k1]), e1,
-                           accumulate=True)
-        del e1
-
-
-def _form_front(fp, piv: torch.Tensor, U, child_lvl: int) -> torch.Tensor:
+def _form_front(fp, piv: torch.Tensor, U: Optional[torch.Tensor],
+                child_lvl: int) -> torch.Tensor:
     """The square fronts [B, F + 1, F] of level child_lvl - 1 (row F the
     sentinel, zero) from its pivot slabs piv [B, F, W] and the children's
-    updates U: a [2B, K, K] tensor; the leaves' ("xxt", X), whose X X^T is
-    formed first (`_rows_product`, in the span SCHUR); or None or K = 0,
-    no update. One `hopper_kernels.form_front` (the kernel on the card),
-    in the span EXTEND_ADD; the maps are cut to a batch view's rows."""
+    update U [2B, K, K] (None: no update). One `hopper_kernels.form_front`
+    (the kernel on the card), in the span EXTEND_ADD; the maps are cut to
+    a batch view's rows."""
     dev = piv.device
     lvl = child_lvl - 1
-    if isinstance(U, tuple):
-        with trace.span(SCHUR, dev):
-            U = _rows_product(U[1], U[1].dtype)
     with trace.span(EXTEND_ADD, dev):
-        if U is None or U.shape[1] == 0:
-            return hk.form_front(piv, None, None, fp.F[lvl], fp.W[lvl])
-        inv, _ = _child_maps(fp, child_lvl, dev)
+        inv = None if U is None else _child_maps(fp, child_lvl, dev)[0]
         return hk.form_front(piv, U, inv, fp.F[lvl], fp.W[lvl])
 
 
@@ -354,8 +306,7 @@ def _rows_product(A: torch.Tensor, out_dtype) -> torch.Tensor:
     return out
 
 
-def _expand_xxt_2(fp, X: torch.Tensor, child_lvl: int, W: int,
-                  t_dtype=None):
+def _expand_xxt_2(fp, X: torch.Tensor, child_lvl: int, W: int, t_dtype):
     """Leaf-transition two-piece expansion straight from X [2b, Kc, Wc] (a
     leaf child's update is exactly X X^T): X's rows are gathered into parent
     coordinates with the siblings folded into the contraction,
@@ -375,16 +326,17 @@ def _expand_xxt_2(fp, X: torch.Tensor, child_lvl: int, W: int,
     Gr.masked_fill_((inv2 >= Kc)[:, :, None], 0)
     Gr = Gr.view(b, Fp, 2 * Wc).to(acc)
     E_slab = Gr @ Gr[:, :W].transpose(1, 2)
-    E_T = _rows_product(Gr[:, W:], t_dtype or acc) if Fp > W else None
+    E_T = _rows_product(Gr[:, W:], t_dtype) if Fp > W else None
     return E_slab, E_T
 
 
-def _apply_gather_2(fp, slab: torch.Tensor, U: torch.Tensor, child_lvl: int):
+def _apply_gather_2(fp, slab: torch.Tensor, U: torch.Tensor,
+                    child_lvl: int) -> torch.Tensor:
     """Two-piece extend-add by masked gathers: the slab piece is subtracted
     from `slab` in place, row chunk by row chunk (each chunk's gather
-    buffers bounded by regimes.CHUNK_BYTES); the trailing piece is returned
-    as the tag ("gather2", U), which `_schur_update_cast` consumes row chunk
-    by row chunk, so the [b, K, K] piece never exists."""
+    buffers bounded by regimes.CHUNK_BYTES). The trailing piece is left to
+    `_schur_gather_2`, which gathers it row chunk by row chunk, so the
+    [b, K, K] piece never exists."""
     inv, _ = _child_maps(fp, child_lvl, slab.device)
     B2, Kc = U.shape[:2]
     _, Fp, W = slab.shape
@@ -394,137 +346,141 @@ def _apply_gather_2(fp, slab: torch.Tensor, U: torch.Tensor, child_lvl: int):
     for r0 in range(0, Fp, ch):
         r1 = min(r0 + ch, Fp)
         slab[:, r0:r1].sub_(_extadd_rows(U, inv, r0, r1, cols, slab.dtype))
-    return slab, (("gather2", U) if Fp > W else None)
+    return slab
 
 
-def _apply_extadd_two_piece(fp, slab: torch.Tensor, U, child_lvl: int,
-                            t_dtype):
-    """The two-piece extend-add of the children's updates into pivot slabs
-    [b, Fp, W] (the slab piece is subtracted in place): the leaf tag
-    ("xxt", X) through the xxt tier, a [2b, Kc, Kc] tensor through the
-    gather tier. Returns (slab, E_T): E_T a [b, K, K] tensor in t_dtype
-    (xxt tier), the tag ("gather2", U) (gather tier), or None when there is
-    no trailing block. (A level whose plan takes the gather tier for the
-    leaves' X materializes X X^T before calling.)"""
-    if isinstance(U, tuple):
-        E_slab, E_T = _expand_xxt_2(fp, U[1], child_lvl, slab.shape[2],
-                                    t_dtype=t_dtype)
+def _apply_extadd_two_piece(fp, slab: torch.Tensor, U: torch.Tensor,
+                            child_lvl: int, lp: "regimes.LevelPlan"):
+    """The two-piece extend-add of the children's update U into pivot slabs
+    [b, Fp, W] (the slab piece is subtracted in place), by the tier of the
+    level plan `lp`. The xxt tier expands the leaves' X [2b, Kc, Wc]
+    directly and returns the trailing piece E_T [b, K, K] in
+    lp.update_dtype. The gather tier reads a [2b, Kc, Kc] update (a level
+    that takes it for the leaves' X materializes X X^T first) and returns
+    U itself, whose trailing piece `_schur_gather_2` gathers. Either
+    returns None when the level has no trailing block."""
+    if lp.xxt_tier:
+        E_slab, E_T = _expand_xxt_2(fp, U, child_lvl, slab.shape[2],
+                                    lp.update_dtype)
         slab.sub_(E_slab)
-        return slab, E_T
-    if U.shape[1] == 0:
-        return slab, None
-    return _apply_gather_2(fp, slab, U, child_lvl)
+        return E_T
+    _apply_gather_2(fp, slab, U, child_lvl)
+    return U if slab.shape[1] > slab.shape[2] else None
 
 
-def _schur_update_cast(X: torch.Tensor, E_T, out_dtype, fp=None,
-                       child_lvl=None, beta: float = 1.0) -> torch.Tensor:
-    """U2 = X X^T + beta E_T, accumulated in X's dtype (f32 or f64) and
-    stored as out_dtype, by exact row chunks when a chunk loop is needed.
-
-    E_T is None; a [b, K, K] tensor (with beta = 1 and E_T already of the
-    output dtype it is accumulated in place, so E_T and U2 never coexist);
-    or the tag ("gather2", U): the trailing extend-add is then gathered row
-    chunk by row chunk inside the loop and never materialized."""
+def _schur_update_cast(X: torch.Tensor, E_T: Optional[torch.Tensor],
+                       out_dtype, beta: float = 1.0) -> torch.Tensor:
+    """U2 = X X^T + beta E_T (E_T [b, K, K] or None), accumulated in X's
+    dtype (f32 or f64) and stored as out_dtype, by exact row chunks when
+    out_dtype is narrower. With beta = 1 and E_T already of the output
+    dtype it is accumulated in place, so E_T and U2 never coexist."""
     acc = X.dtype
     Xt = X.transpose(1, 2)
-    gather2 = isinstance(E_T, tuple)
-    if out_dtype == acc and not gather2:
+    if out_dtype == acc:
         if E_T is None:
             return X @ Xt
         if beta == 1 and E_T.dtype == acc:
             return E_T.baddbmm_(X, Xt)
         return torch.baddbmm(E_T.to(acc), X, Xt, beta=beta)
     b, K, W = X.shape
-    if gather2:
-        U = E_T[1]
-        inv, _ = _child_maps(fp, child_lvl, X.device)
-        cols = inv[:, W:]
-        ch = regimes.schur_rows(b, K, W, U.shape[0], U.shape[1],
-                                U.element_size(), X.element_size())
-        out = torch.empty((b, K, K), dtype=out_dtype, device=X.device)
-    else:
-        ch = regimes.schur_rows(b, K, W, acc_size=X.element_size())
-        seeded = E_T is not None and beta == 1 and E_T.dtype == out_dtype
-        out = E_T if seeded else torch.empty((b, K, K), dtype=out_dtype,
-                                             device=X.device)
+    ch = regimes.schur_rows(b, K, W, acc_size=X.element_size())
+    seeded = E_T is not None and beta == 1 and E_T.dtype == out_dtype
+    out = E_T if seeded else torch.empty((b, K, K), dtype=out_dtype,
+                                         device=X.device)
     for r0 in range(0, K, ch):
         r1 = min(r0 + ch, K)
         pc = X[:, r0:r1] @ Xt
-        if gather2:
-            pc += _extadd_rows(U, inv, W + r0, W + r1, cols, acc)
-        elif E_T is not None:
+        if E_T is not None:
             pc.add_(E_T[:, r0:r1], alpha=beta)
         out[:, r0:r1] = pc
         del pc
     return out
 
 
-def _factor_level(fp, lvl: int, piv: torch.Tensor, U,
+def _schur_gather_2(fp, X: torch.Tensor, U: torch.Tensor, child_lvl: int,
+                    out_dtype) -> torch.Tensor:
+    """U2 = X X^T + E_T of a gather-tier two-piece level, accumulated in
+    X's dtype and stored as out_dtype, by row chunks: each chunk of E_T,
+    the trailing piece of the children's extend-add of U [2b, Kc, Kc], is
+    gathered inside the loop, so E_T is never materialized."""
+    acc = X.dtype
+    Xt = X.transpose(1, 2)
+    b, K, W = X.shape
+    inv, _ = _child_maps(fp, child_lvl, X.device)
+    cols = inv[:, W:]
+    ch = regimes.schur_rows(b, K, W, U.shape[0], U.shape[1],
+                            U.element_size(), X.element_size())
+    out = torch.empty((b, K, K), dtype=out_dtype, device=X.device)
+    for r0 in range(0, K, ch):
+        r1 = min(r0 + ch, K)
+        pc = X[:, r0:r1] @ Xt
+        pc += _extadd_rows(U, inv, W + r0, W + r1, cols, acc)
+        out[:, r0:r1] = pc
+        del pc
+    return out
+
+
+def _factor_level(fp, lvl: int, piv: torch.Tensor, U: Optional[torch.Tensor],
                   lp: Optional["regimes.LevelPlan"] = None,
                   route_b: Optional[int] = None,
                   root: Optional["_RootSpec"] = None):
     """One level of the multifrontal factorization. Consumes the level's
     pivot slabs `piv` [b, F, W] (the two-piece path writes into them) and
-    the children's accumulated updates `U` (None at the leaf level; a
-    [2b, K, K] tensor; or ("xxt", X), a deferred leaf Schur product).
-    Returns (factor [b, F, W], U_next) where U_next feeds the parent level
-    (None when lvl == 0). `lp` is the level's regime (square front or two
-    piece, xxt tier, update dtype); None is the in-core square path with
-    updates in the factor's dtype. `route_b` and `root` as in
-    `_factor_slab` (the root only where children feed the level). Its
-    steps open the spans PIVOT, SCHUR and EXTEND_ADD (`trace.py`)."""
+    the children's update `U`: None (the leaf level, or children with no
+    boundary), the leaves' X [2b, K, Wc] where `hands_x` says the children
+    hand it, else a [2b, K, K] update. Returns (factor [b, F, W], U_next),
+    U_next what feeds the parent: the leaves' X (a view of the factor),
+    a [b, K, K] update, or None (lvl 0, or no boundary). `lp` is the
+    level's regime (square front or two piece, xxt tier, update dtype);
+    None is the in-core square path with updates in the factor's dtype.
+    `route_b` and `root` as in `_factor_slab` (the root only where children
+    feed the level). Its steps open the spans PIVOT, SCHUR and EXTEND_ADD
+    (`trace.py`); the leaves' X X^T is formed here, in SCHUR, unless a
+    two-piece level's xxt tier expands X directly."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
-    B = piv.shape[0]
     udt = piv.dtype if lp is None else lp.update_dtype
     dev = piv.device
 
-    if U is None:
+    if lvl == fp.levels - 1:
         # leaf levels: no children, so the square front is never needed —
-        # factor the [B, F, W] pivot slab directly
+        # factor the [B, F, W] pivot slab directly; the parent forms X X^T
         with trace.span(PIVOT, dev):
             fac = _factor_slab(piv, Wl, route_b)
-        if lvl == 0:
-            return fac, None
-        if Fl > Wl:
-            # defer the leaf Schur product: the parent forms X X^T
-            return fac, ("xxt", fac[:, Wl:, :])
-        return fac, piv.new_zeros((B, 0, 0))
+        return fac, (fac[:, Wl:, :] if hands_x(fp.F, fp.W, lvl) else None)
 
-    if lp is not None and lp.two_piece:
+    two = lp is not None and lp.two_piece
+    if hands_x(fp.F, fp.W, lvl + 1) and not (two and lp.xxt_tier):
+        with trace.span(SCHUR, dev):
+            U = _rows_product(U, U.dtype)               # X X^T; frees X
+
+    if two:
         # the factorization reads only the pivot slab [B, F, W] and the
         # trailing block [B, K, K], so the square [B, F, F] front is never
-        # built
-        E_T = None
-        if isinstance(U, tuple) and not lp.xxt_tier:
-            with trace.span(SCHUR, dev):
-                U = _rows_product(U[1], U[1].dtype)     # X X^T; frees X
-        if isinstance(U, tuple) or U.shape[1] > 0:
+        # built; T is what the Schur step reads of the children's update
+        T = None
+        if U is not None:
             with trace.span(EXTEND_ADD, dev):
-                piv, E_T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, udt)
+                T = _apply_extadd_two_piece(fp, piv, U, lvl + 1, lp)
         del U
         with trace.span(PIVOT, dev):
             fac = _factor_slab(piv, Wl, route_b, root)
         del piv
-        if lvl == 0:
+        if lvl == 0 or Fl == Wl:
             return fac, None
-        if Fl > Wl:
-            with trace.span(SCHUR, dev):
-                return fac, _schur_update_cast(fac[:, Wl:, :], E_T, udt,
-                                               fp=fp, child_lvl=lvl + 1)
-        return fac, fac.new_zeros((B, 0, 0))
+        with trace.span(SCHUR, dev):
+            if T is None or lp.xxt_tier:
+                return fac, _schur_update_cast(fac[:, Wl:, :], T, udt)
+            return fac, _schur_gather_2(fp, fac[:, Wl:, :], T, lvl + 1, udt)
 
     full = _form_front(fp, piv, U, lvl + 1)           # row Fl: sentinel
     del piv, U
     with trace.span(PIVOT, dev):
         fac = _factor_slab(full[:, :Fl, :Wl], Wl, route_b, root)
-    if lvl == 0:
+    if lvl == 0 or Fl == Wl:
         return fac, None
-    if Fl > Wl:
-        with trace.span(SCHUR, dev):
-            return fac, _schur_update_cast(fac[:, Wl:, :],
-                                           full[:, Wl:Fl, Wl:], udt,
-                                           beta=-1.0)
-    return fac, fac.new_zeros((B, 0, 0))
+    with trace.span(SCHUR, dev):
+        return fac, _schur_update_cast(fac[:, Wl:, :], full[:, Wl:Fl, Wl:],
+                                       udt, beta=-1.0)
 
 
 def _take_child_rows(pieces: List, counts: List[int], r0: int, r1: int,
@@ -676,18 +632,19 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
     dtype = plan.dtype
     K = _unwrap(fp)[1]
     out: List = [None] * fp.levels
-    pieces = counts = None
-    xxt = False                  # pieces hold a leaf's X (deferred X X^T)
+    # the children's update: row pieces stacked along axis 0 (none: no
+    # update), in the form `hands_x` gives for the level below
+    pieces, counts = [], []
     for lvl in range(fp.levels - 1, -1, -1):
         with trace.level(lvl, level_hook, devices[0]):
             lp = plan.levels[lvl]
             B, Fl, Wl = K << lvl, fp.F[lvl], fp.W[lvl]
             place = level_placement(fp, lvl, mesh)
             if (place is not None and place.kind == "rows"
-                    and pieces is not None
+                    and lvl < fp.levels - 1
                     and dist_level.eligible(fp, lvl, B, mesh)):
-                child = _Child(pieces, counts, xxt)
-                pieces = None
+                child = _Child(pieces, counts) if pieces else None
+                pieces = counts = None
                 fac, nxt = dist_level.factor_level_sharded(
                     fp, lvl, fronts[lvl], child, mesh, lp.update_dtype)
                 del child
@@ -695,8 +652,9 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
                     fronts[lvl] = None
                 out[lvl] = fac.map(lambda p: _store(p, lp))
                 del fac
-                pieces = [nxt.map(torch.Tensor.cpu) if lp.spill else nxt]
-                counts, xxt = [B], False
+                pieces = [] if nxt is None else [
+                    nxt.map(torch.Tensor.cpu) if lp.spill else nxt]
+                counts = [B]
                 del nxt
                 continue
             nc = lp.chunks
@@ -704,6 +662,7 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
             # a leaf's X can then be a view of it
             keep = not lp.offload and lp.store_dtype == dtype
             x_view = keep and lp.update_dtype == dtype
+            x_out = hands_x(fp.F, fp.W, lvl)
             # the kernel route reads the batch of a chunk over the whole mesh
             route_b = B // nc
             lroot = root if (lvl == 0 and root is not None
@@ -720,7 +679,7 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
                 """Rows [2 c0, 2 c1) of the children's update; pieces that this
                 chunk consumes to their end leave the list, so they are freed
                 when the level drops the update."""
-                if pieces is None:
+                if not pieces:
                     return None
                 U = _take_child_rows(pieces, counts, 2 * c0, 2 * c1, device)
                 off = 0
@@ -728,7 +687,7 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
                     if off + cnt <= 2 * c1:
                         pieces[i] = None
                     off += cnt
-                return ("xxt", U) if xxt else U
+                return U
 
             for s, dev, b0, b1 in _spans(place, devices, B):
                 cb = (b1 - b0) // nc
@@ -749,9 +708,9 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
                         stored = fac if keep else _store(fac, lp)
                     else:
                         stored[c0 - b0:c1 - b0] = fac
-                    if isinstance(nxt, tuple):                # the leaf's X
+                    if x_out:                                 # the leaf's X
                         nxt = (stored[c0 - b0:c1 - b0, Wl:, :] if x_view else
-                               nxt[1].to(lp.update_dtype).contiguous())
+                               nxt.to(lp.update_dtype).contiguous())
                     del fac
                     if nxt is not None:
                         new_pieces.append(nxt.cpu() if lp.spill else nxt)
@@ -764,7 +723,6 @@ def frontal_factor_streamed(fp: FrontalPlan, fronts, plan,
             out[lvl] = (parts[0] if place is None or place.kind != "slot" else
                         Sharded(parts, place, (B, Fl, Wl), devices))
             del parts
-            xxt = lvl == fp.levels - 1 and Fl > Wl
             pieces, counts = new_pieces, new_counts
     return tuple(out)
 
@@ -773,8 +731,8 @@ class _Child:
     """The children's update of a row-group level (`dist_level`): rows of
     the pieces on any device."""
 
-    def __init__(self, pieces, counts, xxt: bool):
-        self.pieces, self.counts, self.xxt = pieces, counts, xxt
+    def __init__(self, pieces, counts):
+        self.pieces, self.counts = pieces, counts
 
     def take(self, r0: int, r1: int, device) -> torch.Tensor:
         return _take_child_rows(self.pieces, self.counts, r0, r1, device)

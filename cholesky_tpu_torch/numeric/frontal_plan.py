@@ -14,6 +14,10 @@ the tests can require identical arrays from both packages:
 The one difference: the JAX package keeps module-level caches keyed by
 `FrontalPlan.key()` (its jit programs look plans up there); the port caches
 derived arrays on the plan object itself (`FrontalPlan.cache`).
+
+One addition: `hands_x`, the form of the update a child level hands its
+parent, which the level loop, the row-group levels and the capacity
+planner all read.
 """
 
 from __future__ import annotations
@@ -184,6 +188,15 @@ def build_frontal_plan(plan: SolvePlan, rows: np.ndarray, cols: np.ndarray,
         h.update(np.ascontiguousarray(fr, dtype=np.int32).tobytes())
     return FrontalPlan(plan, W, tuple(F_list), front_rows, inv_child,
                        fwd_child, fingerprint=h.hexdigest())
+
+
+def hands_x(F, W, cl: int) -> bool:
+    """Whether child level `cl` hands its parent its boundary strips X
+    [2b, F - W, W] instead of the update X X^T: the leaf level, when its
+    fronts have a boundary (the parent forms X X^T, or expands X straight
+    into its two pieces). F and W are the per-level front and pivot widths
+    of a plan or of any view of it, or the planner's bare tuples."""
+    return cl == len(F) - 1 and F[cl] > W[cl]
 
 
 def _front_scatter_indices(fp: FrontalPlan, rows: np.ndarray,

@@ -25,7 +25,10 @@
                     `kernels/csrc/form_front.cu` (the port's torch
                     indexing for it reached ~8% of the memory rate).
   * `form_front_ref` its plain version, the same output-stationary
-                    algorithm and subtraction order in PyTorch.
+                    algorithm and subtraction order in PyTorch, by the
+                    masked gathers `rows_gather` and `cols_gather`, which
+                    the level loop's two-piece extend-add and the selected
+                    inversion read too.
   * `chol_inv_bound`, `factor_slab_bound` the least time the card could
                     take for each function's work, from the H100's
                     published peaks below; `factor_slab_flops` the flops
@@ -297,6 +300,27 @@ def factor_slab(a: torch.Tensor, W: int) -> torch.Tensor:
     return out
 
 
+def rows_gather(U: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[j, i] = U[j, idx[j, i]] for U [B2, n, C], idx [B2, r]; rows with
+    the sentinel idx >= n read zero (a masked gather instead of a padded
+    copy of U)."""
+    n = U.shape[1]
+    ar = torch.arange(U.shape[0], device=U.device)[:, None]
+    g = U[ar, idx.clamp(max=n - 1)]
+    g.masked_fill_((idx >= n)[:, :, None], 0)
+    return g
+
+
+def cols_gather(G: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """out[j, :, i] = G[j, :, idx[j, i]] for G [B2, r, n]; sentinel columns
+    idx >= n read zero."""
+    B2, r, _ = G.shape
+    out = torch.gather(G, 2, idx.clamp(max=n - 1)[:, None, :].expand(
+        B2, r, idx.shape[1]))
+    out.masked_fill_((idx >= n)[:, None, :], 0)
+    return out
+
+
 def form_front_ref(piv: torch.Tensor, U: Optional[torch.Tensor],
                    inv: Optional[torch.Tensor], Fl: int,
                    Wl: int) -> torch.Tensor:
@@ -313,7 +337,6 @@ def form_front_ref(piv: torch.Tensor, U: Optional[torch.Tensor],
     planner budgets for it: the slabs, which stay alive here, fit beside
     them."""
     from cholesky_tpu_torch.numeric import regimes
-    from cholesky_tpu_torch.numeric.frontal import _cols_gather, _rows_gather
 
     B = piv.shape[0]
     out = piv.new_zeros((B, Fl + 1, Fl))
@@ -327,8 +350,8 @@ def form_front_ref(piv: torch.Tensor, U: Optional[torch.Tensor],
         rows = out[:, r0:min(r0 + ch, Fl)]
         for s in (0, 1):
             Us, inv_s = U[s::2], inv[s::2]
-            rows.sub_(_cols_gather(_rows_gather(Us, inv_s[:, r0:r0 + ch]),
-                                   inv_s, Kc).to(out.dtype))
+            rows.sub_(cols_gather(rows_gather(Us, inv_s[:, r0:r0 + ch]),
+                                  inv_s, Kc).to(out.dtype))
     return out
 
 

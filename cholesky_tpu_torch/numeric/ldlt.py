@@ -141,13 +141,14 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
     """One level (`_factor_level_qd`, `ldlt.py:125-151`): the square front
     of `frontal._factor_level` with the three sign touch-points. Consumes
     the pivot slabs `piv` [B, F, W] and the children's update U [2B, K, K]
-    (None at the leaves). Returns (factor
-    [B, F, W], U_next); a leaf level forms its update X~ X^T itself (the
-    SPD path's deferred X X^T would give X~ X~^T)."""
+    (None: the leaf level, or children with no boundary). Returns (factor
+    [B, F, W], U_next), U_next None at the root or without a boundary; a
+    leaf level forms its update X~ X^T itself (the SPD path's deferred
+    X X^T would give X~ X~^T)."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
     B = piv.shape[0]
     full = None
-    if U is None:
+    if lvl == fp.levels - 1:
         blk = piv
     else:
         full = frontal._form_front(fp, piv, U, lvl + 1)   # row Fl: sentinel
@@ -158,7 +159,7 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
     fac[:, :Wl] = ld
     del ld
     if Fl == Wl:
-        return fac, (None if lvl == 0 else fac.new_zeros((B, 0, 0)))
+        return fac, None
     x = frontal._solve_lower_t(fac[:, :Wl], blk[:, Wl:, :])   # A21 L~d^-T
     xs = fac[:, Wl:]
     torch.mul(x, s.to(x.dtype)[:, None, :], out=xs)           # X~ = X S
@@ -210,7 +211,9 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
                         else frontal.Sharded(parts, place,
                                              (B,) + parts[0].shape[1:],
                                              devices))
-            pieces, counts = new_pieces, [b1 - b0 for _, _, b0, b1 in spans]
+            # every span of a level hands an update, or none does
+            pieces = None if new_pieces[0] is None else new_pieces
+            counts = [b1 - b0 for _, _, b0, b1 in spans]
     return tuple(out)
 
 

@@ -107,7 +107,7 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
         piv = fronts[lvl]
         B = piv.shape[0]            # 2^lvl, or K 2^lvl for a family view
 
-        if U is not None and U.shape[1] > 0:
+        if U is not None:
             full, t = _timed(lambda: fr._form_front(fp, piv, U, lvl + 1),
                              iters, device)
             rec = {"op": "EXTEND_ADD", "level": lvl, "batch": B,
@@ -117,7 +117,7 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
                  f"'F': {Fl}, 'Time': {rec['time_us']}}}")
         else:
             full = fr._form_front(fp, piv, U, lvl + 1)  # row Fl: sentinel
-        del U
+        U = None
 
         slab = full[:, :Fl, :Wl]
         m = Fl - Wl
@@ -164,10 +164,6 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
                 records.append(rec)
                 emit(f"BLAS: {{'op': 'SYRK', 'Level': {lvl}, 'Batch': {B}, "
                      f"'M': {m}, 'K': {Wl}, 'Time': {rec['time_us']}}}")
-            else:
-                U = None
-        else:
-            U = piv.new_zeros((B, 0, 0)) if lvl > 0 else None
         del full, slab
     return records
 

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from cholesky_tpu_torch.numeric import hopper_kernels as hk
+from cholesky_tpu_torch.numeric.frontal_plan import hands_x
 from cholesky_tpu_torch.parallel import dist_level
 from cholesky_tpu_torch.parallel import mesh as mesh_mod
 
@@ -171,9 +172,11 @@ def _rows(per_row: int, n: int) -> int:
 
 
 def fused_rows(B2: int, Kc: int, Fp: int, u: int, f: int) -> int:
-    """Child rows per chunk of the square path's extend-add: the gathered
-    [B2, ch, Fp] update rows, their cast to the front dtype, and the
-    scatter's index work."""
+    """Child rows per chunk of the square path's extend-add as the planner
+    budgets it (`_fused_chunk`): gathered [B2, ch, Fp] update rows, their
+    cast to the front dtype, and a scatter's index work, the temporaries
+    of the torch indexing that `hopper_kernels.form_front` replaced.
+    `form_front_ref` takes half these rows a chunk."""
     return _rows(B2 * Fp * (u + (f if u != f else 0)) + 32 * B2, Kc)
 
 
@@ -202,8 +205,10 @@ def schur_rows(b: int, K: int, W: int, B2: int = 0, Kc: int = 0,
 
 
 def _fused_chunk(B2, Kc, Fp, u, f) -> int:
-    """Peak temporaries of one chunk of `_extend_add_fused_`: the rows and
-    the column index / mask vectors."""
+    """Peak temporaries the planner budgets for the square path's
+    extend-add: one chunk of `fused_rows` rows and the column index / mask
+    vectors. They bound `form_front_ref`'s gathers; the kernel of
+    `form_front` allocates only its output, the square fronts."""
     ch = fused_rows(B2, Kc, Fp, u, f)
     return ch * (B2 * Fp * (u + (f if u != f else 0)) + 32 * B2) \
         + 9 * B2 * Fp
@@ -266,9 +271,8 @@ class _State:
     not yet consumed, the children's update pieces, cached index maps."""
     stored_dev: int
     pieces: List[_Piece]
-    u_form: str                 # "none" | "xxt" | "arr"
     u_size: int                 # itemsize of the update (or X)
-    u_cols: int                 # its columns: Kc (arr) or Wc (xxt)
+    u_cols: int                 # its columns: Kc, or Wc for X (`hands_x`)
 
 
 def _idx_bytes(F, W, lvl: int, family: int = 1) -> int:
@@ -328,13 +332,13 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
 
     # the chunk's phases: bytes while the children's update is alive, and
     # after it was freed
-    if st.u_form == "none":
+    if leaf:
         phases_alive, phases_dead = [P_work + fac + ft], [end]
     else:
         ui, cu = st.u_size, st.u_cols
         Kc, Wc = F[lvl + 1] - W[lvl + 1], W[lvl + 1]
         B2 = 2 * b
-        xxt_in = st.u_form == "xxt"
+        xxt_in = hands_x(F, W, lvl + 1)
         # X X^T materialized from the leaves' X (square path; gather tier)
         Umat = B2 * Kc * Kc * ui if xxt_in else 0
         rp = ((B2 * Kc * Wc * fi + _schur_chunk(B2, Kc, Wc, fi))
@@ -377,7 +381,7 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
     live = [p.nbytes for p in st.pieces]
     starts = np.cumsum([0] + [p.rows for p in st.pieces]).tolist()
     row_bytes = 0
-    if st.u_form != "none":
+    if not leaf:
         row_bytes = (F[lvl + 1] - W[lvl + 1]) * st.u_cols * st.u_size
     peak = 0
     for c in range(nc):
@@ -385,7 +389,7 @@ def _level_peak(F, W, lvl: int, lp: LevelPlan, st: _State, dtype,
         touched = [i for i, p in enumerate(st.pieces)
                    if starts[i] < r1 and starts[i + 1] > r0]
         span = 0
-        if st.u_form != "none" and not (
+        if not leaf and not (
                 len(touched) == 1 and not st.pieces[touched[0]].host
                 and not st.pieces[touched[0]].sharded):
             span = (r1 - r0) * row_bytes    # a copy (or an upload)
@@ -431,9 +435,8 @@ def _update_dtypes(F, W, lvl: int, dtype, force: dict) -> list:
     return udts
 
 
-def _options(F, W, lvl: int, st: _State, dtype, force: dict,
-             two_forced, family: int = 1, B: Optional[int] = None
-             ) -> List[LevelPlan]:
+def _options(F, W, lvl: int, dtype, force: dict, two_forced,
+             family: int = 1, B: Optional[int] = None) -> List[LevelPlan]:
     """The level's options in order of preference (see the module note);
     `B` the blocks the level runs (default family 2^lvl)."""
     L = len(F)
@@ -449,17 +452,17 @@ def _options(F, W, lvl: int, st: _State, dtype, force: dict,
                   spill=force["spill"])
     out = []
     for udt in udts:
-        if st.u_form == "none" or lvl == L - 1:
+        if lvl == L - 1:
             paths = [(False, False)]
         else:
-            tiers = [True, False] if st.u_form == "xxt" else [False]
+            tiers = [True, False] if hands_x(F, W, lvl + 1) else [False]
             paths = ([] if two_forced is True else [(False, False)])
             if two_forced is not False:
                 paths += [(True, t) for t in tiers]
         for nc in ncs:
             for two, tier in paths:
                 if (not two and nc > 1 and not forced_nc
-                        and st.u_form != "none"):
+                        and lvl < L - 1):
                     continue            # the square path runs unchunked
                 out.append(LevelPlan(two, tier, udt, nc,
                                      spill=common["spill"] and nc > 1,
@@ -495,7 +498,7 @@ def _rows_peak(F, W, lvl: int, G: int, lp: LevelPlan, st: _State, dtype,
     src = 2 * Kc * cols * ui
     up = 2 * (Kc + 1) * (Kc + 1) * fi
     promote = 2 * Kc * cols * fi if ui != fi else 0
-    xxt = 2 * Kc * Kc * fi if st.u_form == "xxt" else 0
+    xxt = 2 * Kc * Kc * fi if hands_x(F, W, lvl + 1) else 0
     idx = 16 * Fl + 9 * rows * Wl
     ext = src + promote + xxt + up + idx + 3 * P
     fac = Fl * Wl * fi + 2 * Wl * Wl * fi + 3 * P
@@ -543,7 +546,7 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
     else:
         nb, groups, slot = _mesh_layout(F, W, mesh, family)
     slab = [nb[l] * F[l] * W[l] // (groups[l] or 1) for l in range(L)]
-    st = _State(0, [], "none", fi, 0)
+    st = _State(0, [], fi, 0)
     force = dict(force, **rung)
     lazy = rung["lazy"]
     plans: List[Optional[LevelPlan]] = [None] * L
@@ -564,28 +567,25 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
                 p.sharded = True
         return peak, emitted
 
-    def options(lvl, state):
+    def options(lvl):
         if groups[lvl]:
             # a row-group level: the square path in one piece
             return [LevelPlan(False, False, udt, 1,
                               store_dtype=force["store_dtype"],
                               offload=force["offload"], spill=False)
                     for udt in _update_dtypes(F, W, lvl, dtype, force)]
-        return _options(F, W, lvl, state, dtype, force,
-                        _two_forced(force, lvl), family, nb[lvl])
+        return _options(F, W, lvl, dtype, force, _two_forced(force, lvl),
+                        family, nb[lvl])
 
     def advance(lvl, lp, emitted):
         so = _SIZE[lp.store_dtype]
         stored = st.stored_dev + (0 if lp.offload else slab[lvl] * so)
-        if lvl == L - 1 and F[lvl] > W[lvl]:
-            form, cols = "xxt", W[lvl]
-        else:
-            form, cols = "arr", F[lvl] - W[lvl]
-        return _State(stored, emitted, form, _SIZE[lp.update_dtype], cols)
+        cols = W[lvl] if hands_x(F, W, lvl) else F[lvl] - W[lvl]
+        return _State(stored, emitted, _SIZE[lp.update_dtype], cols)
 
     for lvl in range(L - 1, -1, -1):
         best = None                     # (bytes, level) of the nearest miss
-        for lp in options(lvl, st):
+        for lp in options(lvl):
             peak, emitted = peak_of(lvl, lp, st)
             if peak > budget:
                 best = min(best or (peak, lvl), (peak, lvl))
@@ -594,7 +594,7 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
             if lvl > 0:
                 # the parent needs one option that fits: stop at the first
                 parent = None
-                for q in options(lvl - 1, nxt):
+                for q in options(lvl - 1):
                     need = peak_of(lvl - 1, q, nxt)[0]
                     if need <= budget:
                         break
@@ -603,7 +603,7 @@ def _plan_levels(F, W, dtype, budget: int, rung: dict, force: dict,
                     best = min(best or (parent, lvl - 1), (parent, lvl - 1))
                     continue
             lp.peak_bytes = peak
-            if st.u_form != "none":
+            if lvl < L - 1:
                 sq = dataclasses.replace(lp, two_piece=False, xxt_tier=False,
                                          chunks=1, spill=False)
                 lp.square_bytes = peak_of(lvl, sq, st)[0]
@@ -645,11 +645,11 @@ def slot_bytes(fp, lvl: int, mesh=None, dtype=torch.float32,
     lp = LevelPlan(False, False, update_dtype or dtype, 1,
                    store_dtype or dtype, False, False)
     if lvl == L - 1:
-        st = _State(0, [], "none", _SIZE[dtype], 0)
+        st = _State(0, [], _SIZE[dtype], 0)
     else:
         cl = lvl + 1
         Kc = F[cl] - W[cl]
-        xxt = cl == L - 1 and Kc > 0
+        xxt = hands_x(F, W, cl)
         cols = W[cl] if xxt else Kc
         usize = _SIZE[dtype if xxt else lp.update_dtype]
         nbytes = (nb[cl] * Kc * cols if not groups[cl]
@@ -657,7 +657,7 @@ def slot_bytes(fp, lvl: int, mesh=None, dtype=torch.float32,
         rows = nb[cl] if mesh is None or slot[cl] else 1 << cl
         st = _State(0, [_Piece(rows, nbytes, False,
                                sharded=mesh is not None and not slot[lvl])],
-                    "xxt" if xxt else "arr", usize, cols)
+                    usize, cols)
     if groups[lvl]:
         return _rows_peak(F, W, lvl, groups[lvl], lp, st, dtype, 0,
                           bare=True)[0]

@@ -18,9 +18,9 @@ solves (cuBLAS / cuSOLVER on the card; the JAX package runs them as XLA
 einsums, outside any Pallas kernel).
 
 The parent restriction Pp = P_parent[idx, idx] is a masked gather
-(`frontal._rows_gather` / `_cols_gather`; sentinel positions read zero),
-where the JAX package contracts two one-hot matrices on the MXU because XLA
-lowers a 2-D gather element by element on the TPU. Padded boundary rows of
+(`hopper_kernels.rows_gather` / `cols_gather`; sentinel positions read
+zero), where the JAX package contracts two one-hot matrices on the MXU
+because XLA lowers a 2-D gather element by element on the TPU. Padded boundary rows of
 Pp and PX come out exactly zero, and padded pivot diagonals drop out
 through the sentinel row n, as in the JAX package.
 
@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from cholesky_tpu_torch.numeric import frontal
+from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan
 
 
@@ -72,8 +73,8 @@ def _parent_restriction(P_prev: torch.Tensor, idx: torch.Tensor
     each its columns; sentinel rows and columns read zero."""
     B, bnd = idx.shape
     Fp = P_prev.shape[1]
-    rows = frontal._rows_gather(P_prev, idx.reshape(B // 2, 2 * bnd))
-    return frontal._cols_gather(rows.view(B, bnd, Fp), idx, Fp)
+    rows = hk.rows_gather(P_prev, idx.reshape(B // 2, 2 * bnd))
+    return hk.cols_gather(rows.view(B, bnd, Fp), idx, Fp)
 
 
 def _selinv_core(stored: torch.Tensor, W: int, dtype, device,

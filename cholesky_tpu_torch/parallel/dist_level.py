@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cholesky_tpu_torch.numeric.frontal_plan import hands_x
 from cholesky_tpu_torch.parallel.mesh import (FB_AXIS, RG_AXIS, Mesh,
                                               Placement, Sharded, _send)
 
@@ -59,16 +60,6 @@ def level_mesh(mesh: Mesh, B: int) -> Mesh:
     return Mesh(mesh.flat, (FB_AXIS, RG_AXIS), shape=(B, mesh.size // B))
 
 
-def _child_rows(U, r0: int, r1: int, device) -> torch.Tensor:
-    """Rows [r0, r1) of the children's update (a tensor, the deferred
-    ("xxt", X) tag, or an object with `take(r0, r1, device)`) on
-    `device`."""
-    if hasattr(U, "take"):
-        return U.take(r0, r1, device)
-    X = U[1] if isinstance(U, tuple) else U
-    return X[r0:r1].to(device)
-
-
 def _slab_rows(piv, s: int, fb: int, r0: int, r1: int, device):
     """Slot s's rows of front fb's pivot slab: its part of a row-sharded
     slab, or a slice of a whole one."""
@@ -84,11 +75,12 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh: Mesh, update_dtype,
                          stats: Optional[dict] = None):
     """The square path of `frontal._factor_level` for an eligible narrow
     level: returns (factor [B, F, W], U2 [B, K, K] in update_dtype), both
-    `Sharded` by row groups. `piv` is the level's [B, F, W] slab (row
-    sharded or whole); `U` the children's update, dense [2B, Kc, Kc] or
-    the deferred leaf tag ("xxt", Xc), or an object with
-    `take(r0, r1, device)` and `xxt`. `stats["bytes"]` counts what the
-    all-gathers copy between slots."""
+    `Sharded` by row groups (U2 None when K = 0). `piv` is the level's
+    [B, F, W] slab (row sharded or whole); `U` the children's update, an
+    object whose `take(r0, r1, device)` gives its rows [r0, r1) on
+    `device` (None: no update), in the form `frontal_plan.hands_x` gives:
+    the leaves' X [2B, Kc, Wc] or a dense [2B, Kc, Kc]. `stats["bytes"]`
+    counts what the all-gathers copy between slots."""
     from cholesky_tpu_torch.numeric import frontal as _f
 
     B = piv.shape[0]
@@ -98,11 +90,10 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh: Mesh, update_dtype,
     devs = grid.flat
     G = grid.devices.shape[1]
     cl = lvl + 1
-    xxt = getattr(U, "xxt", isinstance(U, tuple))
-    Kc = fp.F[cl] - fp.W[cl]
+    xxt = hands_x(fp.F, fp.W, cl)
     inv = np.asarray(fp.inv_child[cl], dtype=np.int64).reshape(B, 2, F)
     rows_per = F // G
-    urows = K // G if K else 0
+    urows = K // G
     place = Placement("rows", (FB_AXIS, RG_AXIS, None), mesh.size, B)
 
     # 1) each slot: its rows of the pivot columns, extend-added
@@ -112,12 +103,14 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh: Mesh, update_dtype,
         r0, r1 = g * rows_per, (g + 1) * rows_per
         pl = _slab_rows(piv, s, fb, r0, r1, dev)
         cdt = _f._acc(pl.dtype)
-        u = _child_rows(U, 2 * fb, 2 * fb + 2, dev)
-        up = u.to(cdt)
-        if xxt:
-            up = up @ up.transpose(1, 2)                # X X^T [2, Kc, Kc]
-        # a zero row and column absorb the sentinel index Kc
-        up = torch.nn.functional.pad(up, (0, 1, 0, 1))
+        if U is None:
+            up = pl.new_zeros((2, 1, 1), dtype=cdt)     # the sentinel only
+        else:
+            up = U.take(2 * fb, 2 * fb + 2, dev).to(cdt)
+            if xxt:
+                up = up @ up.transpose(1, 2)            # X X^T [2, Kc, Kc]
+            # a zero row and column absorb the sentinel index Kc
+            up = torch.nn.functional.pad(up, (0, 1, 0, 1))
         mine = torch.from_numpy(inv[fb]).to(dev)        # [2, F]
         invr, invc, invb = mine[:, r0:r1], mine[:, :W], mine[:, W:]
         contrib = sum(up[c][invr[c][:, None], invc[c][None, :]]
@@ -125,7 +118,7 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh: Mesh, update_dtype,
         slot.append({"dev": dev, "fb": fb, "g": g, "dtype": pl.dtype,
                      "up": up, "invb": invb,
                      "slab": pl.to(cdt) - contrib})
-        del u, pl, contrib
+        del pl, contrib
 
     def group(s, key):
         """The group's row blocks of `key`, gathered on slot s's device."""
@@ -145,19 +138,18 @@ def factor_level_sharded(fp, lvl: int, piv, U, mesh: Mesh, update_dtype,
         del ld, sol
     for st in slot:
         del st["slab"]
-    # 4) my rows of U2 = X X^T + E_T
-    for s, st in enumerate(slot):
-        if K:
-            X = group(s, "fac")[W:]                      # [K, W]
-            my = st["g"] * urows + torch.arange(urows, device=st["dev"])
-            up, invb = st["up"], st["invb"]
-            T = sum(up[c][invb[c][my][:, None], invb[c][None, :]]
-                    for c in range(2))                   # [K/G, K]
-            st["u2"] = torch.addmm(T, X[my], X.T).to(update_dtype)[None]
-            del X, T
-        else:
-            st["u2"] = st["fac"].new_zeros((1, 0, 0)).to(update_dtype)
     fac = Sharded([st["fac"].to(st["dtype"])[None] for st in slot], place,
                   (B, F, W), devs)
+    if not K:
+        return fac, None
+    # 4) my rows of U2 = X X^T + E_T
+    for s, st in enumerate(slot):
+        X = group(s, "fac")[W:]                          # [K, W]
+        my = st["g"] * urows + torch.arange(urows, device=st["dev"])
+        up, invb = st["up"], st["invb"]
+        T = sum(up[c][invb[c][my][:, None], invb[c][None, :]]
+                for c in range(2))                       # [K/G, K]
+        st["u2"] = torch.addmm(T, X[my], X.T).to(update_dtype)[None]
+        del X, T
     u2 = Sharded([st["u2"] for st in slot], place, (B, K, K), devs)
     return fac, u2

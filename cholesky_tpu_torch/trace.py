@@ -31,8 +31,10 @@ The spans (their names are the contract the benchmark's readers rely on):
                               per chunk: the partial front factorization
                               (`_factor_slab`)
   chol.step.schur             there: the Schur update of the boundary
-                              block (`_schur_update_cast`, and the leaves'
-                              deferred X X^T, `_rows_product`)
+                              block (`_schur_update_cast`, or
+                              `_schur_gather_2` on a gather-tier level;
+                              and the leaves' deferred X X^T,
+                              `_rows_product`)
   chol.step.extend_add        there: the children's updates added into the
                               fronts: the square fronts formed from the
                               pivot slabs and the updates in one pass

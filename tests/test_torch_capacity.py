@@ -27,7 +27,8 @@ from cholesky_tpu_torch import SparseCholesky, convert
 from cholesky_tpu_torch.numeric import frontal as tfrontal
 from cholesky_tpu_torch.numeric import regimes
 from cholesky_tpu_torch.numeric.assemble import FrontAssembler
-from cholesky_tpu_torch.numeric.frontal_plan import build_frontal_plan
+from cholesky_tpu_torch.numeric.frontal_plan import (build_frontal_plan,
+                                                     hands_x)
 
 F64_REL = 1e-12     # f64: the same algorithm up to summation order
 TOL = 1e-10         # the solver's relative-residual contract
@@ -58,8 +59,25 @@ def _rel(x, ref):
     return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-300))
 
 
-def _setup(shape, levels, dtype=np.float64):
-    n, r, c, v, o, cl, b = generate_problem(shape, levels)
+def cut_leaves(problem):
+    """A `generate_problem` tuple with every coupling between a leaf
+    separator's rows and the other rows dropped (the matrix stays
+    diagonally dominant): the leaf fronts have no boundary, F = W at the
+    leaf level, so the leaves hand their parents no update."""
+    n, r, c, v, o, cl, b = problem
+    fp = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl).fplan
+    rows = fp.front_rows[-1][:, :fp.W[-1]].ravel()
+    leaf = np.zeros(n, bool)
+    leaf[fp.plan.perm[rows[rows < n]]] = True
+    keep = leaf[r] == leaf[c]
+    return n, r[keep], c[keep], v[keep], o, cl, b
+
+
+def _setup(shape, levels, dtype=np.float64, leaf_boundary=True):
+    problem = generate_problem(shape, levels)
+    if not leaf_boundary:
+        problem = cut_leaves(problem)
+    n, r, c, v, o, cl, b = problem
     js = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=dtype)
     tfp = build_frontal_plan(convert.plan_from_jax(js.plan), js.rows, js.cols)
     fronts = jfrontal.assemble_fronts(js.fplan, js.rows, js.cols, js.vals,
@@ -108,6 +126,71 @@ def test_two_piece_matches_jax(monkeypatch, shape, levels, tier):
     tfac = _port_factor(tfp, fronts, plan)
     for lvl in range(tfp.levels):
         assert _rel(tfac[lvl], jfac[lvl]) <= F64_REL, lvl
+
+
+@pytest.mark.parametrize("path", ["square", "xxt", "gather"])
+@pytest.mark.parametrize("leaf_boundary", [True, False])
+def test_leaves_hand_x_where_hands_x_says(monkeypatch, leaf_boundary, path):
+    """`frontal_plan.hands_x` decides the form of the leaves' update. With
+    a leaf boundary (F > W) the leaves hand their parent X, which the
+    parent turns into X X^T once, by `_rows_product` (square path, gather
+    tier), or expands by `_expand_xxt_2` (xxt tier), and the planner
+    offers the parent the xxt tier; without one (F = W) the parent gets no
+    update, neither runs on a leaf's X, and the planner offers no xxt
+    tier. The factor matches the JAX package's, f64."""
+    js, tfp, fronts, _ = _setup((12, 11), 3, leaf_boundary=leaf_boundary)
+    L = tfp.levels
+    x = hands_x(tfp.F, tfp.W, L - 1)
+    assert x == leaf_boundary
+    assert not any(hands_x(tfp.F, tfp.W, cl) for cl in range(L - 1))
+    plan = regimes.plan_regimes(tfp, np.float64, BIG,
+                                two_piece=path != "square")
+    parent = plan.levels[L - 2]
+    assert parent.two_piece == (path != "square")
+    assert parent.xxt_tier == (x and path != "square")
+    parent.xxt_tier = path == "xxt" and x
+    leaf_x = (tfp.F[L - 1] - tfp.W[L - 1], tfp.W[L - 1])
+    seen, handed = [], []
+    for name, arg in (("_rows_product", 0), ("_expand_xxt_2", 1)):
+        def spy(*a, _real=getattr(tfrontal, name), _name=name, _arg=arg,
+                **k):
+            if tuple(a[_arg].shape[1:]) == leaf_x:
+                seen.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(tfrontal, name, spy)
+    real_level = tfrontal._factor_level
+
+    def level_spy(fp, lvl, piv, U, *a):
+        if lvl == L - 2:
+            handed.append(None if U is None else tuple(U.shape))
+        return real_level(fp, lvl, piv, U, *a)
+
+    monkeypatch.setattr(tfrontal, "_factor_level", level_spy)
+    tfac = _port_factor(tfp, fronts, plan)
+    assert handed == [(1 << L - 1,) + leaf_x if x else None]
+    assert seen == ([] if not x else
+                    ["_expand_xxt_2" if path == "xxt" else "_rows_product"])
+    jfac = jfrontal.frontal_factor(js.fplan,
+                                   tuple(jnp.asarray(f) for f in fronts))
+    for lvl in range(L):
+        assert _rel(tfac[lvl], jfac[lvl]) <= F64_REL, lvl
+
+
+@pytest.mark.parametrize("view", ["plan", "family", "batch", "slot",
+                                  "planner"])
+def test_hands_x_reads_every_view(view):
+    """The predicate reads F and W, which the plan, each of its views and
+    the planner's bare tuples carry alike: true at the leaf level of a
+    plan with a leaf boundary, nowhere without one."""
+    for leaf_boundary in (True, False):
+        _, tfp, _, _ = _setup((12, 11), 3, leaf_boundary=leaf_boundary)
+        v = {"plan": tfp, "family": tfrontal.FamilyView(tfp, 3),
+             "batch": tfrontal._BatchView(tfp, 1, 0, 1),
+             "slot": tfrontal._SlotView(tfp, {2: (0, 2)}),
+             "planner": _Shapes(tuple(int(f) for f in tfp.F),
+                                tuple(int(w) for w in tfp.W))}[view]
+        got = [hands_x(v.F, v.W, cl) for cl in range(1, tfp.levels)]
+        assert got == [False] * (tfp.levels - 2) + [leaf_boundary]
 
 
 @pytest.mark.parametrize("chunks", [{5: 2, 4: 2}, {5: 8, 3: 4, 2: 2},

@@ -142,11 +142,11 @@ def test_level_factors_match_jax(monkeypatch, dtype, tol, route):
         assert _rel(tfac[lvl], jfac[lvl]) <= tol, lvl
 
 
-@pytest.mark.parametrize("impl", ["extend_add_fused", "form_front_ref"])
+@pytest.mark.parametrize("impl", ["form_front_ref"])
 def test_fused_extend_add_matches_jax(impl):
-    """The square path's extend-add against the JAX package's: the old
-    in-place torch indexing on a full front, and `form_front_ref` on a
-    front that starts from its pivot slab (zeros right of W)."""
+    """The square path's extend-add against the JAX package's:
+    `form_front_ref` on a front that starts from its pivot slab (zeros
+    right of W)."""
     n, r, c, v, o, cl, _ = generate_problem((9, 8, 7), 4)
     js = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl)
     tfp = _port_plan(js)
@@ -156,53 +156,35 @@ def test_fused_extend_add_matches_jax(impl):
         Fp, Wp = tfp.F[child - 1], tfp.W[child - 1]
         K = tfp.F[child] - tfp.W[child]
         full = rng.standard_normal((B, Fp, Fp))
-        if impl == "form_front_ref":
-            full[:, :, Wp:] = 0
+        full[:, :, Wp:] = 0
         U = rng.standard_normal((2 * B, K, K))
         ref = jfrontal._apply_child_updates_fused(
             js.fplan, jnp.asarray(full), jnp.asarray(U), child)
-        if impl == "extend_add_fused":
-            # in place on a buffer with a sentinel row
-            out = torch.zeros((B, Fp + 1, Fp), dtype=torch.float64)
-            out[:, :Fp] = torch.from_numpy(full)
-            tfrontal._extend_add_fused_(tfp, out, torch.from_numpy(U), child)
-        else:
-            inv, _ = tfrontal._child_maps(tfp, child, torch.device("cpu"))
-            out = hk.form_front_ref(torch.from_numpy(full[:, :, :Wp]),
-                                    torch.from_numpy(U), inv, Fp, Wp)
-            assert not out[:, Fp].any()
+        inv, _ = tfrontal._child_maps(tfp, child, torch.device("cpu"))
+        out = hk.form_front_ref(torch.from_numpy(full[:, :, :Wp]),
+                                torch.from_numpy(U), inv, Fp, Wp)
+        assert not out[:, Fp].any()
         np.testing.assert_allclose(out[:, :Fp].numpy(), np.asarray(ref),
                                    rtol=0, atol=1e-12)
 
 
-# f32 fronts against the old path: (p - u0) - u1 against p + (-u0) + (-u1)
-# accumulated in either sibling order, two f32 roundings of sums of three
-# entries of at most this size's magnitude
+# f32 fronts against the JAX package's in f64: (p - u0) - u1 rounds twice in
+# f32, each rounding within 2^-24 of a sum of three entries of at most this
+# size's magnitude; the bound allows twice that
 FRONT_F32_ATOL = 4 * 2.0 ** -24 * 3 * 4.0
-
-
-def _old_front(fp, piv, U, child):
-    """The square front as the level loop built it before `_form_front`:
-    zeros, the pivot slab copied in, `_extend_add_fused_`."""
-    B, Fl, Wl = piv.shape
-    full = piv.new_zeros((B, Fl + 1, Fl))
-    full[:, :Fl, :Wl] = piv
-    if isinstance(U, tuple):
-        U = tfrontal._rows_product(U[1], U[1].dtype)
-    if U is not None and U.shape[1] > 0:
-        tfrontal._extend_add_fused_(fp, full, U, child)
-    return full
 
 
 @pytest.mark.parametrize("case", ["f64", "f32", "bf16_updates", "xxt",
                                   "family", "no_update"])
-def test_form_front_matches_the_old_path(case):
-    """`_form_front` (on the CPU `form_front_ref`) against the zero-fill,
-    slab copy and `_extend_add_fused_` it replaced, at every level of a
-    9x8x7 L4 plan with children: f64 to 1e-12, f32 fronts (f32 or bf16
-    updates) to FRONT_F32_ATOL, the leaves' ("xxt", X), a family of two
-    systems folded into the batch, and an empty update (K = 0, or None):
-    the padded slab exactly. The sentinel row reads zero."""
+def test_form_front_matches_jax(case):
+    """`_form_front` (on the CPU `form_front_ref`) against the JAX
+    package's `_apply_child_updates_fused` on the padded pivot slab, at
+    every level of a 9x8x7 L4 plan with children: f64 to 1e-12, f32 fronts
+    (f32 or bf16 updates) to FRONT_F32_ATOL, the leaves' X as the level
+    loop hands it (its X X^T by `_rows_product`; the JAX package's in
+    f64), a family of two systems folded into the batch (each system
+    against the single-system plan), and no update (None: the padded slab
+    exactly). The sentinel row reads zero."""
     n, r, c, v, o, cl, _ = generate_problem((9, 8, 7), 4)
     js = cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl)
     tfp = _port_plan(js)
@@ -217,26 +199,33 @@ def test_form_front_matches_the_old_path(case):
         Kc, Wc = tfp.F[child] - tfp.W[child], tfp.W[child]
         piv = torch.from_numpy(rng.uniform(-4, 4, (B, Fl, Wl))).to(fdt)
         if case == "xxt":
-            U = ("xxt", torch.from_numpy(rng.standard_normal(
-                (2 * B, Kc, Wc))))
+            X = torch.from_numpy(rng.standard_normal((2 * B, Kc, Wc)))
+            U = tfrontal._rows_product(X, X.dtype)
+            U_ref = (X @ X.transpose(1, 2)).numpy()
         elif case == "no_update":
-            U = None if child == 1 else torch.zeros((2 * B, 0, 0))
+            U, U_ref = None, np.zeros((2 * B, Kc, Kc))
         else:
             U = torch.from_numpy(rng.uniform(-4, 4, (2 * B, Kc, Kc))).to(udt)
+            U_ref = U.double().numpy()
         out = tfrontal._form_front(fp, piv, U, child)
-        ref = _old_front(fp, piv, U, child)
         assert out.shape == (B, Fl + 1, Fl) and out.dtype == fdt
-        assert out.stride() == ref.stride()
-        # the old path scattered the update's padding rows into row Fl
+        assert out.is_contiguous()
         assert not out[:, Fl].any()
-        out, ref = out[:, :Fl], ref[:, :Fl]
-        if case == "no_update":
-            assert torch.equal(out, ref)
-        elif fdt == torch.float64:
-            torch.testing.assert_close(out, ref, rtol=0, atol=1e-12)
-        else:
-            torch.testing.assert_close(out, ref, rtol=0,
-                                       atol=FRONT_F32_ATOL)
+        full = np.zeros((B, Fl, Fl))
+        full[:, :, :Wl] = piv.double().numpy()
+        b1 = B // K
+        for k in range(K):          # system k: fronts [k b1, (k + 1) b1)
+            ref = np.asarray(jfrontal._apply_child_updates_fused(
+                js.fplan, jnp.asarray(full[k * b1:(k + 1) * b1]),
+                jnp.asarray(U_ref[2 * k * b1:2 * (k + 1) * b1]), child))
+            got = out[k * b1:(k + 1) * b1, :Fl].double().numpy()
+            if case == "no_update":
+                np.testing.assert_array_equal(got, ref)
+            elif fdt == torch.float64:
+                np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+            else:
+                np.testing.assert_allclose(got, ref, rtol=0,
+                                           atol=FRONT_F32_ATOL)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),

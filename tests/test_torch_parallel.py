@@ -28,6 +28,7 @@ from cholesky_tpu_torch.numeric import frontal, regimes
 from cholesky_tpu_torch.numeric.assemble import FrontAssembler, MeshAssembler
 from cholesky_tpu_torch.parallel import dist_level
 from cholesky_tpu_torch.parallel import mesh as tmesh
+from tests.test_torch_capacity import cut_leaves
 
 F64_REL = 1e-12
 F32_REL = 1e-6
@@ -227,6 +228,38 @@ def test_narrow_level_distribution(monkeypatch, meshes):
     assert calls == []
     assert isinstance(s2.panels[1], torch.Tensor)
     assert s2.residual(b, s2.solve(b)) <= TOL
+
+
+@pytest.mark.parametrize("leaf_boundary", [True, False])
+def test_row_groups_above_the_leaves(monkeypatch, meshes, leaf_boundary):
+    """A row-group level whose children are the leaves (24^2 L3 on 8
+    slots: level 1 by groups of 4) reads the form `frontal_plan.hands_x`
+    gives: the leaves' X, or no update at all when the leaves have no
+    boundary (`cut_leaves`). The f64 factor equals the mesh-free one and
+    the refined solve meets 1e-10."""
+    tm, _ = meshes
+    calls = []
+    real = dist_level.factor_level_sharded
+
+    def spy(fp, lvl, piv, U, mesh, update_dtype, stats=None):
+        calls.append((lvl, U is None))
+        return real(fp, lvl, piv, U, mesh, update_dtype, stats)
+
+    monkeypatch.setattr(dist_level, "factor_level_sharded", spy)
+    problem = generate_problem((24, 24), 3)
+    if not leaf_boundary:
+        problem = cut_leaves(problem)
+    n, r, c, v, o, cl, b = problem
+    sD = SparseCholesky.from_coo(n, r, c, v, o, cl, mesh=tm)
+    sD.factorize()
+    assert calls == [(1, not leaf_boundary)]
+    assert sD.panels[1].kind == "rows"
+    s1 = SparseCholesky.from_coo(n, r, c, v, o, cl, device="cpu")
+    s1.factorize()
+    for lvl in range(s1.fplan.levels):
+        assert _rel(sD.panels[lvl], s1.panels[lvl]) <= F64_REL, lvl
+    x = sD.solve(b, tol=TOL)
+    assert sD.residual(b, x) <= TOL
 
 
 def _family(shape=(12, 12), levels=3, k=8, seed=11):
