@@ -38,6 +38,14 @@ Phases, each printing one JSON line:
              its plain version `form_front_ref` and to itself on a second
              launch, zero sentinel row, then timed beside its byte bound
              at 3.35 TB/s and its plain version;
+             `schur_syrk` (csrc/schur_syrk.cu) at the shape of every level
+             with a boundary of both configurations (SCHUR_LEVELS, seeded
+             ragged extents): against its plain version `schur_syrk_ref`
+             within a summation-order bound in each mode (X X^T - E,
+             X X^T + E in place, X X^T), bitwise equal to a second launch
+             and in place to out of place, then timed beside its bound,
+             the library product it replaced and its plain version, with
+             the executed share of the padded product's flops;
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -287,6 +295,27 @@ FRONT_LEVELS = {
         (8, 256, 2416, 192, 1360, 1033), (9, 512, 1552, 192, 952, 709),
         (10, 1024, 1048, 96, 640, 456), (11, 2048, 688, 48, 400, 281),
         (12, 4096, 448, 48, 288, 191), (13, 8192, 312, 24, 208, 123)),
+}
+# The Schur update of every level with a boundary of the benchmark's two
+# configurations (lvl, B, K, W, least m_b, least p_b): the padded boundary
+# K and pivots W of `build_frontal_plan`, the least front extents of the
+# configuration's fronts (`cholbench.yardstick.front_sizes`)
+SCHUR_LEVELS = {
+    "lapl7_50": (
+        (1, 2, 2504, 1256, 2500, 1200), (2, 4, 2504, 632, 2400, 576),
+        (3, 8, 1880, 632, 1728, 576), (4, 16, 1856, 304, 1104, 264),
+        (5, 32, 1344, 144, 649, 121), (6, 64, 864, 144, 363, 121),
+        (7, 128, 576, 72, 231, 55), (8, 256, 360, 40, 135, 25),
+        (9, 512, 216, 40, 75, 25), (10, 1024, 144, 24, 45, 10),
+        (11, 2048, 96, 56, 24, 20)),
+    "elast_q1_64": (
+        (1, 2, 12480, 6144, 12480, 6144), (2, 4, 12480, 3072, 12480, 3072),
+        (3, 8, 9512, 3072, 9312, 2976), (4, 16, 9656, 1536, 6048, 1395),
+        (5, 32, 7296, 768, 3651, 675), (6, 64, 5008, 768, 2163, 675),
+        (7, 128, 3424, 384, 1419, 315), (8, 256, 2224, 192, 867, 147),
+        (9, 512, 1360, 192, 507, 147), (10, 1024, 952, 96, 327, 63),
+        (11, 2048, 640, 48, 195, 27), (12, 4096, 400, 48, 111, 27),
+        (13, 8192, 288, 24, 69, 9), (14, 16384, 208, 48, 39, 9)),
 }
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
 # f32-stored regime factors vs the default (square, f32) factor, relative
@@ -706,6 +735,162 @@ def phase_form_front():
     return summary
 
 
+def schur_inputs(B, K, W, m_min, p_min, gen, dev):
+    """Seeded f32 boundary strips X [B, K, W] (the view [:, W:, :] of
+    factors [B, W + K, W]), trailing blocks E (the view [:, W:W + K, W:] of
+    fronts [B, W + K + 1, W + K]) and extents [B, 2]: m_b uniform on
+    [m_min, K] and p_b on [p_min, W], front 0 at (K, W); X zero outside
+    each extent, as the level loop's is; E symmetric, as a front is."""
+    import torch
+
+    F = W + K
+    X = torch.randn(B, F, W, generator=gen, device=dev)[:, W:, :]
+    E = torch.randn(B, F + 1, F, generator=gen, device=dev)[:, W:F, W:]
+    E.copy_((E + E.transpose(1, 2)) / 2)
+    m = torch.randint(m_min, K + 1, (B,), generator=gen, device=dev)
+    p = torch.randint(p_min, W + 1, (B,), generator=gen, device=dev)
+    m[0], p[0] = K, W
+    rows = torch.arange(K, device=dev) < m[:, None]
+    X.masked_fill_(~(rows[:, :, None] & (torch.arange(W, device=dev)
+                                         < p[:, None])[:, None, :]), 0)
+    return X, E, torch.stack([m, p], 1), rows
+
+
+def schur_err(k, ref, X, E, ext, rows) -> float:
+    """The largest |k - ref| inside the extents over its bound: each side
+    of an f32 sum of p products lies within gamma_p = p 2^-24 / (1 - p
+    2^-24) of |X| |X|^T from the exact one (Higham, Accuracy and Stability
+    of Numerical Algorithms, 3.1), and adding E rounds once more; a
+    different summation order can move them apart by twice that. Above 1
+    fails."""
+    import torch
+
+    B, K, _ = X.shape
+    step = max(1, (1 << 28) // (K * K))     # fronts a pass: 2 GiB of f64
+    worst = 0.0
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        p = ext[sl, 1].double()[:, None, None]
+        gamma = p * 2.0 ** -24 / (1 - p * 2.0 ** -24)
+        ax = X[sl].abs().double()
+        bound = 2 * gamma * (ax @ ax.transpose(1, 2))
+        del ax
+        bound += 2.0 ** -23 * (ref[sl].double().abs() + E[sl].double().abs())
+        ratio = (k[sl].double() - ref[sl].double()).abs().div_(
+            bound.clamp_(min=1e-300))
+        del bound
+        inside = rows[sl, :, None] & rows[sl, None, :]
+        worst = max(worst, float(torch.where(inside, ratio, 0).max()))
+        del ratio, inside
+    return worst
+
+
+def phase_schur_syrk():
+    """schur_syrk (csrc/schur_syrk.cu) at every level shape of SCHUR_LEVELS
+    with seeded ragged extents: inside each front's extent within the
+    summation-order bound of `schur_err` of `schur_syrk_ref` (U = X X^T - E,
+    U = X X^T + E in place, U = X X^T), bitwise equal to a second launch,
+    in place equal to out of place; then timed at IEEE in the mode the
+    level loop runs it (the leaf level X X^T, the others X X^T - E) beside
+    its bound (the level's symmetric work, sum m_b^2 p_b flops, at 67
+    TFLOP/s, or X, E's lower triangle and U once at 3.35 TB/s, whichever is
+    larger), the library product the port ran before on the same views
+    (`torch.baddbmm`, at the leaves `torch.bmm`: the padded full product,
+    `library_ms`) and the plain version, with the share of the padded full
+    product's flops that its tiles execute."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+    from cholesky_tpu_torch.numeric.precision import precision_ctx
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    summary = {}
+    for cfg, levels in SCHUR_LEVELS.items():
+        out = []
+        for lvl, B, K, W, m_min, p_min in levels:
+            X, E, ext, rows = schur_inputs(B, K, W, m_min, p_min, gen, dev)
+            where = f"schur_syrk {cfg} L{lvl} [{B}, {K}, {W}]"
+
+            def same(x, y):
+                """x and y equal inside the extents, a pass of fronts at a
+                time."""
+                step = max(1, (1 << 30) // (K * K))
+                return all(bool(torch.equal(
+                    x[b0:b0 + step][inside], y[b0:b0 + step][inside]))
+                    for b0 in range(0, B, step)
+                    for inside in [rows[b0:b0 + step, :, None]
+                                   & rows[b0:b0 + step, None, :]])
+
+            with precision_ctx("highest"):
+                errs = {}
+                for mode, e, sign in (("minus", E, -1.0), ("plus", E, 1.0),
+                                      ("none", None, -1.0)):
+                    k = hk.schur_syrk(X, e, sign, ext)
+                    again = hk.schur_syrk(X, e, sign, ext)
+                    check(same(k, again), f"{where} {mode}: not "
+                          f"reproducible")
+                    del again
+                    if mode == "plus":
+                        inplace = E.contiguous()
+                        hk.schur_syrk(X, inplace, 1.0, ext, out=inplace)
+                        check(same(inplace, k), f"{where}: in place differs")
+                        del inplace
+                    ref = hk.schur_syrk_ref(X, e, sign, ext)
+                    errs[mode] = schur_err(
+                        k, ref, X, E if e is not None else torch.zeros_like(
+                            k), ext, rows)
+                    check(errs[mode] <= 1.0, f"{where} {mode}: differs from "
+                          f"plain by {errs[mode]} of the bound")
+                    del k, ref
+                torch.cuda.synchronize()
+                m, p = (ext[:, 0].cpu().numpy(), ext[:, 1].cpu().numpy())
+                leaf = lvl == levels[-1][0]
+                e = None if leaf else E
+                flops = float((m.astype(float) ** 2 * p).sum())
+                nbytes = 4 * float((m * p + (0 if leaf else m * (m + 1) / 2)
+                                    + m * m).sum())
+                flops_ms = flops / hk.FP32_FLOPS * 1e3
+                bytes_ms = nbytes / hk.HBM_BYTES_PER_S * 1e3
+                iters = 3 if B * K * K * W > 1e11 else 10
+                row = {
+                    "level": lvl, "shape": [B, K, W],
+                    "least_extent": [m_min, p_min], "errs": errs,
+                    "bound_ms": max(flops_ms, bytes_ms),
+                    "bound_by": ("operations" if flops_ms >= bytes_ms
+                                 else "bytes"),
+                    "mode": "X X^T" if leaf else "X X^T - E",
+                    "ms": cuda_ms(lambda: hk.schur_syrk(X, e, -1.0, ext),
+                                  iters=iters, warmup=1),
+                    "library_ms": cuda_ms(
+                        (lambda: torch.bmm(X, X.transpose(1, 2))) if leaf
+                        else (lambda: torch.baddbmm(
+                            E, X, X.transpose(1, 2), beta=-1.0)),
+                        iters=iters, warmup=1),
+                    "plain_ms": cuda_ms(lambda: hk.schur_syrk_ref(
+                        X, e, -1.0, ext), iters=1, warmup=1),
+                    "tile_share": hk.schur_syrk_flops(m, p).sum()
+                    / (2.0 * B * K * K * W)}
+            row["share"] = row["bound_ms"] / row["ms"]
+            row["executed_tflops"] = (hk.schur_syrk_flops(m, p).sum()
+                                      / row["ms"] / 1e9)
+            row["beats_library"] = row["ms"] < row["library_ms"]
+            emit({"phase": "kernel", "name": "schur_syrk", "config": cfg,
+                  **row})
+            out.append(row)
+            del X, E, e, ext, rows
+            torch.cuda.empty_cache()
+        tot = {key: sum(r[key] for r in out)
+               for key in ("bound_ms", "ms", "library_ms", "plain_ms")}
+        tot["share"] = tot["bound_ms"] / tot["ms"]
+        tot["beats_library_everywhere"] = all(r["beats_library"]
+                                              for r in out)
+        emit({"phase": "kernel", "name": "schur_syrk", "config": cfg,
+              "levels": len(out), "total": tot})
+        summary[cfg] = tot
+    return summary
+
+
 def _scipy_matrix(n, rows, cols, vals):
     import numpy as np
     import scipy.sparse as sp
@@ -819,6 +1004,11 @@ def phase_slice():
     check(launches["form_front"] == 7 * len(walls),
           f"expected 7 form_front launches per factorization, got "
           f"{launches['form_front']} in {len(walls)}")
+    # every level with a boundary (1-7, the leaves' X X^T at level 6) forms
+    # its Schur update in one launch at IEEE products
+    check(launches["schur_syrk"] == 7 * len(walls),
+          f"expected 7 schur_syrk launches per factorization, got "
+          f"{launches['schur_syrk']} in {len(walls)}")
     SLAB_BY_PATH[f"50^3 L8 slice ({len(walls)} factorizations)"] = launches[
         "factor_slab"]
     check(all(x["sweeps"] + x["host_sweeps"] <= 2 for x in solves),
@@ -920,6 +1110,26 @@ def rule_launches(levels, kernel: str = "chol_inv") -> int:
                for fronts, W, chunks in levels
                if hk.slab_kernel_eligible(fronts // chunks, W,
                                           torch.float32))
+
+
+def schur_launches(rows, ieee: bool) -> int:
+    """schur_syrk launches in one factorization by the level loop's route,
+    over the rows of a regime plan's `describe()` with the level's F and W
+    (tools/torch/bench.py's `regime_plan`): none at the TF32 rung; at IEEE
+    products one a chunk of every level between the root and the leaves
+    with a boundary and an f32 update, the gather tier's left out, and one
+    a chunk of the leaves' parent for the leaves' X X^T where the leaves
+    have a boundary (their X f32, or in the xxt tier the parent's update)."""
+    if not ieee:
+        return 0
+    n = sum(lv["chunks"] for lv in rows[1:-1]
+            if lv["F"] > lv["W"] and lv["update"] == "float32"
+            and lv["path"] != "two-piece")
+    leaf, parent = rows[-1], rows[-2]
+    carrier = parent if parent["path"] == "two-piece/xxt" else leaf
+    if leaf["F"] > leaf["W"] and carrier["update"] == "float32":
+        n += parent["chunks"]
+    return n
 
 
 def expected_launches(fp, plan, kernel: str = "chol_inv") -> int:
@@ -3377,10 +3587,15 @@ def check_bench(result) -> None:
             # one front formed a chunk of every square level with children
             rule["form_front"] = sum(lv["chunks"] for lv in r["regime_plan"]
                                      if lv["path"] == "square")
-            for key in ("launches", "launches_production"):
+            for key, rung in (("launches", r.get("factor_precision",
+                                                 r.get("precision"))),
+                              ("launches_production",
+                               r.get("solve_precision"))):
+                rule["schur_syrk"] = schur_launches(r["regime_plan"],
+                                                    "ieee" in str(rung))
                 check(r.get(key, rule) == rule, f"bench {name}: {key} "
-                      f"{r.get(key)} of one warm factorization, the "
-                      f"routing rule gives {rule}")
+                      f"{r.get(key)} of one warm factorization at {rung}, "
+                      f"the routing rule gives {rule}")
     want = schedule_flops_direct(*BENCH_PROBLEM)
     check(result["useful_flops"] == want, f"bench: useful FLOPs "
           f"{result['useful_flops']} != schedule_flops {want}")
@@ -3444,6 +3659,7 @@ def main() -> int:
         kern = phase_kernel()
         slab = phase_slab_kernel()
         front = phase_form_front()
+        schur = phase_schur_syrk()
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
@@ -3508,7 +3724,14 @@ def main() -> int:
                     "gather, accumulating index_put_)",
         "launches": launches["form_front"],
         "launches_by_path": {"50^3 L8 slice": launches["form_front"]},
-        "per_config": front}]})
+        "per_config": front}, {
+        "name": "schur_syrk", "route": "cuda",
+        "source": "cholesky_tpu_torch/kernels/csrc/schur_syrk.cu",
+        "replaces": "no TPU kernel: cuBLAS's padded full baddbmm of the "
+                    "Schur update (the JAX package leaves it to XLA)",
+        "launches": launches["schur_syrk"],
+        "launches_by_path": {"50^3 L8 slice": launches["schur_syrk"]},
+        "per_config": schur}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -93,6 +93,7 @@ from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.io import mmio, ordering as ordio
 from cholesky_tpu_torch.symbolic.plan import SolvePlan, build_plan
 from cholesky_tpu_torch.numeric import devmem, frontal, ldlt, regimes, selinv
+from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric import refine as refine_mod
 from cholesky_tpu_torch.numeric.assemble import (TORCH_DTYPES, FrontAssembler,
                                                  MeshAssembler)
@@ -512,9 +513,13 @@ class SparseCholesky:
         "start" | "end")` is called around each level (instrumentation).
         `self.regimes` keeps the plan and `self.factor_stats` the budget,
         the seconds spent planning (and whether the plan of the last budget
-        was reused), whether the allocator's cache was released, and the
+        was reused), whether the allocator's cache was released, the
         bytes allocated on the device when the factorization began (after
-        the previous factor was dropped).
+        the previous factor was dropped), and of the Schur products the
+        executed share of the padded full products' flops
+        (`schur_tile_share`, `frontal.schur_tile_share`) and the
+        `schur_syrk` launches (`schur_syrk_launches`; neither for a signed
+        factor).
 
         With `signs`, the quasi-definite factorization `ldlt.factor_qd`
         runs instead, under `regimes.plan_qd` (in core, square, slabs
@@ -587,9 +592,14 @@ class SparseCholesky:
                                          level_hook=level_hook,
                                          mesh=self.mesh)
         else:
+            launches = hk.LAUNCHES["schur_syrk"]
             self.panels = frontal.factor(
                 self.fplan, fronts, plan, level_hook=level_hook,
                 mesh=self.mesh, root=frontal.root_spec(self.fplan, self.mesh))
+            self.factor_stats["schur_tile_share"] = frontal.schur_tile_share(
+                self.fplan, plan)
+            self.factor_stats["schur_syrk_launches"] = (
+                hk.LAUNCHES["schur_syrk"] - launches)
         self.factored = True
         if check:
             self._check_pivots()

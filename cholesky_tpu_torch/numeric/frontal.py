@@ -138,12 +138,27 @@ def _device_index(fp: FrontalPlan, name: str, lvl, device,
             host = fp.front_rows[lvl][:, :fp.W[lvl]]
         elif name == "bnd_rows":
             host = fp.front_rows[lvl][:, fp.W[lvl]:]
+        elif name == "extent":
+            host = np.stack(_extent_host(fp, lvl), axis=1)
         else:                                   # inv_child, fwd_child
             host = getattr(fp, name)[lvl]
         with devmem.persistent(device):
             t = torch.from_numpy(np.asarray(host, dtype=np.int64)).to(device)
         fp.cache[key] = t
     return t
+
+
+def _extent_host(fp: FrontalPlan, lvl: int):
+    """(m, p) per front of level lvl: its boundary rows and its pivots, the
+    non-sentinel entries of its row list after and before W (cached on
+    the plan)."""
+    key = ("extent_host", lvl)
+    hit = fp.cache.get(key)
+    if hit is None:
+        fr, W, n = fp.front_rows[lvl], fp.W[lvl], fp.plan.n
+        hit = fp.cache[key] = ((fr[:, W:] < n).sum(axis=1),
+                               (fr[:, :W] < n).sum(axis=1))
+    return hit
 
 
 class _BatchView:
@@ -212,6 +227,58 @@ def _child_maps(fp, child_lvl: int, device):
         inv = inv[2 * fp.c0:2 * fp.c1]
         fwd = fwd[2 * fp.c0:2 * fp.c1]
     return inv, fwd
+
+
+def _extents(fp, lvl: int, device) -> torch.Tensor:
+    """The int64 [b, 2] device map (m_b, p_b) of level lvl's fronts that
+    `schur_syrk` reads, cut to a batch view's blocks (a view of blocks
+    [c0, c1) of its level holds [2 c0, 2 c1) of the level below)."""
+    ext = _index(fp, "extent", lvl, device)
+    if isinstance(fp, _BatchView):
+        d = lvl - fp.lvl
+        ext = ext[fp.c0 << d:fp.c1 << d]
+    return ext
+
+
+def _syrk_route(dtype, out_dtype) -> bool:
+    """Whether a Schur product of X of `dtype` stored as `out_dtype` goes
+    to `hk.schur_syrk`: an f32 update of f32 operands at IEEE products;
+    the TF32 rung, f64 and narrower updates stay with cuBLAS."""
+    return (dtype == torch.float32 and out_dtype == dtype
+            and not hk._tf32())
+
+
+def schur_tile_share(fp: FrontalPlan, plan) -> Optional[float]:
+    """The share of the padded full Schur products' flops (2 B K^2 W a
+    level with a boundary) that a factorization of fp under the regime plan
+    `plan` (`regimes.plan_regimes`) executes, at the rung in force:
+    `schur_syrk`'s tiles inside the fronts' extents where `_syrk_route`
+    sends the level's product, the padded product where cuBLAS forms it
+    (the gather tier; a leaf level whose parent's xxt tier expands X); None
+    with no boundary. The tiles' flops are counted once per plan."""
+    L, dtype = fp.levels, plan.dtype
+    done = full = 0.0
+    for lvl in range(1, L):
+        K, W = fp.F[lvl] - fp.W[lvl], fp.W[lvl]
+        if K == 0:
+            continue
+        lp = plan.levels[lvl]
+        if lvl == L - 1:                # X X^T of the leaves, at the parent
+            up = plan.levels[lvl - 1]
+            routed = (_syrk_route(lp.update_dtype, lp.update_dtype)
+                      and not (up.two_piece and up.xxt_tier))
+        else:
+            routed = (_syrk_route(dtype, lp.update_dtype)
+                      and not (lp.two_piece and not lp.xxt_tier
+                               and fp.F[lvl + 1] > fp.W[lvl + 1]))
+        tiles = fp.cache.get(("schur_flops", lvl))
+        if tiles is None:
+            tiles = fp.cache[("schur_flops", lvl)] = float(
+                hk.schur_syrk_flops(*_extent_host(fp, lvl)).sum())
+        padded = 2.0 * len(fp.front_rows[lvl]) * K * K * W
+        full += padded
+        done += tiles if routed else padded
+    return done / full if full else None
 
 
 def _cholesky(a: torch.Tensor) -> torch.Tensor:
@@ -290,10 +357,14 @@ def _form_front(fp, piv: torch.Tensor, U: Optional[torch.Tensor],
         return hk.form_front(piv, U, inv, fp.F[lvl], fp.W[lvl])
 
 
-def _rows_product(A: torch.Tensor, out_dtype) -> torch.Tensor:
+def _rows_product(A: torch.Tensor, out_dtype, ext=None) -> torch.Tensor:
     """A A^T for A [b, K, J] accumulated in f32 (or f64) and stored as
     out_dtype; by row chunks when out_dtype is narrower, so the full-size
-    accumulator never exists (the port of `_einsum_rows_cast` for Ga = Gb)."""
+    accumulator never exists (the port of `_einsum_rows_cast` for Ga = Gb).
+    Where `_syrk_route` says so, `hk.schur_syrk` forms it inside the
+    extents `ext` (`_extents`; None: the whole [K, K])."""
+    if _syrk_route(A.dtype, out_dtype):
+        return hk.schur_syrk(A, ext=ext)
     acc = _acc(A.dtype)
     A = A.to(acc)
     if out_dtype == acc:
@@ -369,11 +440,21 @@ def _apply_extadd_two_piece(fp, slab: torch.Tensor, U: torch.Tensor,
 
 
 def _schur_update_cast(X: torch.Tensor, E_T: Optional[torch.Tensor],
-                       out_dtype, beta: float = 1.0) -> torch.Tensor:
+                       out_dtype, beta: float = 1.0,
+                       ext=None) -> torch.Tensor:
     """U2 = X X^T + beta E_T (E_T [b, K, K] or None), accumulated in X's
     dtype (f32 or f64) and stored as out_dtype, by exact row chunks when
     out_dtype is narrower. With beta = 1 and E_T already of the output
-    dtype it is accumulated in place, so E_T and U2 never coexist."""
+    dtype it is accumulated in place, so E_T and U2 never coexist. Where
+    `_syrk_route` says so (and E_T, if any, is of X's dtype),
+    `hk.schur_syrk` forms it inside the fronts' extents `ext` (`_extents`),
+    in place likewise; no consumer reads U2 outside them."""
+    if _syrk_route(X.dtype, out_dtype) and (E_T is None
+                                            or E_T.dtype == X.dtype):
+        if E_T is None:
+            return hk.schur_syrk(X, ext=ext)
+        return hk.schur_syrk(X, E_T, beta, ext,
+                             out=E_T if beta == 1 else None)
     acc = X.dtype
     Xt = X.transpose(1, 2)
     if out_dtype == acc:
@@ -450,8 +531,8 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U: Optional[torch.Tensor],
 
     two = lp is not None and lp.two_piece
     if hands_x(fp.F, fp.W, lvl + 1) and not (two and lp.xxt_tier):
-        with trace.span(SCHUR, dev):
-            U = _rows_product(U, U.dtype)               # X X^T; frees X
+        with trace.span(SCHUR, dev):                    # X X^T; frees X
+            U = _rows_product(U, U.dtype, _extents(fp, lvl + 1, dev))
 
     if two:
         # the factorization reads only the pivot slab [B, F, W] and the
@@ -469,7 +550,8 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U: Optional[torch.Tensor],
             return fac, None
         with trace.span(SCHUR, dev):
             if T is None or lp.xxt_tier:
-                return fac, _schur_update_cast(fac[:, Wl:, :], T, udt)
+                return fac, _schur_update_cast(fac[:, Wl:, :], T, udt,
+                                               ext=_extents(fp, lvl, dev))
             return fac, _schur_gather_2(fp, fac[:, Wl:, :], T, lvl + 1, udt)
 
     full = _form_front(fp, piv, U, lvl + 1)           # row Fl: sentinel
@@ -480,7 +562,8 @@ def _factor_level(fp, lvl: int, piv: torch.Tensor, U: Optional[torch.Tensor],
         return fac, None
     with trace.span(SCHUR, dev):
         return fac, _schur_update_cast(fac[:, Wl:, :], full[:, Wl:Fl, Wl:],
-                                       udt, beta=-1.0)
+                                       udt, beta=-1.0,
+                                       ext=_extents(fp, lvl, dev))
 
 
 def _take_child_rows(pieces: List, counts: List[int], r0: int, r1: int,

@@ -29,6 +29,17 @@
                     masked gathers `rows_gather` and `cols_gather`, which
                     the level loop's two-piece extend-add and the selected
                     inversion read too.
+  * `schur_syrk`  replaces no TPU kernel: the Schur update U = X X^T + s E
+                    of a level's fronts on the 128 x 128 lower tiles inside
+                    each front's own extent (m_b boundary rows, p_b pivots),
+                    mirrored to the upper tiles, by the CUDA kernel
+                    `kernels/csrc/schur_syrk.cu` (cuBLAS's padded baddbmm
+                    computed the full product of the level's widest front).
+  * `schur_syrk_ref` its plain version: the same elements written, the same
+                    contraction, front by front in PyTorch (the reference
+                    the kernel is tested against; the CPU runs one batched
+                    product instead).
+  * `schur_syrk_flops` the flops the kernel's tiles execute.
   * `chol_inv_bound`, `factor_slab_bound` the least time the card could
                     take for each function's work, from the H100's
                     published peaks below; `factor_slab_flops` the flops
@@ -46,6 +57,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 BS = 128                        # panel width = the kernel's block size
@@ -65,7 +77,8 @@ TF32_FLOPS = 495e12                # TF32 on the tensor cores
 
 # Launches of each kernel, counted where the kernel is launched
 # (`factor_slab`: one per call, which launches two kernels per panel).
-LAUNCHES = {"chol_inv": 0, "factor_slab": 0, "form_front": 0}
+LAUNCHES = {"chol_inv": 0, "factor_slab": 0, "form_front": 0,
+            "schur_syrk": 0}
 
 _FNS: dict = {}
 
@@ -78,6 +91,8 @@ _SIGNATURES = {
                                               _I, _L, _P, _P, _I, _P]),
     "form_front": ("form_front", [_P, _P, _L, _L, _L, _P, _L, _L, _L, _P,
                                   _L, _L, _L, _I, _I, _I, _I, _I, _P]),
+    "schur_syrk_f32": ("schur_syrk", [_P, _L, _L, _P, _L, _L, _P, _L, _L,
+                                      _P, _L, _I, _I, ctypes.c_float, _P]),
 }
 
 # dtype codes of form_front's C interface: the front's, the updates'
@@ -415,6 +430,137 @@ def form_front(piv: torch.Tensor, U: Optional[torch.Tensor],
                            f"error {err}")
     LAUNCHES["form_front"] += 1
     return out
+
+
+SYRK_TILE = 128                 # schur_syrk's output tile side
+SYRK_K = 32                     # its K chunk: p_b is rounded up to it
+
+
+def schur_syrk_ref(X: torch.Tensor, E: Optional[torch.Tensor] = None,
+                   sign: float = -1.0, ext: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`schur_syrk` in plain PyTorch: per front b, with (m, p) = ext[b]
+    (every front K x W without ext),
+
+        out[b, :m, :m] = X[b, :m, :p] X[b, :m, :p]^T + sign E[b, :m, :m],
+
+    front by front into out's extent, so that nothing else is written and
+    nothing is allocated beside out (a new [B, K, K] tensor when out is
+    None, whose padding is left as allocated; out may be E itself)."""
+    B, K, W = X.shape
+    if out is None:
+        out = torch.empty((B, K, K), dtype=X.dtype, device=X.device)
+    inplace = (E is not None and out.data_ptr() == E.data_ptr()
+               and out.stride() == E.stride())
+    sizes = [(K, W)] * B if ext is None else ext.tolist()
+    for b, (m, p) in enumerate(sizes):
+        if m == 0:
+            continue
+        x, o = X[b, :m, :p], out[b, :m, :m]
+        if E is not None and not inplace:
+            o.copy_(E[b, :m, :m])
+        o.addmm_(x, x.T, beta=0 if E is None else sign)
+    return out
+
+
+def _schur_syrk_cpu(X, E, sign, ext, out):
+    """`schur_syrk` on the CPU: one batched product of X zeroed outside
+    each front's m_b rows and p_b columns, so that inside the extents it
+    is the kernel's contraction."""
+    if ext is not None:
+        K, W = X.shape[1:]
+        m, p = ext[:, :1, None], ext[:, 1:, None]
+        X = torch.where((torch.arange(K)[:, None] < m)
+                        & (torch.arange(W) < p), X, 0)
+    Xt = X.transpose(1, 2)
+    if E is None:
+        return torch.bmm(X, Xt, out=out)
+    if out is not None and out.data_ptr() == E.data_ptr():
+        return out.baddbmm_(X, Xt, beta=sign)
+    return torch.baddbmm(E, X, Xt, beta=sign, out=out)
+
+
+def schur_syrk(X: torch.Tensor, E: Optional[torch.Tensor] = None,
+               sign: float = -1.0, ext: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The Schur update of a level's fronts inside their extents: for X
+    [B, K, W] (the boundary strips), E [B, K, K] or None (the trailing
+    blocks, symmetric inside each extent), sign -1 or +1, and ext [B, 2]
+    int64 (m_b, p_b) per front (None: K and W for all),
+
+        out[b, :m_b, :m_b] = X[b, :m_b, :p_b] X[b, :m_b, :p_b]^T
+                             + sign E[b, :m_b, :m_b];
+
+    a new tensor when out is None; out may be E itself, the update in
+    place. A CUDA tensor takes the kernel of `kernels/csrc/schur_syrk.cu`,
+    one launch: the lower 128 x 128 tiles of each extent (E read there
+    only), contracted over p_b rounded up to SYRK_K in IEEE f32, each
+    mirrored to its upper tile; out outside the extents is not written. X,
+    E and out are read and written through their strides (last stride 1;
+    16-byte aligned rows are copied 16 bytes at a time). Anything the
+    kernel does not take raises. A CPU tensor takes one batched product
+    over the padded [K, K] of X zeroed outside each extent, which writes
+    sign E outside the extents, where no caller reads."""
+    if X.device.type == "cpu":
+        return _schur_syrk_cpu(X, E, sign, ext, out)
+    if X.device.type != "cuda":
+        raise ValueError(f"schur_syrk: unsupported device {X.device}")
+    if X.dtype != torch.float32 or X.dim() != 3:
+        raise ValueError(f"schur_syrk: X is a float32 [B, K, W], got "
+                         f"{X.dtype} {tuple(X.shape)}")
+    B, K, W = X.shape
+    sb, sr, sc = X.stride()
+    if sc != 1:
+        raise ValueError(f"schur_syrk: X's last stride is 1, got strides "
+                         f"{X.stride()}")
+    if sign not in (-1.0, 1.0):
+        raise ValueError(f"schur_syrk: sign is -1 or +1, got {sign}")
+    for name, t in (("E", E), ("out", out)):
+        if t is None:
+            continue
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, K, K)
+                or t.stride(2) != 1 or t.device != X.device):
+            raise ValueError(f"schur_syrk: {name} is a float32 [{B}, {K}, "
+                             f"{K}] with unit last stride on {X.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} strides "
+                             f"{t.stride()} on {t.device}")
+    if ext is not None and (ext.dtype != torch.int64
+                            or tuple(ext.shape) != (B, 2)
+                            or not ext.is_contiguous()
+                            or ext.device != X.device):
+        raise ValueError(f"schur_syrk: ext is a contiguous int64 [{B}, 2] "
+                         f"on {X.device}, got {ext.dtype} "
+                         f"{tuple(ext.shape)} on {ext.device}")
+    if out is None:
+        out = torch.empty((B, K, K), dtype=X.dtype, device=X.device)
+    if B == 0 or K == 0:
+        return out
+    fn = _fn("schur_syrk_f32")
+    e_args = (E.data_ptr(), E.stride(0), E.stride(1)) if E is not None \
+        else (None, 0, 0)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = fn(X.data_ptr(), sb, sr, *e_args, out.data_ptr(),
+                 out.stride(0), out.stride(1),
+                 None if ext is None else ext.data_ptr(), B, K, W, sign,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"schur_syrk: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES["schur_syrk"] += 1
+    return out
+
+
+def schur_syrk_flops(m, p) -> np.ndarray:
+    """Flops that `schur_syrk`'s tiles execute on each front of m boundary
+    rows and p pivots (arrays, one entry a front): T (T + 1) / 2 lower
+    tiles of SYRK_TILE^2, T = ceil(m / SYRK_TILE), each 2 SYRK_TILE^2
+    round_up(p, SYRK_K)."""
+    m = np.asarray(m, dtype=np.int64)
+    p = np.asarray(p, dtype=np.int64)
+    t = -(-m // SYRK_TILE)
+    k = -(-p // SYRK_K) * SYRK_K
+    return (t * (t + 1) // 2 * k) * (2.0 * SYRK_TILE ** 2)
 
 
 def slab_kernel_eligible(B: int, W: int, dtype) -> bool:

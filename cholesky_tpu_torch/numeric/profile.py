@@ -18,7 +18,9 @@ record dict:
                 `slab_kernel_eligible` routes there: it fuses POTRF and the
                 boundary TRSM;
   * POTRF, TRSM `cholesky_ex` and `solve_triangular` on the other levels;
-  * SYRK        the Schur complement X X^T minus the front's trailing block.
+  * SYRK        the Schur complement X X^T minus the front's trailing block
+                (`frontal._schur_update_cast`, the level loop's: on the card
+                in f32 at IEEE products the kernel of `schur_syrk.cu`).
 
 The routing is `factorize()`'s own. On a CUDA device a stage is timed with
 a pair of `torch.cuda.Event`s around it (device time, no host round trip in
@@ -147,6 +149,8 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
             if not use_kernel:
                 X, t = _timed(lambda: fr._solve_lower_t(Ld, slab[:, Wl:, :]),
                               iters, device)
+                # row-major, as the level loop writes it into its factor
+                X = X.contiguous()
                 rec = {"op": "TRSM", "level": lvl, "batch": B, "m": m,
                        "n": Wl, "time_us": int(t * 1e6),
                        "gflops": B * m * Wl * Wl / max(t, 1e-12) / 1e9}
@@ -154,9 +158,11 @@ def profile_frontal(fp, fronts: Sequence[torch.Tensor], iters: int = 3,
                 emit(f"BLAS: {{'op': 'TRSM', 'Level': {lvl}, 'Batch': {B}, "
                      f"'M': {m}, 'N': {Wl}, 'Time': {rec['time_us']}}}")
             if lvl > 0:
+                ext = fr._extents(fp, lvl, device)
                 U, t = _timed(
-                    lambda: torch.baddbmm(full[:, Wl:Fl, Wl:], X,
-                                          X.transpose(1, 2), beta=-1.0),
+                    lambda: fr._schur_update_cast(X, full[:, Wl:Fl, Wl:],
+                                                  X.dtype, beta=-1.0,
+                                                  ext=ext),
                     iters, device)
                 rec = {"op": "SYRK", "level": lvl, "batch": B, "m": m,
                        "k": Wl, "time_us": int(t * 1e6),

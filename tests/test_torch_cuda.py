@@ -333,6 +333,229 @@ def test_form_front_launches_once_per_square_level():
     assert s.residual(b, s.solve(b)) <= TOL
 
 
+# Every level with a boundary of the benchmark's two configurations: (B, K,
+# W, least m_b, least p_b), the padded shape and the least front extents
+SCHUR_SHAPES = {
+    **{f"lapl7_50 L{lvl}": shape for lvl, *shape in (
+        (1, 2, 2504, 1256, 2500, 1200), (2, 4, 2504, 632, 2400, 576),
+        (3, 8, 1880, 632, 1728, 576), (4, 16, 1856, 304, 1104, 264),
+        (5, 32, 1344, 144, 649, 121), (6, 64, 864, 144, 363, 121),
+        (7, 128, 576, 72, 231, 55), (8, 256, 360, 40, 135, 25),
+        (9, 512, 216, 40, 75, 25), (10, 1024, 144, 24, 45, 10),
+        (11, 2048, 96, 56, 24, 20))},
+    **{f"elast_q1_64 L{lvl}": shape for lvl, *shape in (
+        (1, 2, 12480, 6144, 12480, 6144), (2, 4, 12480, 3072, 12480, 3072),
+        (3, 8, 9512, 3072, 9312, 2976), (4, 16, 9656, 1536, 6048, 1395),
+        (5, 32, 7296, 768, 3651, 675), (6, 64, 5008, 768, 2163, 675),
+        (7, 128, 3424, 384, 1419, 315), (8, 256, 2224, 192, 867, 147),
+        (9, 512, 1360, 192, 507, 147), (10, 1024, 952, 96, 327, 63),
+        (11, 2048, 640, 48, 195, 27), (12, 4096, 400, 48, 111, 27),
+        (13, 8192, 288, 24, 69, 9), (14, 16384, 208, 48, 39, 9))},
+}
+
+
+def _schur_inputs(shape, seed):
+    """Seeded X [B, K, W] and symmetric E [B, K, K] (views of a factor and
+    of fronts, as the level loop passes them) and extents [B, 2]: m_b, p_b
+    uniform from the least to K and W, front 0 at (K, W); X zero outside
+    each extent, as the level loop's is. Also the [B, K] rows inside."""
+    B, K, W, m_min, p_min = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    F = W + K
+    X = torch.randn(B, F, W, generator=gen, device="cuda")[:, W:, :]
+    E = torch.randn(B, F + 1, F, generator=gen, device="cuda")[:, W:F, W:]
+    E.copy_((E + E.transpose(1, 2)) / 2)
+    m = torch.randint(m_min, K + 1, (B,), generator=gen, device="cuda")
+    p = torch.randint(p_min, W + 1, (B,), generator=gen, device="cuda")
+    m[0], p[0] = K, W
+    rows = torch.arange(K, device="cuda") < m[:, None]
+    X.masked_fill_(~(rows[:, :, None] & (torch.arange(W, device="cuda")
+                                         < p[:, None])[:, None, :]), 0)
+    return X, E, torch.stack([m, p], 1), rows
+
+
+def _schur_within_bound(k, ref, X, E, ext, rows):
+    """Whether |k - ref| inside the extents is within the bound of two f32
+    sums of p products in different orders: each lies within gamma_p |X|
+    |X|^T of the exact product (gamma_p = p u / (1 - p u), u = 2^-24;
+    Higham, Accuracy and Stability of Numerical Algorithms, 3.1), and
+    adding E rounds once more. A pass of fronts at a time."""
+    B, K, _ = X.shape
+    step = max(1, (1 << 28) // (K * K))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        p = ext[sl, 1].double()[:, None, None]
+        ax = X[sl].abs().double()
+        bound = 2 * p * 2.0 ** -24 / (1 - p * 2.0 ** -24) * (
+            ax @ ax.transpose(1, 2))
+        bound += 2.0 ** -23 * (ref[sl].double().abs() + E[sl].double().abs())
+        inside = rows[sl, :, None] & rows[sl, None, :]
+        over = (k[sl].double() - ref[sl].double()).abs() > bound
+        if bool((over & inside).any()):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SCHUR_SHAPES))
+def test_schur_syrk_kernel_matches_plain(shape):
+    """U = X X^T - E on the card at every level shape of both
+    configurations, with ragged extents: inside each front's extent within
+    the summation-order bound of `schur_syrk_ref` (f32 products in another
+    order); outside it nothing written (a NaN-filled output keeps its NaN
+    there); one launch."""
+    _require_cuda()
+    X, E, ext, rows = _schur_inputs(SCHUR_SHAPES[shape], seed=31)
+    B, K, _ = X.shape
+    out = torch.full((B, K, K), float("nan"), device="cuda")
+    before = hk.LAUNCHES["schur_syrk"]
+    k = hk.schur_syrk(X, E, -1.0, ext, out=out)
+    torch.cuda.synchronize()
+    assert k is out and hk.LAUNCHES["schur_syrk"] == before + 1
+    inside = rows[:, :, None] & rows[:, None, :]
+    assert torch.equal(k.isnan(), ~inside)
+    ref = hk.schur_syrk_ref(X, E, -1.0, ext)
+    assert _schur_within_bound(k, ref, X, E, ext, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["lapl7_50 L4", "elast_q1_64 L12"])
+def test_schur_syrk_kernel_modes_repeat_and_run_in_place(shape):
+    """X X^T + E and X X^T without E within the bound of the plain version;
+    every mode bitwise equal to a second launch; X X^T + E written into E
+    itself bitwise equal to the same out of place."""
+    _require_cuda()
+    X, E, ext, rows = _schur_inputs(SCHUR_SHAPES[shape], seed=32)
+    inside = rows[:, :, None] & rows[:, None, :]
+    for e, sign in ((E, 1.0), (None, 1.0), (E, -1.0)):
+        k = hk.schur_syrk(X, e, sign, ext)
+        assert torch.equal(k[inside], hk.schur_syrk(X, e, sign, ext)[inside])
+        ref = hk.schur_syrk_ref(X, e, sign, ext)
+        assert _schur_within_bound(k, ref, X, torch.zeros_like(k) if e is None
+                                   else E, ext, rows)
+    k = hk.schur_syrk(X, E, 1.0, ext)
+    own = E.contiguous()
+    assert hk.schur_syrk(X, own, 1.0, ext, out=own) is own
+    assert torch.equal(own[inside], k[inside])
+
+
+@pytest.mark.cuda
+def test_schur_syrk_launches_once_per_level_with_a_boundary():
+    """A lapl7_50-shaped factorization (50^3, 12 levels) at IEEE products
+    forms the Schur update of each of its 11 levels with a boundary (the
+    leaves' X X^T at their parent) in one launch, or one a chunk; the
+    factor stats count them and the executed share of the padded
+    products; the TF32 rung keeps cuBLAS. Both meet the contract."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import frontal
+
+    n, r, c, v, o, cl, b = generate_problem((50, 50, 50), 12)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32)
+    s.factorize(precision="highest")
+    plan = s.regimes.levels
+    # levels 1-10 each per chunk, and level 10 the leaves' X X^T
+    L = len(plan)
+    want = sum(plan[lvl].chunks for lvl in range(1, L - 1)) + plan[
+        L - 2].chunks
+    assert want == 11
+    before = hk.LAUNCHES["schur_syrk"]
+    s.factorize()
+    assert hk.LAUNCHES["schur_syrk"] - before == want
+    assert s.factor_stats["schur_syrk_launches"] == want
+    fp = s.fplan
+    done = full = 0.0
+    for lvl in range(1, fp.levels):
+        m, p = frontal._extent_host(fp, lvl)
+        full += 2.0 * len(m) * (fp.F[lvl] - fp.W[lvl]) ** 2 * fp.W[lvl]
+        done += hk.schur_syrk_flops(m, p).sum()
+    assert s.factor_stats["schur_tile_share"] == pytest.approx(done / full)
+    assert s.residual(b, s.solve(b)) <= TOL
+    s.factorize(precision="default")
+    assert s.factor_stats["schur_syrk_launches"] == 0
+    assert s.factor_stats["schur_tile_share"] == pytest.approx(1.0)
+    assert s.residual(b, s.solve(b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_schur_syrk_takes_rows_at_any_alignment():
+    """X and E as views whose bases and strides are not 16-byte aligned (a
+    level padded to a multiple of 6, say): the kernel's 4-byte copies give
+    bitwise the result of its 16-byte copies on aligned copies of the same
+    values, in every mode, and write nothing outside the extents."""
+    _require_cuda()
+    X, E, ext, rows = _schur_inputs((4, 300, 40, 100, 10), seed=34)
+    B, K, W = X.shape
+    Xu = torch.zeros(B, K + 1, W + 3, device="cuda")[:, 1:, 2:W + 2]
+    Eu = torch.zeros(B, K + 1, K + 1, device="cuda")[:, 1:, 1:]
+    Xu.copy_(X)
+    Eu.copy_(E)
+    assert Xu.data_ptr() % 16 and Eu.data_ptr() % 16
+    assert Xu.stride(1) % 4 and Eu.stride(1) % 4
+    inside = rows[:, :, None] & rows[:, None, :]
+    for e, eu, sign in ((E, Eu, -1.0), (E, Eu, 1.0), (None, None, 1.0)):
+        want = hk.schur_syrk(X.contiguous(), e if e is None
+                             else e.contiguous(), sign, ext)
+        out = torch.full((B, K, K), float("nan"), device="cuda")
+        got = hk.schur_syrk(Xu, eu, sign, ext, out=out)
+        assert torch.equal(got.isnan(), ~inside)
+        assert torch.equal(got[inside], want[inside])
+    own_u = torch.zeros(B, K + 1, K + 1, device="cuda")[:, 1:, 1:]
+    own_u.copy_(E)
+    hk.schur_syrk(Xu, own_u, 1.0, ext, out=own_u)
+    assert torch.equal(own_u[inside], hk.schur_syrk(X, E, 1.0, ext)[inside])
+
+
+@pytest.mark.cuda
+def test_factor_on_a_plan_padded_to_six_launches_schur_syrk():
+    """The frontal plan pads fronts to multiples of 8 whatever `pad_to`
+    the solve plan takes; one padded to multiples of 6 gives fronts whose
+    rows are not 16-byte aligned. At IEEE products every level with a
+    boundary still forms its Schur update in one `schur_syrk` launch (its
+    4-byte copies), as on the plan of the default padding, and both
+    factors meet the contract."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric.frontal_plan import build_frontal_plan
+
+    n, r, c, v, o, cl, b = generate_problem((15, 15, 15), 5)
+    for pad in (8, 6):
+        s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                    pad_to=pad, precision="highest")
+        s._fplan = build_frontal_plan(s.plan, s.rows, s.cols, pad_to=pad)
+        fp = s.fplan
+        assert (pad == 8) == all(w % 4 == 0 for w in fp.W + fp.F)
+        want = sum(1 for lvl in range(1, fp.levels) if fp.F[lvl] > fp.W[lvl])
+        before = hk.LAUNCHES["schur_syrk"]
+        s.factorize()
+        assert hk.LAUNCHES["schur_syrk"] - before == want > 0
+        assert s.factor_stats["schur_syrk_launches"] == want
+        assert s.residual(b, s.solve(b)) <= TOL
+
+
+@pytest.mark.cuda
+def test_schur_syrk_never_takes_the_plain_path(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain version is
+    never called, and inputs the kernel does not take raise."""
+    _require_cuda()
+    X, E, ext, _ = _schur_inputs((4, 300, 40, 100, 10), seed=33)
+
+    def plain(*a, **k):
+        raise AssertionError("schur_syrk_ref called on a CUDA tensor")
+
+    monkeypatch.setattr(hk, "schur_syrk_ref", plain)
+    hk.schur_syrk(X, E, -1.0, ext)
+    hk.schur_syrk(X)
+    for bad in (dict(X=X.double()), dict(X=X.transpose(1, 2)[:, :40]),
+                dict(E=E.double()), dict(E=E[:3]),
+                dict(E=E.transpose(1, 2)),
+                dict(ext=ext.int()), dict(ext=ext.cpu()), dict(ext=ext[:3]),
+                dict(sign=2.0), dict(out=torch.empty(4, 300, 301,
+                                                     device="cuda"))):
+        args = {**dict(X=X, E=E, sign=-1.0, ext=ext, out=None), **bad}
+        with pytest.raises(ValueError):
+            hk.schur_syrk(args["X"], args["E"], args["sign"], args["ext"],
+                          args["out"])
+
+
 @pytest.mark.cuda
 def test_slice_on_card_matches_cpu():
     """15^3 with every W >= 128 level forced through the CUDA kernel: the

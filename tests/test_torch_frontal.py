@@ -293,3 +293,112 @@ def test_df_matvec_matches_jax():
     y64 = scipy.sparse.csr_matrix((vv, (rr, cc)), shape=(n, n)) @ x64[:n]
     assert _rel(y_t, y_j) <= 1e-13
     assert _rel(y_t, y64) <= 1e-13
+
+
+def test_extents_follow_batch_and_family_views():
+    """Each front's (m_b, p_b): the non-sentinel rows of its row list after
+    and before W; a family repeats them per system, and a batch view of
+    blocks [c0, c1) of level l cuts level l to them and level l + 1 to
+    [2 c0, 2 c1)."""
+    n, r, c, v, o, cl, _ = generate_problem((9, 8, 7), 4)
+    tfp = _port_plan(cholesky_tpu.SparseCholesky.from_coo(n, r, c, v, o, cl))
+    cpu = torch.device("cpu")
+    for lvl in range(tfp.levels):
+        ext = tfrontal._extents(tfp, lvl, cpu)
+        fr, W = tfp.front_rows[lvl], tfp.W[lvl]
+        m = [int((row[W:] < n).sum()) for row in fr]
+        p = [int((row[:W] < n).sum()) for row in fr]
+        assert ext.dtype == torch.int64
+        assert ext.tolist() == [list(mp) for mp in zip(m, p)]
+        fam = tfrontal._extents(tfrontal.FamilyView(tfp, 2), lvl, cpu)
+        assert fam.tolist() == ext.tolist() * 2
+    view = tfrontal._BatchView(tfp, 2, 1, 3)
+    for lvl, lo, hi in ((2, 1, 3), (3, 2, 6)):
+        whole = tfrontal._extents(tfp, lvl, cpu)[lo:hi]
+        assert tfrontal._extents(view, lvl, cpu).tolist() == whole.tolist()
+
+
+def _poison(fp, U, child_lvl):
+    """NaN in every entry of the children's update U [2b, K, K] outside
+    each child front's own m_b x m_b block."""
+    m = tfrontal._extents(fp, child_lvl, U.device)[:, 0]
+    rows = torch.arange(U.shape[1]) < m[:, None]
+    U.masked_fill_(~(rows[:, :, None] & rows[:, None, :]), float("nan"))
+
+
+@pytest.mark.parametrize("regime", [{}, dict(two_piece=True),
+                                    dict(chunks={3: 2, 2: 2})])
+def test_factor_never_reads_an_update_outside_its_extents(monkeypatch,
+                                                          regime):
+    """Every children's update poisoned with NaN outside each child front's
+    extent before the parent reads it (`_form_front`; the two-piece gather
+    tier's extend-add) gives the same f32 factor, bit for bit, as the
+    unpoisoned run: square levels, two-piece levels and batch-chunked
+    levels read an update only inside its extents."""
+    from cholesky_tpu_torch import SparseCholesky
+
+    n, r, c, v, o, cl, b = generate_problem((15, 15, 15), 5)
+
+    def factor():
+        s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=np.float32,
+                                    device="cpu")
+        s._plan_override = regimes.plan_regimes(s.fplan, s.dtype, 1 << 40,
+                                                **regime)
+        return [p.clone() for p in s.factorize()], s
+
+    clean, _ = factor()
+    form, two = tfrontal._form_front, tfrontal._apply_extadd_two_piece
+    poisoned = []
+
+    def poisoned_form(fp, piv, U, child_lvl):
+        if U is not None:
+            _poison(fp, U, child_lvl)
+            poisoned.append(child_lvl)
+        return form(fp, piv, U, child_lvl)
+
+    def poisoned_two(fp, slab, U, child_lvl, lp):
+        if not lp.xxt_tier:
+            _poison(fp, U, child_lvl)
+            poisoned.append(child_lvl)
+        return two(fp, slab, U, child_lvl, lp)
+
+    monkeypatch.setattr(tfrontal, "_form_front", poisoned_form)
+    monkeypatch.setattr(tfrontal, "_apply_extadd_two_piece", poisoned_two)
+    dirty, s = factor()
+    assert poisoned
+    for lvl, (a, d) in enumerate(zip(clean, dirty)):
+        assert torch.equal(a, d), lvl
+    assert s.residual(b, s.solve(b)) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype,precision,routed", [
+    (np.float32, "highest", True), (np.float32, "default", False),
+    (np.float64, "highest", False)])
+def test_schur_products_route_by_dtype_and_rung(monkeypatch, dtype,
+                                                precision, routed):
+    """f32 at IEEE products takes `schur_syrk` at every level with a
+    boundary (the leaves' X X^T at their parent); the TF32 rung and f64
+    keep the library product. The factor stats carry the executed share
+    of the padded full products, computed here from the plan's own
+    extents, and no launch on the CPU."""
+    from cholesky_tpu_torch import SparseCholesky
+
+    calls = []
+    real = hk.schur_syrk
+    monkeypatch.setattr(hk, "schur_syrk", lambda X, *a, **k: calls.append(
+        tuple(X.shape)) or real(X, *a, **k))
+    n, r, c, v, o, cl, b = generate_problem((15, 15, 15), 5)
+    s = SparseCholesky.from_coo(n, r, c, v, o, cl, dtype=dtype, device="cpu")
+    s.factorize(precision=precision)
+    fp = s.fplan
+    bnd = [lvl for lvl in range(1, fp.levels) if fp.F[lvl] > fp.W[lvl]]
+    assert len(calls) == (len(bnd) if routed else 0)
+    done = full = 0.0
+    for lvl in bnd:
+        m, p = tfrontal._extent_host(fp, lvl)
+        padded = 2.0 * len(m) * (fp.F[lvl] - fp.W[lvl]) ** 2 * fp.W[lvl]
+        full += padded
+        done += hk.schur_syrk_flops(m, p).sum() if routed else padded
+    assert s.factor_stats["schur_tile_share"] == pytest.approx(done / full)
+    assert s.factor_stats["schur_syrk_launches"] == 0
+    assert s.residual(b, s.solve(b)) <= 1e-10

@@ -245,3 +245,99 @@ def test_slab_kernel_eligible_rule(B, W, routed):
     50^3 L8 levels 5-7 route, levels 0-4 do not."""
     assert hk.slab_kernel_eligible(B, W, torch.float32) is routed
     assert not hk.slab_kernel_eligible(B, W, torch.float64)
+
+
+def _schur_case(seed, B=5, K=300, W=40):
+    """X [B, K, W] (a view of [B, W + K, W]), a strided symmetric E
+    [B, K, K] (a view of [B, W + K + 1, W + K]), and ragged extents: front
+    0 whole, one front with m_b = 0, the others m_b, p_b at random; K is
+    no multiple of 128."""
+    rng = np.random.default_rng(seed)
+    F = W + K
+    X = torch.from_numpy(rng.standard_normal((B, F, W)))[:, W:, :]
+    E = torch.from_numpy(rng.standard_normal((B, F + 1, F)))[:, W:F, W:]
+    E.copy_(E + E.transpose(1, 2))
+    ext = torch.from_numpy(np.stack([rng.integers(1, K + 1, B),
+                                     rng.integers(0, W + 1, B)], 1))
+    ext[0] = torch.tensor([K, W])
+    ext[1, 0] = 0
+    return X, E, ext
+
+
+@pytest.mark.parametrize("mode", ["minus", "plus", "none", "in_place"])
+def test_schur_syrk_ref_equals_the_product_within_each_extent(mode):
+    """U = X X^T - E (sign -1), X X^T + E (+1), X X^T (no E) and X X^T + E
+    written into E itself, on each front's own m_b rows and p_b columns
+    only: f64 to 1e-12 of the product of the extents' blocks; outside the
+    extents nothing is written (a NaN-filled out stays NaN there, an
+    in-place E keeps its entries)."""
+    X, E, ext = _schur_case(7)
+    B, K, W = X.shape
+    sign = -1.0 if mode == "minus" else 1.0
+    E0 = E.clone()
+    if mode == "in_place":
+        out = hk.schur_syrk_ref(X, E, sign, ext, out=E)
+        assert out.data_ptr() == E.data_ptr()
+    else:
+        out = torch.full((B, K, K), float("nan"), dtype=X.dtype)
+        res = hk.schur_syrk_ref(X, None if mode == "none" else E, sign, ext,
+                                out=out)
+        assert res is out
+        assert torch.equal(E, E0)
+    for b, (m, p) in enumerate(ext.tolist()):
+        x = X[b, :m, :p]
+        want = x @ x.T + (0 if mode == "none" else sign * E0[b, :m, :m])
+        np.testing.assert_allclose(out[b, :m, :m].numpy(), want.numpy(),
+                                   rtol=0, atol=1e-12)
+        pad = torch.ones(K, K, dtype=torch.bool)
+        pad[:m, :m] = False
+        kept = E0[b][pad] if mode == "in_place" else torch.full(
+            (int(pad.sum()),), float("nan"), dtype=X.dtype)
+        assert torch.equal(out[b][pad].isnan(), kept.isnan())
+        assert torch.equal(out[b][pad].nan_to_num(), kept.nan_to_num())
+
+
+def test_schur_syrk_ref_without_extents_is_the_whole_product():
+    X, E, _ = _schur_case(8, B=3, K=70, W=20)
+    out = hk.schur_syrk_ref(X, E)
+    np.testing.assert_allclose(
+        out.numpy(), (X @ X.transpose(1, 2) - E).numpy(), rtol=0, atol=1e-12)
+
+
+def test_schur_syrk_on_cpu_is_plain_and_uncounted():
+    """On the CPU one batched product of X zeroed outside the extents (X is
+    random there, so the zeroing shows) equals the plain version inside
+    every extent, for X X^T - E, X X^T and X X^T + E into E itself; no
+    launch is counted."""
+    X, E, ext = _schur_case(9)
+    X, E = X.float(), E.float()
+    before = dict(hk.LAUNCHES)
+    for e, sign, inplace in ((E, -1.0, False), (None, 1.0, False),
+                             (E, 1.0, True)):
+        want = hk.schur_syrk_ref(X, e, sign, ext)
+        if inplace:
+            own = e.clone()
+            got = hk.schur_syrk(X, own, sign, ext, out=own)
+            assert got is own
+        else:
+            got = hk.schur_syrk(X, e, sign, ext)
+        for b, (m, _) in enumerate(ext.tolist()):
+            np.testing.assert_allclose(got[b, :m, :m].numpy(),
+                                       want[b, :m, :m].numpy(),
+                                       rtol=1e-5, atol=1e-4)
+    assert hk.LAUNCHES == before
+    with pytest.raises(ValueError):
+        hk.schur_syrk(torch.empty(2, 30, 8, device="meta"))
+
+
+def test_schur_syrk_flops_count_the_lower_tiles():
+    """Per front, T (T + 1) / 2 tiles of 128 x 128 for m rows, each
+    contracted over p rounded up to 32; m = 0 computes nothing."""
+    tile = 2 * 128 * 128
+    assert hk.schur_syrk_flops([128, 129, 0, 300], [32, 33, 10, 1]).tolist() \
+        == [tile * 32, 3 * tile * 64, 0, 6 * tile * 32]
+    # never below the symmetric work m^2 p, never above the padded full
+    # product once m fills its tiles
+    m, p = np.array([1024, 2048, 640]), np.array([96, 600, 64])
+    assert (m * m * p).sum() <= hk.schur_syrk_flops(m, p).sum()
+    assert hk.schur_syrk_flops(m, p).sum() <= 2 * 3 * 2048 ** 2 * 608
