@@ -139,6 +139,16 @@ Phases, each printing one JSON line:
              block coupling grid neighbours, C diagonal; 17,280 dofs)
              through from_scipy: ordering seconds, factor wall, residuals,
              inertia (n1, n2, 0);
+     mixed:  the benchmark's hybrid u-p elasticity (`elast_q1p0_48`, Q1
+             displacements and one pressure a brick, nu = 0.4999) at ne 16
+             (17,968 dofs, 10 levels) through its operator's `build`
+             (`from_coo(..., signs=)`), f32 at IEEE products: factor walls
+             cold and warm, the signed column loop's panels and columns
+             (`factor_stats`) beside the plan's padded widths, the warm
+             factor's kernel launches and idle share under torch.profiler,
+             three refined solves against the operator's f64 reference
+             (sweeps, residual), one unrefined application's backward
+             error beside the configuration's `factor_eta` limit, inertia;
  15. companions: on the slice's 50^3 f32 factor: schur_complement,
              condense_rhs -> a dense NumPy solve -> expand_solution against
              a refined solve; solve_updated with 16 seeded unit columns
@@ -2073,6 +2083,64 @@ def phase_qd(spd):
     return launches["chol_inv"]
 
 
+MIXED_NE, MIXED_LEVELS = 16, 10   # the mixed phase's cube: 17,968 dofs
+
+
+def phase_mixed():
+    """The hybrid u-p elasticity of `cholbench/configs/elast_q1p0_48.json`
+    at ne MIXED_NE on the card, through the operator's own `build` and the
+    solver's normal path, checked against the operator's f64 reference."""
+    import numpy as np
+    import torch
+
+    from cholbench.operators import elasticity_q1p0 as op
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "cholbench/configs/elast_q1p0_48.json")) as f:
+        cfg = json.load(f)
+    ne = MIXED_NE
+    cfg["operator"] = dict(cfg["operator"], ne=ne)
+    cfg.update(n=3 * (ne + 1) * ne * (ne + 1) + ne ** 3, levels=MIXED_LEVELS)
+    t0 = time.perf_counter()
+    s, vals = op.build(cfg, torch.device("cuda"))
+    plan_s = time.perf_counter() - t0
+    ref = op.Reference(cfg)
+    n, fp = cfg["n"], s.fplan
+    walls = [timed_sync(s.factorize)[1] for _ in range(3)]
+    stats = dict(s.factor_stats)
+    W = [int(w) for w in fp.W]
+    check(stats["signed_columns"] == sum(W) and stats["signed_panels"] == sum(
+        -(-w // 32) for w in W), f"mixed: counters {stats} against the "
+        f"plan's widths {W}")
+    prof = profiled(s.factorize)
+    solves = []
+    for i in range(3):
+        b = np.random.default_rng(SEED + 97 + i).standard_normal(n)
+        x, wall = timed_sync(lambda: s.solve(b, tol=TOL))
+        res = float(np.linalg.norm(b - ref.matvec(x, 0.0))
+                    / np.linalg.norm(b))
+        check(res <= TOL, f"mixed solve {i}: residual {res} > {TOL}")
+        solves.append({"wall_s": wall, "residual": res, **s.last_solve})
+    x0 = s.solve(b, refine="never")
+    eta = float(np.abs(b - ref.matvec(x0, 0.0)).max()
+                / (ref.norm_inf(0.0) * np.abs(x0).max() + np.abs(b).max()))
+    n_p = ne ** 3
+    check(s.inertia() == (n - n_p, n_p, 0), f"mixed: inertia {s.inertia()}")
+    emit({"phase": "mixed", "problem": f"hybrid u-p ne {ne} L{MIXED_LEVELS}",
+          "n": n, "pressures": n_p, "host_plan_s": plan_s,
+          "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
+          "signed_panels": stats["signed_panels"],
+          "signed_columns": stats["signed_columns"],
+          "levels": [{"lvl": l, "B": 1 << l, "F": int(fp.F[l]), "W": W[l]}
+                     for l in range(fp.levels)],
+          "profiled_factor": prof,
+          "launches_per_column": prof["kernel_launches"]
+          / stats["signed_columns"],
+          "solves": solves, "factor_eta": eta,
+          "factor_eta_limit": cfg["limits"]["factor_eta"],
+          "inertia": list(s.inertia())})
+
+
 def phase_companions(s, b0):
     """The factor's companions on the slice's 50^3 L8 f32 factor."""
     import numpy as np
@@ -3668,6 +3736,7 @@ def main() -> int:
         phase_selinv(solver)
         family = phase_family(solver)
         qd = phase_qd(solver)
+        phase_mixed()
         phase_companions(solver, b)
         ladder = phase_precision(solver, b)
         mesh_launches = phase_mesh(solver, b)

@@ -519,7 +519,8 @@ class SparseCholesky:
         executed share of the padded full products' flops
         (`schur_tile_share`, `frontal.schur_tile_share`) and the
         `schur_syrk` launches (`schur_syrk_launches`; neither for a signed
-        factor).
+        factor); of a signed factor the panels and columns of its column
+        loop (`signed_panels`, `signed_columns`, `ldlt.factor_qd`).
 
         With `signs`, the quasi-definite factorization `ldlt.factor_qd`
         runs instead, under `regimes.plan_qd` (in core, square, slabs
@@ -590,7 +591,8 @@ class SparseCholesky:
             self.panels = ldlt.factor_qd(self.fplan, fronts,
                                          self._signature(),
                                          level_hook=level_hook,
-                                         mesh=self.mesh)
+                                         mesh=self.mesh,
+                                         stats=self.factor_stats)
         else:
             launches = hk.LAUNCHES["schur_syrk"]
             self.panels = frontal.factor(

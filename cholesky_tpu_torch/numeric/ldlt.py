@@ -21,6 +21,12 @@ PyTorch: a column loop over the batch inside each panel, cuBLAS for the
 panel solves and the trailing updates. It never takes the SPD kernel route
 (`hopper_kernels.factor_slab` is Cholesky only).
 
+Spans (`trace.py`): inside each level, `frontal.PIVOT` around the signed
+pivot factorization, the boundary solve and X~ = X S; `frontal.SCHUR`
+around the update product; `frontal.EXTEND_ADD` in `frontal._form_front`;
+and SIGNED_DIAG around each panel's column loop, inside PIVOT. Counters:
+`factor_qd(stats=)` adds the panels and columns the column loop runs.
+
 In core and square: the level loop runs every level on the square front,
 with updates and the stored factor in the compute dtype on the device; the
 regime plan of the budget is `regimes.plan_qd`, which raises `BudgetError`
@@ -34,7 +40,7 @@ the solve's sweeps run per slot through `frontal._sweeps`.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +57,9 @@ from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 # the elementwise share small on the wide root fronts (W = 2504 at 50^3)
 # for one more solve + GEMM pair per 32 columns than 64 would take.
 PANEL = 32
+
+# the span of one panel's column loop (`_panel_factor_`)
+SIGNED_DIAG = "chol.step.signed_diag"
 
 
 def _panel_factor_(D: torch.Tensor, s: torch.Tensor) -> None:
@@ -86,7 +95,8 @@ def blocked_signed_cholesky(a: torch.Tensor, s: torch.Tensor,
     W = a.shape[1]
     for c0 in range(0, W, panel):
         c1 = min(c0 + panel, W)
-        _panel_factor_(work[:, c0:c1, c0:c1], s[:, c0:c1])
+        with trace.span(SIGNED_DIAG, a.device):
+            _panel_factor_(work[:, c0:c1, c0:c1], s[:, c0:c1])
         if c1 == W:
             break
         x = frontal._solve_lower_t(work[:, c0:c1, c0:c1],
@@ -144,9 +154,11 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
     (None: the leaf level, or children with no boundary). Returns (factor
     [B, F, W], U_next), U_next None at the root or without a boundary; a
     leaf level forms its update X~ X^T itself (the SPD path's deferred
-    X X^T would give X~ X~^T)."""
+    X X^T would give X~ X~^T). Its steps open the spans `frontal.PIVOT`
+    and `frontal.SCHUR` (`_form_front` its own `frontal.EXTEND_ADD`)."""
     Wl, Fl = fp.W[lvl], fp.F[lvl]
     B = piv.shape[0]
+    dev = piv.device
     full = None
     if lvl == fp.levels - 1:
         blk = piv
@@ -154,25 +166,28 @@ def _factor_level_qd(fp: FrontalPlan, lvl: int, piv: torch.Tensor, U,
         full = frontal._form_front(fp, piv, U, lvl + 1)   # row Fl: sentinel
         del piv, U
         blk = full[:, :Fl, :Wl]
-    ld = blocked_signed_cholesky(blk[:, :Wl, :], s)
-    fac = blk.new_empty((B, Fl, Wl))
-    fac[:, :Wl] = ld
-    del ld
-    if Fl == Wl:
-        return fac, None
-    x = frontal._solve_lower_t(fac[:, :Wl], blk[:, Wl:, :])   # A21 L~d^-T
-    xs = fac[:, Wl:]
-    torch.mul(x, s.to(x.dtype)[:, None, :], out=xs)           # X~ = X S
+    with trace.span(frontal.PIVOT, dev):
+        ld = blocked_signed_cholesky(blk[:, :Wl, :], s)
+        fac = blk.new_empty((B, Fl, Wl))
+        fac[:, :Wl] = ld
+        del ld
+        if Fl == Wl:
+            return fac, None
+        x = frontal._solve_lower_t(fac[:, :Wl], blk[:, Wl:, :])  # A21 L~d^-T
+        xs = fac[:, Wl:]
+        torch.mul(x, s.to(x.dtype)[:, None, :], out=xs)          # X~ = X S
     if lvl == 0:
         return fac, None
-    xt = xs.transpose(1, 2)
-    if full is None:
-        return fac, x @ xt                                    # X S X^T
-    return fac, torch.baddbmm(full[:, Wl:Fl, Wl:], x, xt, beta=-1)
+    with trace.span(frontal.SCHUR, dev):
+        xt = xs.transpose(1, 2)
+        if full is None:
+            return fac, x @ xt                                   # X S X^T
+        return fac, torch.baddbmm(full[:, Wl:Fl, Wl:], x, xt, beta=-1)
 
 
 def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
-              level_hook=None, mesh=None) -> Tuple[torch.Tensor, ...]:
+              level_hook=None, mesh=None,
+              stats: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
     """The level loop of the quasi-definite factorization, leaves to root,
     in core (`factor_qd`, `ldlt.py:154-176`). `fronts` is the list of
     assembled [B, F, W] slabs and is CONSUMED (each entry dropped once its
@@ -181,8 +196,12 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
     "start" | "end")` as in `frontal.frontal_factor_streamed`. With `mesh`,
     `fronts` as `assemble.MeshAssembler` placed them: a slot-sharded level
     runs per slot over its blocks (a `Sharded` factor), any other on the
-    mesh's first device."""
+    mesh's first device. `stats`, when given, gains `signed_panels` and
+    `signed_columns`: the panels and columns of the plan's pivot widths
+    that the signed column loop runs (one loop per level, per slot under
+    a mesh; each column about five launches whatever the batch)."""
     out: List = [None] * fp.levels
+    panels = columns = 0
     devices = mesh.flat if mesh is not None else [None]
     home = devices[0] or fronts[-1].device
     pieces, counts = None, None
@@ -206,6 +225,8 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
                     sig.slabs[lvl][b0:b1].to(dev))
                 parts.append(fac)
                 new_pieces.append(nxt)
+                panels += -(-int(fp.W[lvl]) // PANEL)
+                columns += int(fp.W[lvl])
             fronts[lvl] = None
             out[lvl] = (parts[0] if place is None or place.kind != "slot"
                         else frontal.Sharded(parts, place,
@@ -214,6 +235,8 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
             # every span of a level hands an update, or none does
             pieces = None if new_pieces[0] is None else new_pieces
             counts = [b1 - b0 for _, _, b0, b1 in spans]
+    if stats is not None:
+        stats.update(signed_panels=panels, signed_columns=columns)
     return tuple(out)
 
 

@@ -29,12 +29,19 @@ The spans (their names are the contract the benchmark's readers rely on):
                               `ldlt.factor_qd`), inside `level_hook`
   chol.step.pivot             inside a level of `frontal._factor_level`,
                               per chunk: the partial front factorization
-                              (`_factor_slab`)
+                              (`_factor_slab`); of `ldlt._factor_level_qd`:
+                              the signed pivot factorization
+                              (`blocked_signed_cholesky`), the boundary
+                              solve and X~ = X S
   chol.step.schur             there: the Schur update of the boundary
                               block (`_schur_update_cast`, or
                               `_schur_gather_2` on a gather-tier level;
                               and the leaves' deferred X X^T,
-                              `_rows_product`)
+                              `_rows_product`); in `ldlt._factor_level_qd`
+                              the update product X~ X^T
+  chol.step.signed_diag       inside chol.step.pivot of a signed level:
+                              each panel's column loop
+                              (`ldlt._panel_factor_`)
   chol.step.extend_add        there: the children's updates added into the
                               fronts: the square fronts formed from the
                               pivot slabs and the updates in one pass

@@ -20,7 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import cholesky_tpu_torch
 from cholesky_tpu_torch import trace
-from cholesky_tpu_torch.numeric import frontal, regimes
+from cholesky_tpu_torch.numeric import frontal, ldlt, regimes
 from cholesky_tpu_torch.utils.laplacian import generate_problem
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,13 +42,18 @@ PROGRAM_METRICS = [("ell_build_ms.cycle", "refactor", True),
                    ("pivot_ms.cycle", "refactor", False),
                    ("schur_ms.cycle", "refactor", False),
                    ("pivot_roofline_pct.cycle", "refactor", False),
-                   ("schur_roofline_pct.cycle", "refactor", False)]
+                   ("schur_roofline_pct.cycle", "refactor", False),
+                   ("signed_diag_ms.cycle", "refactor", False)]
 # the refactor cells; the step rooflines read a configuration's step_work,
-# which only the elasticity configuration has
+# which only the elasticity configurations have; the signed column loop
+# runs only in the hybrid u-p cell
 ELAST = "elast_q1_64.newmark"
-CELLS = {"pivot_roofline_pct.cycle": [ELAST],
-         "schur_roofline_pct.cycle": [ELAST]}
+MIXED = "elast_q1p0_48.refactor_fixed"
+CELLS = {"pivot_roofline_pct.cycle": [ELAST, MIXED],
+         "schur_roofline_pct.cycle": [ELAST, MIXED],
+         "signed_diag_ms.cycle": [MIXED]}
 STEPS = (frontal.PIVOT, frontal.SCHUR, frontal.EXTEND_ADD)
+SIGNED_STEPS = STEPS + (ldlt.SIGNED_DIAG,)
 
 
 def _solver(signs=False):
@@ -309,6 +314,66 @@ def test_step_spans_of_each_level(kind):
     assert s.residual(b, s.solve(b)) <= 1e-10
 
 
+def _expected_signed_steps(fp, lvl):
+    """The step spans `ldlt._factor_level_qd` opens in level `lvl`: the
+    fronts formed (not at the leaves), the pivot step with a column loop a
+    panel inside it, and the Schur update below the root where the front
+    has a boundary."""
+    out = [] if lvl == fp.levels - 1 else [frontal.EXTEND_ADD]
+    out += [frontal.PIVOT] + [ldlt.SIGNED_DIAG] * -(-int(fp.W[lvl])
+                                                    // ldlt.PANEL)
+    if lvl > 0 and fp.F[lvl] > fp.W[lvl]:
+        out.append(frontal.SCHUR)
+    return out
+
+
+def test_step_spans_of_each_signed_level():
+    """A traced signed factorization opens, inside each level's span, its
+    steps' spans in the order they run, each panel's column loop inside
+    the level's pivot step; the counters give the loop's panels and
+    columns."""
+    s, v, b = _solver(signs=True)
+    s.factorize()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        s.factorize()
+    spans = trace.spans()
+    levels = [sp for sp in spans if sp.name.startswith("chol.level.")]
+    steps = [sp for sp in spans if sp.name in SIGNED_STEPS]
+    fp = s.fplan
+    assert [sp.name for sp in levels] == [
+        f"chol.level.L{lvl:02d}" for lvl in range(fp.levels - 1, -1, -1)]
+    seen = 0
+    for sp in levels:
+        lvl = int(sp.name[-2:])
+        inside = [st for st in steps if sp.t0_ns <= st.t0_ns <= sp.t1_ns]
+        assert [st.name for st in inside] == _expected_signed_steps(fp, lvl)
+        pivot, = [st for st in inside if st.name == frontal.PIVOT]
+        for st in inside:
+            assert st.t1_ns <= sp.t1_ns and st.parent == sp.parent
+            if st.name == ldlt.SIGNED_DIAG:
+                assert pivot.t0_ns <= st.t0_ns and st.t1_ns <= pivot.t1_ns
+        seen += len(inside)
+    assert seen == len(steps) > 0
+    W = [int(w) for w in fp.W]
+    assert s.factor_stats["signed_columns"] == sum(W)
+    assert s.factor_stats["signed_panels"] == len(
+        [st for st in steps if st.name == ldlt.SIGNED_DIAG])
+    assert s.residual(b, s.solve(b)) <= 1e-10
+
+
+def test_signed_step_spans_off_record_nothing(monkeypatch):
+    s, v, b = _solver(signs=True)
+    s.factorize()
+    monkeypatch.setattr(trace, "record_function", _raise)
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    trace.clear()
+    s.update_values(v * 2.0)
+    s.factorize()
+    assert trace.spans() == [] and trace.dropped() == 0
+    assert s.residual(b, s.solve(b)) <= 1e-10
+
+
 @pytest.mark.parametrize("kind", ["square", "xxt", "gather", "chunks"])
 def test_step_spans_off_record_nothing(kind, monkeypatch):
     s, v, b = _solver()
@@ -409,7 +474,7 @@ def test_program_metric_declared_with_a_reader(name, kind, on_cpu):
         bench = json.load(f)
     m, = [m for m in bench["per_layer"] if m["name"] == name]
     assert m["workloads"] == CELLS.get(name, [f"lapl7_50.{kind}"] + (
-        [ELAST] if kind == "refactor" else []))
+        [ELAST, MIXED] if kind == "refactor" else ["lapl7_50.block16"]))
     assert m["moves"] == ("cycle_ms" if kind == "refactor" else "solve_ms")
     assert m["source"] == ("host_clock" if on_cpu else "device_trace")
     path = os.path.join(REPO, "cholbench/metrics", name + ".py")
