@@ -46,6 +46,14 @@ Phases, each printing one JSON line:
              and in place to out of place, then timed beside its bound,
              the library product it replaced and its plain version, with
              the executed share of the padded product's flops;
+             `signed_panel` (csrc/signed_panel.cu) at the shape of every
+             level of the benchmark's signed configuration (SIGNED_LEVELS,
+             seeded quasi-definite fronts), f32: its first, a middle and
+             its last panel against its plain version `signed_panel_ref`,
+             then the panels of one factorization of the level's fronts
+             (no trailing updates) timed on the device (torch.profiler) and
+             as issued (CUDA events) beside their byte bound at 3.35 TB/s
+             and the plain version's wall;
   4. small:  a 15^3 Laplacian solved on the card vs SciPy's direct solve;
   5. slice:  the main path at full size — a 50^3 grid Laplacian under 8
              levels of nested dissection (125,000 dofs): from_coo ->
@@ -143,8 +151,9 @@ Phases, each printing one JSON line:
              displacements and one pressure a brick, nu = 0.4999) at ne 16
              (17,968 dofs, 10 levels) through its operator's `build`
              (`from_coo(..., signs=)`), f32 at IEEE products: factor walls
-             cold and warm, the signed column loop's panels and columns
-             (`factor_stats`) beside the plan's padded widths, the warm
+             cold and warm, the signed factorization's panels and columns
+             (`factor_stats`) beside the plan's padded widths and one
+             `signed_panel` launch a panel, the warm
              factor's kernel launches and idle share under torch.profiler,
              three refined solves against the operator's f64 reference
              (sweeps, residual), one unrefined application's backward
@@ -327,6 +336,17 @@ SCHUR_LEVELS = {
         (11, 2048, 640, 48, 195, 27), (12, 4096, 400, 48, 111, 27),
         (13, 8192, 288, 24, 69, 9), (14, 16384, 208, 48, 39, 9)),
 }
+# (level, B, W) of every level of the benchmark's signed configuration,
+# from the port's plan of `cholbench/configs/elast_q1p0_48.json`: B fronts
+# of W padded pivot columns, 513 panels of at most 32 columns in all
+SIGNED_LEVELS = {
+    "elast_q1p0_48": tuple((lvl, 1 << lvl, W) for lvl, W in enumerate((
+        7056, 3456, 1728, 1728, 864, 432, 432, 216, 112, 112, 56, 32, 32,
+        64))),
+}
+# signed_panel against its plain version (f32, each part against its own
+# largest entry): both IEEE, the 32-wide solve summed in another order
+SIGNED_REL_TOL = 2e-5
 SMALL_REL_TOL = 1e-8               # 15^3 solution vs SciPy's (f64)
 # f32-stored regime factors vs the default (square, f32) factor, relative
 # to the level's largest entry: summation order only (two-piece, chunks),
@@ -740,6 +760,127 @@ def phase_form_front():
                for key in ("bytes", "bound_ms", "ms", "plain_ms")}
         tot["share"] = tot["bound_ms"] / tot["ms"]
         emit({"phase": "kernel", "name": "form_front", "config": cfg,
+              "levels": len(rows), "total": tot})
+        summary[cfg] = tot
+    return summary
+
+
+def signed_inputs(B, W, gen, dev):
+    """Seeded f32 quasi-definite fronts [B, W, W] and their signature:
+    off-diagonal entries of variance 0.5 / W, the diagonal s (1 + W^0.5),
+    so that each sign block is diagonally dominant and every panel's
+    diagonal block factors alone."""
+    import torch
+
+    s = torch.where(torch.rand(B, W, generator=gen, device=dev) < 0.4,
+                    -1.0, 1.0)
+    a = torch.randn(B, W, W, generator=gen, device=dev)
+    a = (a + a.transpose(1, 2)).mul_(0.5 / W ** 0.5)
+    a.diagonal(dim1=1, dim2=2).copy_(s * (1 + W ** 0.5))
+    return a, s
+
+
+def signed_panels(fn, a, s, xbuf, *extra):
+    """fn(work, s, c0, c1, x, *extra) over the panels of one blocked
+    factorization of a clone of the fronts a, with no trailing update
+    between them (every panel reads the fronts' own values): the clone is
+    made first, then the panels are timed by CUDA events (ms)."""
+    import torch
+
+    B, W, _ = a.shape
+    work = a.clone()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c0 in range(0, W, 32):
+        c1 = min(c0 + 32, W)
+        fn(work, s, c0, c1,
+           xbuf[:B * (W - c1) * (c1 - c0)].view(B, W - c1, c1 - c0), *extra)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_signed_panel():
+    """signed_panel (csrc/signed_panel.cu) at every level shape of
+    SIGNED_LEVELS, f32: its first, a middle and its last panel against
+    `signed_panel_ref` (each part against its own largest entry), the
+    tickets left zero; then all the panels of one blocked factorization of
+    the level's fronts: the device time of the kernels (torch.profiler),
+    the wall of the panels as the host issues them (CUDA events, median of
+    three), the least the card could take (each panel read and written
+    once, X written once, at 3.35 TB/s) and the plain version's wall (the
+    column loop, solve_triangular and the sign scale that the level loop
+    ran before), per level and summed."""
+    import torch
+
+    from cholesky_tpu_torch.numeric import hopper_kernels as hk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    summary = {}
+    for cfg, levels in SIGNED_LEVELS.items():
+        rows = []
+        for lvl, B, W in levels:
+            a, s = signed_inputs(B, W, gen, dev)
+            w0 = min(32, W)
+            xbuf = torch.empty(B * (W - w0) * w0, device=dev)
+            tickets = torch.zeros(B, dtype=torch.int32, device=dev)
+            where = f"signed_panel {cfg} L{lvl} [{B}, {W}, {W}]"
+            err = 0.0
+            for c0 in sorted({0, (W // 64) * 32, (W - 1) // 32 * 32}):
+                c1 = min(c0 + 32, W)
+                k, p = a.clone(), a.clone()
+                xk = torch.empty(B, W - c1, c1 - c0, device=dev)
+                xp = torch.empty_like(xk)
+                hk.signed_panel(k, s, c0, c1, xk, tickets)
+                hk.signed_panel_ref(p, s, c0, c1, xp)
+                torch.cuda.synchronize()
+                for got, want in ((k[:, c0:c1, c0:c1].tril(),
+                                   p[:, c0:c1, c0:c1].tril()),
+                                  (k[:, c1:, c0:c1], p[:, c1:, c0:c1]),
+                                  (xk, xp)):
+                    if want.numel():
+                        e = rel_err(got, want)
+                        check(e <= SIGNED_REL_TOL, f"{where} panel {c0}: "
+                              f"{e} from plain")
+                        err = max(err, e)
+                check(not bool(tickets.any()), f"{where}: tickets not 0")
+                del k, p, xk, xp
+            kernel = lambda: signed_panels(hk.signed_panel, a, s, xbuf,
+                                           tickets)
+            kernel()                                        # warm
+            prof = profiled(kernel)
+            walls = sorted(kernel() for _ in range(3))
+            plain = lambda: signed_panels(hk.signed_panel_ref, a, s, xbuf)
+            if not rows:
+                plain()                                     # warm
+            nbytes = hk.signed_panel_bytes(B, W)
+            bound_ms = nbytes / hk.HBM_BYTES_PER_S * 1e3
+            row = {"level": lvl, "shape": [B, W], "panels": -(-W // 32),
+                   "bytes": nbytes, "bound_ms": bound_ms,
+                   "device_ms": sum(r["ms"] for r in prof["top"]
+                                    if "signed_panel" in r["kernel"]),
+                   "launches": sum(r["count"] for r in prof["top"]
+                                   if "signed_panel" in r["kernel"]),
+                   "wall_ms": walls[1], "plain_ms": plain(),
+                   "max_rel_err": err}
+            check(row["launches"] == row["panels"],
+                  f"{where}: {row['launches']} launches for "
+                  f"{row['panels']} panels")
+            row["share"] = bound_ms / row["device_ms"]
+            emit({"phase": "kernel", "name": "signed_panel", "config": cfg,
+                  **row})
+            rows.append(row)
+            del a, s, xbuf, tickets
+            torch.cuda.empty_cache()
+        tot = {key: sum(r[key] for r in rows)
+               for key in ("panels", "bytes", "bound_ms", "device_ms",
+                           "wall_ms", "plain_ms")}
+        tot["share"] = tot["bound_ms"] / tot["device_ms"]
+        tot["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+        emit({"phase": "kernel", "name": "signed_panel", "config": cfg,
               "levels": len(rows), "total": tot})
         summary[cfg] = tot
     return summary
@@ -2086,6 +2227,20 @@ def phase_qd(spd):
 MIXED_NE, MIXED_LEVELS = 16, 10   # the mixed phase's cube: 17,968 dofs
 
 
+def column_loop_ops(fn) -> list:
+    """The operators of the signed column loop (`addcmul_`, `sqrt_`) that
+    one call of fn runs, by torch.profiler's CPU records: none since each
+    panel is one `signed_panel` launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if "addcmul" in e.key or "sqrt" in e.key})
+
+
 def phase_mixed():
     """The hybrid u-p elasticity of `cholbench/configs/elast_q1p0_48.json`
     at ne MIXED_NE on the card, through the operator's own `build` and the
@@ -2112,7 +2267,12 @@ def phase_mixed():
     check(stats["signed_columns"] == sum(W) and stats["signed_panels"] == sum(
         -(-w // 32) for w in W), f"mixed: counters {stats} against the "
         f"plan's widths {W}")
+    check(stats["signed_panel_launches"] == stats["signed_panels"],
+          f"mixed: {stats['signed_panel_launches']} signed_panel launches "
+          f"for {stats['signed_panels']} panels")
     prof = profiled(s.factorize)
+    loop_ops = column_loop_ops(s.factorize)
+    check(not loop_ops, f"mixed: the factorization still runs {loop_ops}")
     solves = []
     for i in range(3):
         b = np.random.default_rng(SEED + 97 + i).standard_normal(n)
@@ -2131,6 +2291,7 @@ def phase_mixed():
           "factor_wall_s": walls[0], "factor_wall_warm_s": walls[1:],
           "signed_panels": stats["signed_panels"],
           "signed_columns": stats["signed_columns"],
+          "signed_panel_launches": stats["signed_panel_launches"],
           "levels": [{"lvl": l, "B": 1 << l, "F": int(fp.F[l]), "W": W[l]}
                      for l in range(fp.levels)],
           "profiled_factor": prof,
@@ -3728,6 +3889,7 @@ def main() -> int:
         slab = phase_slab_kernel()
         front = phase_form_front()
         schur = phase_schur_syrk()
+        signed = phase_signed_panel()
         phase_small()
         launches, solver, b = phase_slice()
         phase_profile(solver, b)
@@ -3800,7 +3962,13 @@ def main() -> int:
                     "Schur update (the JAX package leaves it to XLA)",
         "launches": launches["schur_syrk"],
         "launches_by_path": {"50^3 L8 slice": launches["schur_syrk"]},
-        "per_config": schur}]})
+        "per_config": schur}, {
+        "name": "signed_panel", "route": "cuda",
+        "source": "cholesky_tpu_torch/kernels/csrc/signed_panel.cu",
+        "replaces": "no TPU kernel: the port's PyTorch column loop of the "
+                    "signed Cholesky's panels (the JAX package runs it "
+                    "through XLA, ldlt.py:52-104)",
+        "per_config": signed}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

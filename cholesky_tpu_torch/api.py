@@ -519,8 +519,10 @@ class SparseCholesky:
         executed share of the padded full products' flops
         (`schur_tile_share`, `frontal.schur_tile_share`) and the
         `schur_syrk` launches (`schur_syrk_launches`; neither for a signed
-        factor); of a signed factor the panels and columns of its column
-        loop (`signed_panels`, `signed_columns`, `ldlt.factor_qd`).
+        factor); of a signed factor the panels and columns of its blocked
+        factorization and its `signed_panel` kernel launches
+        (`signed_panels`, `signed_columns`, `signed_panel_launches`,
+        `ldlt.factor_qd`).
 
         With `signs`, the quasi-definite factorization `ldlt.factor_qd`
         runs instead, under `regimes.plan_qd` (in core, square, slabs

@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(HERE, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("chol_inv", "factor_slab", "form_front", "schur_syrk")
+KERNELS = ("chol_inv", "factor_slab", "form_front", "schur_syrk",
+           "signed_panel")
 
 BUILD_INFO: dict = {}
 _LIBS: dict = {}

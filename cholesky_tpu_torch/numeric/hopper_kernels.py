@@ -40,6 +40,16 @@
                     the kernel is tested against; the CPU runs one batched
                     product instead).
   * `schur_syrk_flops` the flops the kernel's tiles execute.
+  * `signed_panel` replaces no TPU kernel: one panel (at most 32 columns)
+                    of the blocked signed Cholesky of a level's
+                    quasi-definite fronts, the diagonal block's signed
+                    factor and the panel's solve below it, by the CUDA
+                    kernel `kernels/csrc/signed_panel.cu` (the JAX package
+                    runs the algorithm through XLA, a `lax.scan` over
+                    columns; the port's PyTorch column loop took ~5
+                    launches a column).
+  * `signed_panel_ref` its plain version: the column loop, the triangular
+                    solve and the sign scale in PyTorch.
   * `chol_inv_bound`, `factor_slab_bound` the least time the card could
                     take for each function's work, from the H100's
                     published peaks below; `factor_slab_flops` the flops
@@ -78,7 +88,7 @@ TF32_FLOPS = 495e12                # TF32 on the tensor cores
 # Launches of each kernel, counted where the kernel is launched
 # (`factor_slab`: one per call, which launches two kernels per panel).
 LAUNCHES = {"chol_inv": 0, "factor_slab": 0, "form_front": 0,
-            "schur_syrk": 0}
+            "schur_syrk": 0, "signed_panel": 0}
 
 _FNS: dict = {}
 
@@ -93,9 +103,12 @@ _SIGNATURES = {
                                   _L, _L, _L, _I, _I, _I, _I, _I, _P]),
     "schur_syrk_f32": ("schur_syrk", [_P, _L, _L, _P, _L, _L, _P, _L, _L,
                                       _P, _L, _I, _I, ctypes.c_float, _P]),
+    "signed_panel": ("signed_panel", [_P, _L, _L, _P, _L, _P, _P, _L, _I, _I,
+                                      _I, _I, _P]),
 }
 
-# dtype codes of form_front's C interface: the front's, the updates'
+# dtype codes of form_front's C interface (the front's, the updates') and
+# of signed_panel's
 _FRONT_CODES = {torch.float32: 0, torch.float64: 1}
 _UPDATE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
@@ -561,6 +574,118 @@ def schur_syrk_flops(m, p) -> np.ndarray:
     t = -(-m // SYRK_TILE)
     k = -(-p // SYRK_K) * SYRK_K
     return (t * (t + 1) // 2 * k) * (2.0 * SYRK_TILE ** 2)
+
+
+SIGNED_PANEL = 32               # signed_panel's widest panel
+
+
+def signed_panel_ref(work: torch.Tensor, s: torch.Tensor, c0: int, c1: int,
+                     xbuf: torch.Tensor) -> None:
+    """`signed_panel` in plain PyTorch, in place: the column loop on the
+    diagonal blocks D = work[:, c0:c1, c0:c1] (per column j: l_jj =
+    sqrt(s_j d_jj); the column below becomes l = col / (s_j l_jj); the
+    block below and right of it loses s_j l l^T = (col / l_jj) l^T; the
+    strict upper triangle is left with the rank-1 updates' values), then
+    X = work[:, c1:, c0:c1] L~11^-T by a triangular solve, X into xbuf
+    [B, W - c1, c1 - c0] and L~21 = X S over the panel. A signature
+    violation (s_j d_jj < 0) gives NaN, which the later columns carry
+    on."""
+    D = work[:, c0:c1, c0:c1]
+    sp = s[:, c0:c1]
+    w = c1 - c0
+    for j in range(w):
+        sj = sp[:, j]
+        ljj = D[:, j, j].mul_(sj).sqrt_()               # in place: L~[j, j]
+        if j + 1 == w:
+            break
+        col = D[:, j + 1:, j]
+        u = col / ljj[:, None]                          # s_j l
+        torch.mul(u, sj[:, None], out=col)              # l
+        D[:, j + 1:, j + 1:].addcmul_(u[:, :, None], col[:, None, :],
+                                      value=-1)
+    if c1 == work.shape[1]:
+        return
+    x = torch.linalg.solve_triangular(D.transpose(1, 2), work[:, c1:, c0:c1],
+                                      upper=True, left=False)
+    xbuf.copy_(x)
+    torch.mul(x, sp[:, None, :], out=work[:, c1:, c0:c1])
+
+
+def signed_panel(work: torch.Tensor, s: torch.Tensor, c0: int, c1: int,
+                 xbuf: torch.Tensor,
+                 tickets: Optional[torch.Tensor] = None) -> None:
+    """One panel, columns c0:c1 (at most SIGNED_PANEL of them), of the
+    blocked signed Cholesky of the fronts work [B, W, W] with signature s
+    [B, W] (+-1 in work's dtype), in place: the lower triangle of
+    work[:, c0:c1, c0:c1] becomes L~11 with L~11 S11 L~11^T = that block;
+    work[:, c1:, c0:c1] becomes L~21 = X S, X = work[:, c1:, c0:c1]
+    L~11^-T, and X goes into xbuf, a contiguous [B, W - c1, c1 - c0]; the
+    block's strict upper triangle is not read and is left for the caller's
+    `tril_`. A signature violation gives NaN.
+
+    A CPU tensor takes `signed_panel_ref`. A CUDA tensor takes the kernel
+    of `kernels/csrc/signed_panel.cu`, one launch for every front (f32 or
+    f64, IEEE division and square root). `tickets` is its int32 [B] scratch
+    (zero, and left zero by every launch): the caller allocates it once
+    for all the panels of a factorization; None allocates one here. work
+    is read through its strides (last stride 1), s through its row stride
+    (last stride 1). Anything the kernel does not take raises."""
+    if work.device.type == "cpu":
+        signed_panel_ref(work, s, c0, c1, xbuf)
+        return
+    if work.device.type != "cuda":
+        raise ValueError(f"signed_panel: unsupported device {work.device}")
+    if work.dtype not in _FRONT_CODES:
+        raise ValueError(f"signed_panel: fronts are float32 or float64, got "
+                         f"{work.dtype}")
+    if work.dim() != 3 or work.shape[1] != work.shape[2]:
+        raise ValueError(f"signed_panel: expected fronts [B, W, W], got "
+                         f"{tuple(work.shape)}")
+    B, W, _ = work.shape
+    if not 0 <= c0 < c1 <= min(W, c0 + SIGNED_PANEL):
+        raise ValueError(f"signed_panel: panel {c0}:{c1} is not 1 to "
+                         f"{SIGNED_PANEL} columns of {W}")
+    if tickets is None:
+        tickets = torch.zeros(B, dtype=torch.int32, device=work.device)
+    for name, t, shape, dtype in (
+            ("s", s, (B, W), work.dtype),
+            ("xbuf", xbuf, (B, W - c1, c1 - c0), work.dtype),
+            ("tickets", tickets, (B,), torch.int32)):
+        if (t.device != work.device or t.dtype != dtype
+                or tuple(t.shape) != shape):
+            raise ValueError(f"signed_panel: {name} is a {dtype} {list(shape)}"
+                             f" on {work.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if work.stride(2) != 1 or s.stride(1) != 1:
+        raise ValueError(f"signed_panel: work and s need a last stride of 1, "
+                         f"got {work.stride()} and {s.stride()}")
+    if not (xbuf.is_contiguous() and tickets.is_contiguous()):
+        raise ValueError("signed_panel: xbuf and tickets must be contiguous")
+    if B == 0:
+        return
+    fn = _fn("signed_panel")
+    with torch.cuda.device(work.device):
+        stream = torch.cuda.current_stream(work.device).cuda_stream
+        err = fn(work.data_ptr(), work.stride(0), work.stride(1),
+                 s.data_ptr(), s.stride(0), xbuf.data_ptr(),
+                 tickets.data_ptr(), B, W, c0, c1 - c0,
+                 _FRONT_CODES[work.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"signed_panel: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES["signed_panel"] += 1
+
+
+def signed_panel_bytes(B: int, W: int) -> int:
+    """Bytes the `signed_panel` launches of one blocked signed factorization
+    of [B, W, W] f32 fronts move at the least: per panel (c0, w) each
+    front's (W - c0) x w panel read once and written once, and X ((W - c0 -
+    w) x w) written once."""
+    total = 0
+    for c0 in range(0, W, SIGNED_PANEL):
+        w = min(SIGNED_PANEL, W - c0)
+        total += 2 * (W - c0) * w + (W - c0 - w) * w
+    return B * total * 4
 
 
 def slab_kernel_eligible(B: int, W: int, dtype) -> bool:

@@ -16,16 +16,20 @@ factorization differs from `frontal.py` only in three places:
   logdet:  log|det A| = 2 sum log diag(L~d),  sign = (-1)^#negative
 
 The signed pivot factorization is dense algebra that the JAX package runs
-through XLA (a `lax.scan` over columns), not a Pallas kernel; here it is
-PyTorch: a column loop over the batch inside each panel, cuBLAS for the
-panel solves and the trailing updates. It never takes the SPD kernel route
-(`hopper_kernels.factor_slab` is Cholesky only).
+through XLA (a `lax.scan` over columns), not a Pallas kernel; here each
+panel of it (the diagonal block's signed factor and the solve of the
+panel below) is one launch of the hand-written `hopper_kernels.
+signed_panel` on the card (`kernels/csrc/signed_panel.cu`; on the CPU its
+plain version, the column loop), and cuBLAS runs the trailing updates. It
+never takes the SPD kernel route (`hopper_kernels.factor_slab` is Cholesky
+only).
 
 Spans (`trace.py`): inside each level, `frontal.PIVOT` around the signed
 pivot factorization, the boundary solve and X~ = X S; `frontal.SCHUR`
 around the update product; `frontal.EXTEND_ADD` in `frontal._form_front`;
-and SIGNED_DIAG around each panel's column loop, inside PIVOT. Counters:
-`factor_qd(stats=)` adds the panels and columns the column loop runs.
+and SIGNED_DIAG around each panel's `signed_panel`, inside PIVOT.
+Counters: `factor_qd(stats=)` adds the panels and columns of the blocked
+factorization and the `signed_panel` launches.
 
 In core and square: the level loop runs every level on the square front,
 with updates and the stored factor in the compute dtype on the device; the
@@ -47,39 +51,19 @@ import torch
 
 from cholesky_tpu_torch import trace
 from cholesky_tpu_torch.numeric import frontal
+from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric.frontal_plan import FrontalPlan, _banded_maps
 
-# Columns per panel of the signed Cholesky. Each column of a panel costs
-# five launches on the [B, w, w] diagonal block whatever w is, so the
-# factorization is launch-bound on the column count; w sets the share of
-# the O(W^3) work left to those elementwise rank-1 updates (w / W of it)
-# against the cuBLAS panel solve and trailing GEMM of each panel. 32 keeps
-# the elementwise share small on the wide root fronts (W = 2504 at 50^3)
-# for one more solve + GEMM pair per 32 columns than 64 would take.
-PANEL = 32
+# Columns per panel of the signed Cholesky, at most `hk.SIGNED_PANEL`, the
+# widest the kernel factors (one lane a row of the diagonal block). Each
+# panel is one `signed_panel` launch for the level's B fronts plus one
+# cuBLAS trailing update, so the factorization takes about two launches per
+# PANEL columns; the share of the O(W^3) work done inside the kernel, the
+# diagonal blocks and the solves against them, is PANEL / W of it.
+PANEL = hk.SIGNED_PANEL
 
-# the span of one panel's column loop (`_panel_factor_`)
+# the span of one panel's `signed_panel`
 SIGNED_DIAG = "chol.step.signed_diag"
-
-
-def _panel_factor_(D: torch.Tensor, s: torch.Tensor) -> None:
-    """Unblocked signed Cholesky of the diagonal blocks D [B, w, w], in
-    place on their lower triangle (the strict upper triangle is left with
-    the rank-1 updates' values). Per column j: ljj = sqrt(s_j d_j); the
-    column below becomes l = col / (s_j ljj); the block below and right of
-    it loses s_j l l^T = (col / ljj) l^T. A signature violation (s_j d_j
-    < 0) gives NaN, which the later columns and levels carry on."""
-    w = D.shape[1]
-    for j in range(w):
-        sj = s[:, j]
-        ljj = D[:, j, j].mul_(sj).sqrt_()               # in place: L~[j, j]
-        if j + 1 == w:
-            break
-        col = D[:, j + 1:, j]
-        u = col / ljj[:, None]                          # s_j l
-        torch.mul(u, sj[:, None], out=col)              # l
-        D[:, j + 1:, j + 1:].addcmul_(u[:, :, None], col[:, None, :],
-                                      value=-1)
 
 
 def blocked_signed_cholesky(a: torch.Tensor, s: torch.Tensor,
@@ -87,24 +71,27 @@ def blocked_signed_cholesky(a: torch.Tensor, s: torch.Tensor,
     """Batched blocked right-looking signed Cholesky of a [B, W, W] (lower
     triangle read) with signature s [B, W]: returns lower-triangular L~
     (zeros above the diagonal) with a = L~ diag(s) L~^T (`ldlt.py:52-104`
-    of the JAX package). Per panel of `panel` columns: the column loop on
-    its diagonal block, then X = A21 L~11^-T, the stored block X S, and one
-    GEMM trailing update A22 -= X S X^T. The input is not modified."""
+    of the JAX package). Per panel of `panel` columns: `hk.signed_panel`
+    (the diagonal block's signed factor, X = A21 L~11^-T into a scratch
+    and the stored block L~21 = X S), then one GEMM trailing update A22 -=
+    X (X S)^T. The input is not modified. On the card a panel is at most
+    `hk.SIGNED_PANEL` columns; on the CPU any width (panel=W is the
+    unblocked column loop)."""
     work = a.clone()
-    s = s.to(a.dtype)
-    W = a.shape[1]
+    s = s.to(a.dtype).contiguous()
+    B, W = a.shape[0], a.shape[1]
+    w0 = min(panel, W)
+    xbuf = work.new_empty(B * (W - w0) * w0)        # X of the widest panel
+    tickets = torch.zeros(B, dtype=torch.int32, device=a.device)
     for c0 in range(0, W, panel):
         c1 = min(c0 + panel, W)
+        x = xbuf[:B * (W - c1) * (c1 - c0)].view(B, W - c1, c1 - c0)
         with trace.span(SIGNED_DIAG, a.device):
-            _panel_factor_(work[:, c0:c1, c0:c1], s[:, c0:c1])
+            hk.signed_panel(work, s, c0, c1, x, tickets)
         if c1 == W:
             break
-        x = frontal._solve_lower_t(work[:, c0:c1, c0:c1],
-                                   work[:, c1:, c0:c1])      # A21 L~11^-T
-        xs = x * s[:, None, c0:c1]                           # the true L~21
-        work[:, c1:, c0:c1] = xs
-        work[:, c1:, c1:].baddbmm_(x, xs.transpose(1, 2), alpha=-1)
-        del x, xs
+        work[:, c1:, c1:].baddbmm_(x, work[:, c1:, c0:c1].transpose(1, 2),
+                                   alpha=-1)
     return work.tril_()
 
 
@@ -197,11 +184,14 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
     `fronts` as `assemble.MeshAssembler` placed them: a slot-sharded level
     runs per slot over its blocks (a `Sharded` factor), any other on the
     mesh's first device. `stats`, when given, gains `signed_panels` and
-    `signed_columns`: the panels and columns of the plan's pivot widths
-    that the signed column loop runs (one loop per level, per slot under
-    a mesh; each column about five launches whatever the batch)."""
+    `signed_columns`, the panels and columns of the plan's pivot widths
+    that the blocked signed factorization runs (once per level, per slot
+    under a mesh), and `signed_panel_launches`, the `hk.signed_panel`
+    kernel launches among them: `signed_panels` on the card, 0 on the
+    CPU."""
     out: List = [None] * fp.levels
     panels = columns = 0
+    launches = hk.LAUNCHES["signed_panel"]
     devices = mesh.flat if mesh is not None else [None]
     home = devices[0] or fronts[-1].device
     pieces, counts = None, None
@@ -236,7 +226,9 @@ def factor_qd(fp: FrontalPlan, fronts: List[torch.Tensor], sig: DeviceSigns,
             pieces = None if new_pieces[0] is None else new_pieces
             counts = [b1 - b0 for _, _, b0, b1 in spans]
     if stats is not None:
-        stats.update(signed_panels=panels, signed_columns=columns)
+        stats.update(signed_panels=panels, signed_columns=columns,
+                     signed_panel_launches=hk.LAUNCHES["signed_panel"]
+                     - launches)
     return tuple(out)
 
 

@@ -40,8 +40,9 @@ The spans (their names are the contract the benchmark's readers rely on):
                               `_rows_product`); in `ldlt._factor_level_qd`
                               the update product X~ X^T
   chol.step.signed_diag       inside chol.step.pivot of a signed level:
-                              each panel's column loop
-                              (`ldlt._panel_factor_`)
+                              each panel's diagonal factor and solve below
+                              it, one `hopper_kernels.signed_panel` launch
+                              on the card (`ldlt.blocked_signed_cholesky`)
   chol.step.extend_add        there: the children's updates added into the
                               fronts: the square fronts formed from the
                               pivot slabs and the updates in one pass

@@ -117,7 +117,8 @@ def test_bench_prints_its_table_then_one_json_line():
     assert result["factor_peak_bytes"] is None
     assert result["plan_peak_estimate_bytes"] > 0
     assert result["launches"] == result["launches_production"] == {
-        "chol_inv": 0, "factor_slab": 0, "form_front": 0, "schur_syrk": 0}
+        "chol_inv": 0, "factor_slab": 0, "form_front": 0, "schur_syrk": 0,
+        "signed_panel": 0}
     assert result["vs_baseline"] is None
     assert [lv["B"] for lv in result["regime_plan"]] == [1, 2, 4]
     assert result["executed_flops"] >= result["useful_flops"] > 0

@@ -920,6 +920,201 @@ def test_qd_factorization_launches_no_chol_inv():
         hk.MIN_B, hk.W_PER_B = rule
 
 
+# (B, W) of every signed level: the benchmark's hybrid u-p elasticity
+# (`cholbench/configs/elast_q1p0_48.json`, levels 0 to 13) and the 50^3 L8
+# quasi-definite grid of chip_smoke's qd phase; W = 7056, 2504, 1256, 632,
+# 304, 144 and 56 end in a panel of 16, 8, 8, 24, 16, 16 and 24 columns
+SIGNED_SHAPES = {
+    **{f"elast_q1p0_48 L{lvl}": bw for lvl, bw in enumerate((
+        (1, 7056), (2, 3456), (4, 1728), (8, 1728), (16, 864), (32, 432),
+        (64, 432), (128, 216), (256, 112), (512, 112), (1024, 56),
+        (2048, 32), (4096, 32), (8192, 64)))},
+    **{f"qd 50^3 L{lvl}": bw for lvl, bw in enumerate((
+        (1, 2504), (2, 1256), (4, 632), (8, 632), (16, 304), (32, 144),
+        (64, 144), (128, 864)))},
+    "odd rows": (3, 151),           # rows of an odd stride: scalar access
+}
+# signed_panel against its plain version, each part (the diagonal block's
+# lower triangle, the panel, X) relative to its own largest entry. Both are
+# IEEE; they differ in the order of the sums inside the 32-wide solve
+# (cuBLAS's TRSM against the kernel's row-by-row substitution) and in the
+# fused multiply-adds of the column updates: a few ulps a step over at most
+# 32 steps on these well-conditioned blocks.
+SIGNED_REL = {torch.float32: 2e-5, torch.float64: 1e-13}
+
+
+def _signed_fronts(B, W, dtype, seed):
+    """Seeded quasi-definite fronts [B, W, W] on the card and their
+    signature: off-diagonal entries of variance 0.5 / W, so a row's sum of
+    magnitudes is about 0.56 W^0.5, and the diagonal s (1 + W^0.5), so that
+    both sign blocks are diagonally dominant and any diagonal block factors
+    alone."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.where(torch.rand(B, W, generator=gen, device="cuda") < 0.4,
+                    -1.0, 1.0).to(dtype)
+    a = torch.randn(B, W, W, generator=gen, device="cuda").to(dtype)
+    a = (a + a.transpose(1, 2)).mul_(0.5 / W ** 0.5)
+    a.diagonal(dim1=1, dim2=2).copy_(s * (1 + W ** 0.5))
+    return a, s
+
+
+def _signed_parts(work, x, c0, c1):
+    return (work[:, c0:c1, c0:c1].tril(), work[:, c1:, c0:c1], x)
+
+
+def _signed_panels(W):
+    """The first panel, one in the middle and the last (ragged where W is
+    not a multiple of 32)."""
+    last = (W - 1) // 32 * 32
+    return sorted({0, (W // 64) * 32, last})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", sorted(SIGNED_SHAPES))
+def test_signed_panel_kernel_matches_plain(shape, dtype):
+    """The kernel against `signed_panel_ref` on the same fronts, at the
+    first, a middle and the last panel of every signed level shape; a
+    second launch bitwise equal; the tickets left zero."""
+    _require_cuda()
+    B, W = SIGNED_SHAPES[shape]
+    a, s = _signed_fronts(B, W, dtype, seed=31)
+    tickets = torch.zeros(B, dtype=torch.int32, device="cuda")
+    for c0 in _signed_panels(W):
+        c1 = min(c0 + 32, W)
+        k, again, p = a.clone(), a.clone(), a.clone()
+        xk, xa, xp = (torch.empty(B, W - c1, c1 - c0, dtype=dtype,
+                                  device="cuda") for _ in range(3))
+        before = hk.LAUNCHES["signed_panel"]
+        hk.signed_panel(k, s, c0, c1, xk, tickets)
+        hk.signed_panel(again, s, c0, c1, xa, tickets)
+        hk.signed_panel_ref(p, s, c0, c1, xp)
+        torch.cuda.synchronize()
+        assert hk.LAUNCHES["signed_panel"] == before + 2
+        assert not tickets.any()
+        assert torch.equal(k, again) and torch.equal(xk, xa)
+        for got, want in zip(_signed_parts(k, xk, c0, c1),
+                             _signed_parts(p, xp, c0, c1)):
+            if want.numel():
+                assert torch.isfinite(got).all()
+                assert _rel(got, want) <= SIGNED_REL[dtype], (shape, c0)
+        # nothing outside the panel's columns and the block's lower triangle
+        keep = a.clone()
+        keep[:, c0:, c0:c1] = k[:, c0:, c0:c1]
+        up = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
+                        device="cuda").triu(1)
+        keep[:, c0:c1, c0:c1][:, up] = a[:, c0:c1, c0:c1][:, up]
+        assert torch.equal(k, keep)
+        del k, again, p, xk, xa, xp, keep
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_signed_panel_kernel_reads_strided_fronts(dtype):
+    """A work that is a clone of a strided `blk` view (as the level loop
+    makes it), and a strided view itself (row stride F + 1, aligned and
+    not), give what the plain version gives."""
+    _require_cuda()
+    B, W, F = 5, 300, 420
+    a, s = _signed_fronts(B, W, dtype, seed=32)
+    for pad in (1, 4):
+        full = torch.zeros(B, F + pad, F + pad, dtype=dtype, device="cuda")
+        full[:, :W, :W] = a
+        blk = full[:, :F, :W]
+        for work in (blk[:, :W, :].clone(), full[:, :W, :W]):
+            p = a.clone()
+            xk = torch.empty(B, W - 64, 32, dtype=dtype, device="cuda")
+            xp = torch.empty_like(xk)
+            hk.signed_panel(work, s, 32, 64, xk)
+            hk.signed_panel_ref(p, s, 32, 64, xp)
+            for got, want in zip(_signed_parts(work, xk, 32, 64),
+                                 _signed_parts(p, xp, 32, 64)):
+                assert _rel(got, want) <= SIGNED_REL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_signed_cholesky_on_card_matches_cpu(dtype):
+    """The whole blocked factorization through the kernel against the CPU
+    port's column loop, within the f32 / f64 rounding of 160 columns; a
+    signature violation still gives NaN in that front only."""
+    _require_cuda()
+    from cholesky_tpu_torch.numeric import ldlt
+
+    a, s = _signed_fronts(3, 160, torch.float64, seed=33)
+    want = ldlt.blocked_signed_cholesky(a.cpu(), s.cpu())
+    got = ldlt.blocked_signed_cholesky(a.to(dtype), s.to(dtype))
+    # ten times a panel's bound: five panels and the trailing GEMMs
+    # between them, and the f32 input's own rounding
+    assert _rel(got, want) <= SIGNED_REL[dtype] * 10
+    assert not got.triu(1).any()
+    bad = s.clone()
+    bad[1, 100] = -bad[1, 100]
+    nan = torch.isnan(ldlt.blocked_signed_cholesky(a.to(dtype),
+                                                    bad.to(dtype)))
+    assert nan.any(dim=(1, 2)).tolist() == [False, True, False]
+
+
+@pytest.mark.cuda
+def test_signed_panel_kernel_rejects_bad_input(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: a wrong dtype, shape,
+    panel or device raises, and the plain version is never called."""
+    _require_cuda()
+    a, s = _signed_fronts(2, 100, torch.float32, seed=34)
+    x = torch.empty(2, 68, 32, device="cuda")
+
+    def plain(*args):
+        raise AssertionError("signed_panel_ref called on a CUDA tensor")
+
+    monkeypatch.setattr(hk, "signed_panel_ref", plain)
+    hk.signed_panel(a.clone(), s, 0, 32, x)
+    bad = [(a.half(), s.half(), 0, 32, x.half()),       # dtype
+           (a, s.double(), 0, 32, x),                   # s's dtype
+           (a[:, :, :99], s, 0, 32, x),                 # not square
+           (a, s[:, :99], 0, 32, x),                    # s's shape
+           (a, s, 0, 32, x[:, 1:]),                     # xbuf's shape
+           (a, s, 0, 64, torch.empty(2, 36, 64, device="cuda")),  # > 32
+           (a, s, 96, 104, x),                          # past W
+           (a.transpose(1, 2), s, 0, 32, x),            # last stride
+           (a, s, 0, 32, x.cpu()),                      # device
+           (a, s.cpu(), 0, 32, x)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            hk.signed_panel(*args)
+    with pytest.raises(ValueError):
+        hk.signed_panel(a, s, 0, 32, x, torch.zeros(2, device="cuda"))
+    with pytest.raises(ValueError):
+        hk.signed_panel(a, s, 0, 32, x,
+                        torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_qd_factorization_launches_signed_panel_once_a_panel():
+    """One signed factorization on the card: one `signed_panel` launch for
+    every panel of every level, no column loop left (no `addcmul_` or
+    `sqrt_` among the operators the profiler records), and the contract
+    met."""
+    _require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    n, r, c, vq, o, cl, b, s = _qd_problem((20, 20, 20), 6)
+    t = SparseCholesky.from_coo(n, r, c, vq, o, cl, dtype=np.float32,
+                                signs=s)
+    t.factorize()
+    before = hk.LAUNCHES["signed_panel"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t.factorize()
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    assert not [k for k in ops if "addcmul" in k or "sqrt" in k], ops
+    st = t.factor_stats
+    assert st["signed_panels"] == sum(-(-int(w) // 32) for w in t.fplan.W)
+    assert st["signed_panel_launches"] == st["signed_panels"] > 0
+    assert hk.LAUNCHES["signed_panel"] - before == st["signed_panels"]
+    assert t.residual(b, t.solve(b)) <= TOL
+
+
 @pytest.mark.cuda
 def test_schur_complement_on_card_matches_cpu():
     _require_cuda()

@@ -19,6 +19,7 @@ import cholesky_tpu
 from cholesky_tpu.numeric import ldlt as jldlt
 from cholesky_tpu.utils.laplacian import generate_problem
 from cholesky_tpu_torch import SparseCholesky, convert
+from cholesky_tpu_torch.numeric import hopper_kernels as hk
 from cholesky_tpu_torch.numeric import ldlt, regimes
 
 FACTOR_REL = 1e-12      # per level, to the level's largest entry (f64)
@@ -114,15 +115,22 @@ def test_factor_reconstructs_the_permuted_matrix():
                                a_perm, rtol=1e-9, atol=1e-9)
 
 
+def _qd_fronts(B, W, seed=0):
+    """Seeded symmetric quasi-definite fronts [B, W, W] (f64, diagonally
+    dominant in both sign blocks) and their signature [B, W]."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(B, W, W, generator=g, dtype=torch.float64)
+    s = torch.where(torch.rand(B, W, generator=g) < 0.4, -1.0, 1.0).double()
+    a = 0.05 * (a + a.transpose(1, 2)) + torch.diag_embed(s * (0.2 * W + 1))
+    return a, s
+
+
 @pytest.mark.parametrize("panel", [8, 32, 64])
 def test_blocked_signed_cholesky_panel_width(panel):
     """The result does not depend on the panel width beyond roundoff; a
     signature violation gives NaN in that block only."""
-    g = torch.Generator().manual_seed(0)
-    B, W = 3, 150
-    a = torch.randn(B, W, W, generator=g, dtype=torch.float64)
-    s = torch.where(torch.rand(B, W, generator=g) < 0.4, -1.0, 1.0).double()
-    a = 0.05 * (a + a.transpose(1, 2)) + torch.diag_embed(s * (0.2 * W + 1))
+    a, s = _qd_fronts(3, 150)
+    W = 150
     L = ldlt.blocked_signed_cholesky(a, s, panel=panel)
     ref = ldlt.blocked_signed_cholesky(a, s, panel=W)        # unblocked
     assert float((L - ref).abs().max() / ref.abs().max()) <= 1e-13
@@ -133,6 +141,103 @@ def test_blocked_signed_cholesky_panel_width(panel):
     bad[1, 100] = -bad[1, 100]
     nan = torch.isnan(ldlt.blocked_signed_cholesky(a, bad, panel=panel))
     assert nan.any(dim=(1, 2)).tolist() == [False, True, False]
+
+
+@pytest.mark.parametrize("panel", [32, 24, 16])
+def test_signed_panel_ref_matches_the_unblocked_loop(panel):
+    """The panels of `signed_panel_ref` with the trailing updates between
+    them, as `blocked_signed_cholesky` runs them, against one column loop
+    over all W columns; W = 150 leaves a ragged last panel at every width
+    (22, 6 and 6 columns). Each panel's xbuf holds the solved X and the
+    panel X S."""
+    B, W = 3, 150
+    a, s = _qd_fronts(B, W)
+    ref = ldlt.blocked_signed_cholesky(a, s, panel=W)        # unblocked
+    work = a.clone()
+    for c0 in range(0, W, panel):
+        c1 = min(c0 + panel, W)
+        x = torch.empty(B, W - c1, c1 - c0, dtype=a.dtype)
+        below = work[:, c1:, c0:c1].clone()
+        hk.signed_panel_ref(work, s, c0, c1, x)
+        if c1 < W:
+            l11 = work[:, c0:c1, c0:c1].tril()
+            assert torch.allclose(x @ l11.transpose(1, 2), below, rtol=0,
+                                  atol=1e-13 * float(below.abs().max()))
+        assert torch.equal(work[:, c1:, c0:c1], x * s[:, None, c0:c1])
+        work[:, c1:, c1:].baddbmm_(x, work[:, c1:, c0:c1].transpose(1, 2),
+                                   alpha=-1)
+    assert W % panel and W - c0 < panel
+    L = work.tril_()
+    assert float((L - ref).abs().max() / ref.abs().max()) <= 1e-13
+    assert torch.equal(L, ldlt.blocked_signed_cholesky(a, s, panel=panel))
+
+
+def test_signed_panel_ref_nan_on_a_signature_violation():
+    """A pivot whose sign contradicts its signature gives NaN from its
+    column on, in the diagonal block, the panel below and X, of that front
+    only; the columns before it stay finite."""
+    B, W = 3, 96
+    a, s = _qd_fronts(B, W, seed=1)
+    bad = s.clone()
+    bad[1, 40] = -bad[1, 40]
+    work = a.clone()
+    x = torch.empty(B, W - 64, 32, dtype=a.dtype)
+    hk.signed_panel_ref(work, bad, 32, 64, x)
+    d = work[1, 32:64, 32:64]
+    assert torch.isnan(d[8, 8]) and torch.isnan(d[9:, 8]).all()
+    assert torch.isfinite(d[:8, :8].tril()).all()
+    assert torch.isnan(x[1, :, 8:]).all() and torch.isfinite(x[1, :, :8]).all()
+    assert torch.isfinite(x[0]).all() and torch.isfinite(x[2]).all()
+    L = ldlt.blocked_signed_cholesky(a, bad)
+    assert torch.isnan(L[1]).any() and torch.isfinite(L[[0, 2]]).all()
+
+
+def test_signed_panel_leaves_the_strict_upper_triangle_for_tril():
+    """Nothing reads the strict upper triangle: NaN there gives the same
+    factor bit for bit. `signed_panel_ref` leaves the rank-1 updates' values
+    in the diagonal block's upper triangle (not zeros), for the caller's
+    tril_."""
+    B, W = 2, 100
+    a, s = _qd_fronts(B, W, seed=2)
+    dirty = a.clone()
+    up = torch.ones(W, W, dtype=torch.bool).triu(1)
+    dirty[:, up] = float("nan")
+    clean = ldlt.blocked_signed_cholesky(a, s)
+    assert torch.isfinite(clean).all()
+    assert torch.equal(ldlt.blocked_signed_cholesky(dirty, s), clean)
+    work = a.clone()
+    hk.signed_panel_ref(work, s, 0, 32, torch.empty(B, W - 32, 32,
+                                                   dtype=a.dtype))
+    d = work[:, :32, :32]
+    assert torch.equal(d.triu(1)[:, 0], a[:, :32, :32].triu(1)[:, 0])
+    assert not torch.equal(d.triu(1), a[:, :32, :32].triu(1))
+    assert torch.equal(work[:, :32, 32:], a[:, :32, 32:])
+
+
+def test_signed_panel_on_cpu_is_plain_and_uncounted():
+    """The wrapper on CPU tensors is `signed_panel_ref`, bit for bit, and
+    counts no launch; a tensor on neither the CPU nor a card raises."""
+    B, W = 2, 70
+    a, s = _qd_fronts(B, W, seed=3)
+    k, p = a.clone(), a.clone()
+    xk = torch.empty(B, W - 64, 32, dtype=a.dtype)
+    xp = torch.empty_like(xk)
+    before = dict(hk.LAUNCHES)
+    hk.signed_panel(k, s, 32, 64, xk)
+    hk.signed_panel_ref(p, s, 32, 64, xp)
+    assert hk.LAUNCHES == before
+    assert torch.equal(k, p) and torch.equal(xk, xp)
+    with pytest.raises(ValueError):
+        hk.signed_panel(torch.empty(B, W, W, device="meta"), s, 0, 32, xk)
+
+
+def test_signed_panel_launches_are_zero_on_the_cpu():
+    _, ts, _, _ = _pair((8, 7), 3, dtype=np.float32)
+    ts.factorize()
+    st = ts.factor_stats
+    assert st["signed_panel_launches"] == 0
+    assert st["signed_panels"] == sum(-(-int(w) // ldlt.PANEL)
+                                      for w in ts.fplan.W) > 0
 
 
 @pytest.mark.parametrize("shape,levels", GRIDS)
